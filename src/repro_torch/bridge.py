@@ -1,0 +1,69 @@
+"""Carry weights and index state from the JAX package into the port.
+
+Both functions take plain numpy arrays (the caller converts the JAX
+arrays, e.g. ``jax.tree.map(np.asarray, tree)``), so this module needs
+neither framework's arrays beyond torch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.serving.snapshot import IndexSnapshot
+
+
+def params_from_jax(tree, device="cuda"):
+    """A JAX parameter tree (dicts of numpy leaves) -> the port's tree.
+
+    Dense weights keep their ``[in, out]`` layout. The PLM's stacked
+    ``layers`` subtree (a leading ``n_layers`` axis from ``jax.vmap``) is
+    split into a list of per-layer dicts.
+    """
+    def conv(node, *, stacked=False):
+        if isinstance(node, dict):
+            if stacked:
+                n = _leading(node)
+                return [conv(_index(node, i)) for i in range(n)]
+            return {k: conv(v, stacked=(k == "layers")) for k, v in
+                    node.items()}
+        return torch.as_tensor(np.array(node)).to(device)
+
+    return conv(tree)
+
+
+def _leading(node) -> int:
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return int(np.shape(node)[0])
+
+
+def _index(node, i):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def snapshot_from_arrays(*, version: int, kind: str, dim: int, ntotal: int,
+                         nprobe: int, metric: str, cent_unit, cent_raw,
+                         list_ids, payload, lens, pq_centers=None,
+                         pq_rot=None, device="cuda") -> IndexSnapshot:
+    """A port IndexSnapshot of the IVF kinds from a JAX snapshot's arrays
+    (numpy): the same quantizers, lists and codes, so both packages score
+    identical candidates."""
+    if kind not in ("ivf-flat", "ivf-pq"):
+        raise ValueError(f"snapshot_from_arrays takes IVF kinds, got {kind!r}")
+    device = torch.device(device)
+
+    def t(x, dtype=None):
+        if x is None:
+            return None
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    return IndexSnapshot(
+        version=version, kind=kind, dim=dim, ntotal=ntotal, device=device,
+        nprobe=nprobe, metric=metric,
+        cent_unit=t(cent_unit, torch.float32), cent_raw=t(cent_raw,
+                                                          torch.float32),
+        list_ids=t(list_ids, torch.int32), payload=t(payload),
+        lens=t(lens, torch.int32), pq_centers=t(pq_centers, torch.float32),
+        pq_rot=t(pq_rot, torch.float32))

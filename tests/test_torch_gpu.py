@@ -1,0 +1,213 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions,
+and the serving slice on the card at a small size.
+
+Every test here is marked ``gpu`` and skips where no GPU is present (the
+kernels have no CPU mode). The file imports only torch, numpy and the
+port, so it runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import bus_attention as bus_mod  # noqa: E402
+from repro_torch.kernels import pq_scoring as pq_mod  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+BUS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+PQ_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bus(M, K, S, H, D, dev, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Sk = S + K
+    q = torch.randn(M, K, S, H, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(M, K, Sk, H, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(M, K, Sk, H, D, generator=g, device=dev).to(dtype)
+    mask = torch.rand(M, K, Sk, generator=g, device=dev) < 0.75
+    mask[:, :, 0] = True
+    mask[::3, K - 1] = False                   # segments with no valid key
+    return q, k, v, mask
+
+
+def _pq(B, M, K, N, Bc, Bv, code_dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.randn(B, M, K, generator=g, device=dev)
+    codes = torch.randint(0, K, (Bc, N, M), generator=g,
+                          device=dev).to(code_dtype)
+    valid = None if Bv is None else \
+        torch.rand(Bv, N, generator=g, device=dev) < 0.7
+    return lut, codes, valid
+
+
+@pytest.mark.parametrize("shape", [(256, 3, 32, 12, 64), (7, 3, 32, 12, 64),
+                                   (5, 2, 8, 4, 16), (3, 5, 16, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bus_attention_cuda_matches_plain(cuda, shape, dtype):
+    q, k, v, mask = _bus(*shape, cuda, dtype)
+    got = bus_mod.bus_attention_cuda(q, k, v, mask)
+    exp = bus_mod.bus_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - exp.float()).abs().max()) <= BUS_TOL[dtype]
+
+
+def test_bus_attention_cuda_uniform_mean_on_an_all_masked_segment(cuda):
+    q, k, v, mask = _bus(4, 3, 32, 12, 64, cuda)
+    mask[1, 2] = False
+    got = bus_mod.bus_attention_cuda(q, k, v, mask)
+    exp = v[1, 2].mean(dim=0)                              # over Sk keys
+    assert float((got[1, 2] - exp[None]).abs().max()) <= BUS_TOL[q.dtype]
+
+
+@pytest.mark.parametrize("M,K,Bc,Bv,code_dtype", [
+    (8, 32, 16, 16, torch.uint8),     # the serve path (8-byte code loads)
+    (8, 32, 1, 1, torch.uint8),       # shared codes and validity
+    (8, 32, 16, None, torch.uint8),
+    (5, 256, 16, 1, torch.uint8),     # M not a multiple of 8
+    (8, 32, 1, 16, torch.int32),
+])
+def test_pq_lut_scores_cuda_matches_plain(cuda, M, K, Bc, Bv, code_dtype):
+    lut, codes, valid = _pq(16, M, K, 5003, Bc, Bv, code_dtype, cuda)
+    got = pq_mod.pq_lut_scores_cuda(lut, codes, valid)
+    exp = pq_mod.pq_lut_scores_plain(lut, codes, valid)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(exp)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert float((got[fin] - exp[fin]).abs().max()) <= PQ_TOL
+
+
+@pytest.mark.parametrize("code_dtype,lo,hi", [
+    (torch.uint8, 0, 20),      # 8-byte loads, codes at and past K=16
+    (torch.int32, -20, 20),
+])
+def test_pq_lut_scores_cuda_out_of_range_codes_match_plain(cuda, code_dtype,
+                                                           lo, hi):
+    """Codes outside the table score NaN on both versions, at the same
+    slots; negative int32 codes count from the end on both."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lut = torch.randn(16, 8, 16, generator=g, device=cuda)
+    codes = torch.randint(lo, hi, (16, 999, 8), generator=g,
+                          device=cuda).to(code_dtype)
+    valid = torch.rand(16, 999, generator=g, device=cuda) < 0.7
+    got = pq_mod.pq_lut_scores_cuda(lut, codes, valid)
+    exp = pq_mod.pq_lut_scores_plain(lut, codes, valid)
+    torch.cuda.synchronize()
+    assert bool(exp.isnan().any()) and bool(exp.isfinite().any())
+    torch.testing.assert_close(got, exp, rtol=0, atol=PQ_TOL, equal_nan=True)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, mask = _bus(2, 3, 8, 2, 16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bus_mod.bus_attention_cuda(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, v, mask)
+    with pytest.raises(ValueError, match="bool"):
+        bus_mod.bus_attention_cuda(q, k, v, mask.to(torch.uint8))
+    lut, codes, valid = _pq(2, 8, 32, 40, 2, 2, torch.uint8, cuda)
+    with pytest.raises(TypeError):
+        pq_mod.pq_lut_scores_cuda(lut.double(), codes, valid)
+    with pytest.raises(TypeError):
+        pq_mod.pq_lut_scores_cuda(lut, codes.long(), valid)
+
+
+def test_ops_never_take_the_plain_version_on_cuda(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(bus_mod, "bus_attention_plain", refuse)
+    monkeypatch.setattr(pq_mod, "pq_lut_scores_plain", refuse)
+    q, k, v, mask = _bus(2, 3, 8, 2, 16, cuda)
+    lut, codes, valid = _pq(2, 8, 32, 40, 2, 2, torch.uint8, cuda)
+    before = ops.launch_counts()
+    ops.bus_attention(q, k, v, mask)
+    ops.pq_lut_scores(lut, codes, valid)
+    after = ops.launch_counts()
+    assert after["bus_attention"] == before["bus_attention"] + 1
+    assert after["pq_lut_scores"] == before["pq_lut_scores"] + 1
+
+
+def test_serving_slice_on_the_card_goes_through_both_kernels(cuda):
+    from repro_torch import core
+    from repro_torch.launch import serve, train
+    cfg = train.small_speedyfeed_config()
+    _, log, store, _ = train.make_loader(cfg, n_news=600, n_users=64)
+    params = core.init_speedyfeed(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    rec = serve.Recommender(cfg, params, store, k=10, index_kind="ivf-pq",
+                            nprobe=4, k_prime=32, device=cuda)
+    ops.reset_launch_counts()
+    emb = rec._encode_corpus()
+    rec.build_index_from(emb)
+    results, n_batches, _ = serve.micro_batch_loop(rec, log.histories[:32],
+                                                   max_batch=16)
+    counts = ops.launch_counts()
+    assert counts["bus_attention"] == cfg.plm.n_layers * 3    # 601 rows
+    assert counts["pq_lut_scores"] == n_batches == 2
+    assert all((r > 0).all() for r in results)
+    with torch.inference_mode():
+        toks = torch.as_tensor(store.tokens[1:257], device=cuda).long()
+        freq = torch.as_tensor(store.freq[1:257], device=cuda).long()
+        plain = core.buslm_encode(rec.params["plm"], cfg.plm, toks, freq,
+                                  impl="plain")
+    assert float((plain - emb[1:257]).abs().max()) <= 5e-4
+    # the query batch's stage-1 scan: kernel and plain on the inputs the
+    # served search gathers, ranked the same way
+    from repro_torch.serving.index import _masked_topk, _pq_scan_inputs
+    hist, mask = serve._pad_histories(rec, log.histories[:16], 16)
+    user = rec.encode_users(hist, mask)
+    snap = rec.service.snapshot()
+    lut, codes, valid, cand, coarse = _pq_scan_inputs(
+        user, snap.cent_unit, snap.cent_raw, snap.list_ids, snap.payload,
+        snap.lens, snap.pq_centers, snap.pq_rot, nprobe=snap.nprobe,
+        metric=snap.metric)
+    k_eff = min(rec.service.k_prime, snap.nprobe * snap.cap)
+    s_k, _ = _masked_topk(ops.pq_lut_scores(lut, codes, valid) + coarse,
+                          cand, valid, k_eff)
+    s_p, _ = _masked_topk(pq_mod.pq_lut_scores_plain(lut, codes, valid)
+                          + coarse, cand, valid, k_eff)
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-4)
+    assert np.isfinite(emb.cpu().numpy()).all()
+
+
+def test_background_rebuild_on_the_card_while_queries_run(cuda):
+    """A compaction on the rebuild thread (same device) while the request
+    thread keeps querying; every query sees one whole snapshot."""
+    from repro_torch import serving
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    ids = np.arange(1, 3001)
+    q = rng.normal(size=(8, 32)).astype(np.float32)
+    svc = serving.RetrievalService(
+        serving.IndexBuilder("ivf-pq", 32, device=cuda,
+                             ivf=serving.IVFConfig(nlist=16, nprobe=16)),
+        np.zeros((1, 32), np.float32), k=10, auto_compact=False,
+        device=cuda)
+    svc.publish(ids[:2500], x[:2500])
+    svc.rebuild(mode="full", block=True)
+    svc.publish(ids[2500:], x[2500:])
+    thread = svc.rebuild(mode="compact", block=False)
+    n_queries = 0
+    while thread.is_alive() or n_queries == 0:
+        _, got = svc.query(q)
+        assert got.shape == (8, 10) and (got > 0).all()
+        n_queries += 1
+    svc.wait_for_build()
+    assert svc.version == 2 and svc.ntotal == 3000 and svc.n_pending == 0
+    exact = ids[np.argsort(-(q @ x.T), axis=1)[:, :10]]
+    _, got = svc.query(q)
+    hits = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)])
+    assert hits >= 0.5

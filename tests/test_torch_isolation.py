@@ -1,0 +1,61 @@
+"""The port stands alone: no JAX and nothing of the JAX package in its
+sources or in chip_smoke.py, and no silent move to the CPU."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_the_walk_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"ops.py", "buslm.py", "index.py", "serve.py",
+            "chip_smoke.py"} <= names
+
+
+def _require_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+
+
+def test_recommender_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch.launch import serve, train
+    cfg = train.small_speedyfeed_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.Recommender(cfg, {}, store=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
+
+
+def test_service_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch import serving
+    builder = serving.IndexBuilder("exact", 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.RetrievalService(builder, np.zeros((4, 8), np.float32))
