@@ -1,6 +1,7 @@
-"""Carry weights and index state from the JAX package into the port.
+"""Carry weights, training state and index state from the JAX package
+into the port.
 
-Both functions take plain numpy arrays (the caller converts the JAX
+The functions take plain numpy arrays (the caller converts the JAX
 arrays, e.g. ``jax.tree.map(np.asarray, tree)``), so this module needs
 neither framework's arrays beyond torch.
 """
@@ -9,7 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.cache import CacheState
 from repro_torch.serving.snapshot import IndexSnapshot
+from repro_torch.training.state import TrainState
 
 
 def params_from_jax(tree, device="cuda"):
@@ -41,6 +44,32 @@ def _index(node, i):
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
+
+
+def state_from_jax(params, opt, cache, step: int, *, seed: int = 0,
+                   device="cuda") -> TrainState:
+    """A JAX training state -> the port's TrainState.
+
+    ``params``: the parameter tree; ``opt``: the Adam state ``{"m", "v",
+    "count"}``, whose moment trees have the params' layout (so their
+    stacked ``layers`` split into lists too); ``cache``: ``(emb,
+    written_step)``. The step draws' generator is seeded with ``seed`` on
+    ``device`` (JAX's PRNG key has no torch counterpart).
+    """
+    device = torch.device(device)
+    emb, written_step = cache
+    return TrainState(
+        params=params_from_jax(params, device),
+        opt={"m": params_from_jax(opt["m"], device),
+             "v": params_from_jax(opt["v"], device),
+             "count": torch.as_tensor(np.array(opt["count"]),
+                                      dtype=torch.int32).to(device)},
+        cache=CacheState(
+            torch.as_tensor(np.array(emb)).to(device),
+            torch.as_tensor(np.array(written_step),
+                            dtype=torch.int32).to(device)),
+        step=int(step),
+        rng=torch.Generator(device=device).manual_seed(seed))
 
 
 def snapshot_from_arrays(*, version: int, kind: str, dim: int, ntotal: int,

@@ -1,12 +1,25 @@
-"""SpeedyFeed core: PLM/BusLM news encoder, user model, configuration."""
+"""SpeedyFeed core: PLM/BusLM news encoder, cache, centralized set, user
+model, loss and the Algorithm-1 pipeline."""
 from .buslm import buslm_encode, plm_flops
-from .cache import CacheConfig
-from .pipeline import SpeedyFeedConfig, init_speedyfeed, make_config
+from .cache import (NEVER, CacheConfig, CachePlan, CacheState,
+                    assemble_embeddings, cache_plan, cache_refresh,
+                    init_cache)
+from .centralized import MergedSet, dispatch, gather_dedup
+from .loss import ar_loss, sample_negatives
+from .pipeline import (SpeedyFeedConfig, StepOut, init_speedyfeed,
+                       make_config, speedyfeed_forward, speedyfeed_state)
 from .plm import (PLMConfig, additive_attention, embed_inputs, ffn,
                   init_plm)
-from .user_model import UserModelConfig, attentive_user, init_user_model
+from .user_model import (UserModelConfig, attentive_user,
+                         attentive_user_causal, init_user_model,
+                         user_embeddings)
 
-__all__ = ["buslm_encode", "plm_flops", "CacheConfig", "SpeedyFeedConfig",
-           "init_speedyfeed", "make_config", "PLMConfig",
-           "additive_attention", "embed_inputs", "ffn", "init_plm",
-           "UserModelConfig", "attentive_user", "init_user_model"]
+__all__ = ["buslm_encode", "plm_flops", "NEVER", "CacheConfig", "CachePlan",
+           "CacheState", "assemble_embeddings", "cache_plan", "cache_refresh",
+           "init_cache", "MergedSet", "dispatch", "gather_dedup", "ar_loss",
+           "sample_negatives", "SpeedyFeedConfig", "StepOut",
+           "init_speedyfeed", "make_config", "speedyfeed_forward",
+           "speedyfeed_state", "PLMConfig", "additive_attention",
+           "embed_inputs", "ffn", "init_plm", "UserModelConfig",
+           "attentive_user", "attentive_user_causal", "init_user_model",
+           "user_embeddings"]

@@ -7,11 +7,14 @@ attention costs O(K * S * (S + K)) instead of O(N^2). The final embedding
 uses two-level additive attention pooling (Eq. 9-14).
 
 The bus attention itself is ``kernels.ops.bus_attention``: the CUDA
-kernel on the card, its plain version on the CPU.
+kernels (forward and backward) on the card, their plain versions on the
+CPU. With ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), so only the layer inputs are kept.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.bus_attention import bus_attention_plain
@@ -76,7 +79,11 @@ def buslm_encode(params, cfg: PLMConfig, tokens, freq=None, mask=None,
         mask = tokens != 0
     h = embed_inputs(params, cfg, tokens, freq)               # [M, K, S, d]
     for layer in params["layers"]:
-        h = _bus_attention_layer(layer, h, mask, cfg, impl)
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(_bus_attention_layer, layer, h, mask, cfg, impl,
+                           use_reentrant=False)
+        else:
+            h = _bus_attention_layer(layer, h, mask, cfg, impl)
 
     # two-level pooling: tokens -> segment vectors -> news embedding
     v_seg = additive_attention(params["pool_tok"], h, mask)   # [M, K, d]

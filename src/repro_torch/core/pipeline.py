@@ -1,17 +1,31 @@
-"""SpeedyFeed configuration and parameter initialisation.
+"""SpeedyFeed's light-weighted encoding pipeline (Algorithm 1).
 
-The Algorithm-1 training forward and the conventional baseline belong to
-the training slice.
+One training step over a centralized batch:
+  1. merged news set M (deduplicated by the loader or by gather_dedup)
+  2. cache plan: which news reuse cached embeddings, which get encoded
+     (fixed budget E; p_t scheduler; gamma expiry)                  §4.1.2
+  3. BusLM-encode the encode set                                    §4.1.3
+  4. assemble and dispatch embeddings to history positions          §4.1.1
+  5. autoregressive user modelling and the Eq. 5 loss               §4.1.4
+  6. refresh the cache
+
+The conventional workflow (the paper's speedup baseline) is not ported
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
-from .cache import CacheConfig
+from .buslm import buslm_encode
+from .cache import (CacheConfig, CacheState, assemble_embeddings, cache_plan,
+                    cache_refresh, init_cache)
+from .centralized import dispatch
+from .loss import ar_loss, sample_negatives
 from .plm import PLMConfig, init_plm
-from .user_model import UserModelConfig, init_user_model
+from .user_model import UserModelConfig, init_user_model, user_embeddings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +61,64 @@ def init_speedyfeed(gen: torch.Generator, cfg: SpeedyFeedConfig):
     """Random parameters on ``gen``'s device: {"plm": ..., "user": ...}."""
     return {"plm": init_plm(gen, cfg.plm),
             "user": init_user_model(gen, cfg.user)}
+
+
+def speedyfeed_state(cfg: SpeedyFeedConfig, gen: torch.Generator):
+    """(params, cold cache) on ``gen``'s device."""
+    return init_speedyfeed(gen, cfg), init_cache(cfg.cache, gen.device)
+
+
+class StepOut(NamedTuple):
+    loss: torch.Tensor
+    cache: CacheState
+    metrics: dict
+
+
+def speedyfeed_forward(params, cfg: SpeedyFeedConfig, batch,
+                       cache: CacheState, step: int, gen=None, *, u=None,
+                       neg_idx=None, impl: str = "kernel") -> StepOut:
+    """Algorithm 1. ``batch`` holds the loader's centralized tensors:
+      news_tokens [M, K, S]  news_freq [M, K, S]  news_ids [M]
+      hist_inv [B, L]        hist_mask [B, L]
+
+    The step's two random draws, the cache gate's uniform ``u`` and the
+    negatives ``neg_idx`` [B, L-1, n_neg], come from ``gen`` unless given.
+    Exactly E rows are encoded every step, pad slots included. The cache
+    is refreshed in place, and only when the loss is finite (the
+    trainer's non-finite guard). ``impl`` is passed to ``buslm_encode``.
+    """
+    news_ids = batch["news_ids"]
+    if u is None:
+        u = torch.rand((), generator=gen, device=gen.device)
+    plan = cache_plan(cache, news_ids, step, u, cfg.cache)
+    enc_tokens = batch["news_tokens"][plan.enc_pos]
+    enc_freq = batch["news_freq"][plan.enc_pos]
+    new_emb = buslm_encode(params["plm"], cfg.plm, enc_tokens, enc_freq,
+                           impl=impl)
+
+    emb_m = assemble_embeddings(cache, plan, news_ids, new_emb)
+    theta = dispatch(emb_m, batch["hist_inv"])            # [B, L, d]
+    mask = batch["hist_mask"]
+
+    mu = user_embeddings(params["user"], cfg.user, theta, mask)
+    if neg_idx is None:
+        neg_idx = sample_negatives(gen, cfg.merged_cap, mask[:, 1:].shape,
+                                   cfg.n_neg)
+    loss, m = ar_loss(mu, theta, mask, emb_m, news_ids, neg_idx,
+                      hist_inv=batch["hist_inv"])
+
+    cache = cache_refresh(cache, plan, news_ids, new_emb, step,
+                          commit=torch.isfinite(loss))
+
+    n_tok = (enc_tokens != 0).sum()
+    m.update({
+        "p_t": plan.p_t,
+        "encoded": plan.enc_valid.sum(),
+        "reused": plan.reuse.sum(),
+        "cache_overflow": plan.overflow,
+        "cache_hits": plan.reuse.sum(),
+        "cache_misses": plan.missing.sum(),
+        "cache_expired": plan.expired.sum(),
+        "data_efficiency": n_tok / max(enc_tokens.numel(), 1),
+    })
+    return StepOut(loss, cache, m)

@@ -30,7 +30,7 @@ class PLMConfig:
     news_dim: int = 64           # final news embedding dim
     use_bus: bool = True
     dtype: str = "float32"
-    remat: bool = False          # recompute in backward: the training slice
+    remat: bool = False          # recompute each layer in the backward
 
 
 def init_plm(gen: torch.Generator, cfg: PLMConfig):

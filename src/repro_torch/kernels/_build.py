@@ -14,6 +14,7 @@ or a launch that returns an error raises; nothing falls back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -56,8 +57,8 @@ def check_device(t: torch.Tensor):
 class CudaKernel:
     """One ``.cu`` source, its shared library, and its launch count.
 
-    ``launches`` is a plain integer that ``launch`` bumps once per kernel
-    launch, so a run can show that its path went through the kernel.
+    ``launches`` counts, by C symbol, the launches ``launch`` made, so a
+    run can show that its path went through the kernel.
     """
 
     def __init__(self, name: str, source: str, functions: dict):
@@ -66,7 +67,7 @@ class CudaKernel:
         self.name = name
         self.source = CSRC / source
         self.functions = functions
-        self.launches = 0
+        self.launches = collections.Counter()
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -106,7 +107,7 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: {sym} launch failed with "
                                f"cudaError {err}")
-        self.launches += 1
+        self.launches[sym] += 1
 
 
 def build(kernels) -> None:

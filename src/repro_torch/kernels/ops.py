@@ -4,14 +4,46 @@ A tensor on the CPU takes the kernel's plain PyTorch version (this is
 how the tests run). A CUDA tensor launches the CUDA kernel, or raises:
 a device that is not sm_90, a missing ``nvcc``, a failed build or a
 failed launch is an error, never a reason to run something else.
+
+Bus attention is differentiable: ``bus_attention`` goes through one
+``torch.autograd.Function`` on every device, whose forward and backward
+are the CUDA kernels on the card and their plain versions on the CPU.
 """
 from __future__ import annotations
+
+import torch
 
 from . import bus_attention as _bus
 from . import pq_scoring as _pq
 from ._build import build
 
-KERNELS = {"bus_attention": _bus.KERNEL, "pq_lut_scores": _pq.KERNEL}
+# kernel name -> (library, C symbol whose launches it counts)
+KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
+           "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
+           "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores")}
+
+
+class _BusAttention(torch.autograd.Function):
+    """(q, k, v, kv_mask) -> o. Saves q/k/v and recomputes the softmax in
+    the backward (the JAX package's custom VJP, ``kernels/ops.py``); the
+    mask gets no gradient, the others come back in the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        if q.device.type == "cpu":
+            return _bus.bus_attention_plain(q, k, v, kv_mask)
+        return _bus.bus_attention_cuda(q, k, v, kv_mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = _bus.bus_attention_bwd_plain(q, k, v, kv_mask, do)
+        else:
+            dq, dk, dv = _bus.bus_attention_bwd_cuda(q, k, v, kv_mask, do)
+        return dq, dk, dv, None
 
 
 def bus_attention(q, k, v, kv_mask, *, block_m: int = 8):
@@ -19,9 +51,7 @@ def bus_attention(q, k, v, kv_mask, *, block_m: int = 8):
     ``block_m`` is kept for parity with the TPU wrapper, which padded M to
     a block multiple; a CUDA grid needs no padding, so it is unused."""
     del block_m
-    if q.device.type == "cpu":
-        return _bus.bus_attention_plain(q, k, v, kv_mask)
-    return _bus.bus_attention_cuda(q, k, v, kv_mask)
+    return _BusAttention.apply(q, k, v, kv_mask)
 
 
 def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
@@ -38,20 +68,25 @@ def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
     return _pq.pq_lut_scores_cuda(lut, codes, valid)
 
 
+def _libraries():
+    return list({id(lib): lib for lib, _ in KERNELS.values()}.values())
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
-    return {name: kern.launches for name, kern in KERNELS.items()}
+    return {name: lib.launches[sym] for name, (lib, sym) in KERNELS.items()}
 
 
 def reset_launch_counts():
-    for kern in KERNELS.values():
-        kern.launches = 0
+    for lib in _libraries():
+        lib.launches.clear()
 
 
 def build_all():
-    """Build every kernel's library now, one ``nvcc`` per source, started
-    together; returns the compilers' output by kernel name."""
-    build(KERNELS.values())
-    for kern in KERNELS.values():
-        kern.lib()
-    return {name: kern.build_log for name, kern in KERNELS.items()}
+    """Build every kernel library now, one ``nvcc`` per source, started
+    together; returns the compilers' output by library name."""
+    libs = _libraries()
+    build(libs)
+    for lib in libs:
+        lib.lib()
+    return {lib.name: lib.build_log for lib in libs}

@@ -1,7 +1,9 @@
-"""Where the serve slice's time goes on the card, and where its recall goes.
+"""Where the serve and train slices' time goes on the card, and where
+the serve slice's recall goes.
 
     python -m repro_torch.launch.profile [--news 16384] \
         [--out chiprun_out/profile_serve.json]
+    python -m repro_torch.launch.profile --train [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
 random weights, a ``make_loader`` corpus, IVF-PQ with nlist from the
@@ -16,6 +18,12 @@ corpus size, nprobe 16, k' 64) on the GPU, then:
   k' best ADC candidates), and the served recall@10 — for IVF-PQ and for
   IVF-Flat over the same embeddings.
 
+With ``--train`` it instead profiles one Algorithm-1 step at PROD (the
+``"speedyfeed"`` Trainer, E=4096, remat on) on the first batch of the top
+seg-length bucket that the DynamicBatcher builds at the paper's token
+budget: device time by kernel name and the device's busy share, printed
+(and written to ``--out`` when it is given).
+
 With ``--recall-repeat`` it instead studies where the spread of recall@10
 between runs comes from (``recall_repeat``), and writes the corpus
 embeddings and the probe users' vectors to ``--vectors-out`` (an .npz that
@@ -25,6 +33,7 @@ hold the port's build against the JAX package's on the same vectors).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -35,16 +44,16 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch import core, serving
+from repro_torch import core, data, serving, training
 from repro_torch.configs import PROD
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Recommender, _pad_histories
-from repro_torch.launch.train import make_loader
+from repro_torch.launch.train import first_batch_of_bucket, make_loader
 from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
 
-def _kernel_table(prof, wall_s: float, top: int = 12) -> dict:
+def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
     """Device time by kernel name from a profile, and the busy share."""
     rows = []
     for e in prof.key_averages():
@@ -73,6 +82,26 @@ def _profiled(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return _kernel_table(prof, wall)
+
+
+def profile_train_step(log, store, lcfg, dev) -> dict:
+    """``torch.profiler`` over one PROD train step (after one warm step) on
+    the first top-bucket batch at the paper's token budget."""
+    lcfg = dataclasses.replace(lcfg,
+                               token_budget=data.LoaderConfig.token_budget)
+    top = max(lcfg.buckets)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             first_batch_of_bucket(log, store, lcfg, top).items()
+             if not k.startswith("_")}
+    trainer = training.get_trainer("speedyfeed", cfg=PROD, device=dev)
+    state = [trainer.init_state(0)]
+
+    def step():
+        state[0], _ = trainer.step(state[0], batch, top)
+
+    out = _profiled(step)
+    out["bucket"] = top
+    return out
 
 
 def _cells_of(snap, n_rows: int):
@@ -216,6 +245,8 @@ def main(argv=None):
     ap.add_argument("--news", type=int, default=16384)
     ap.add_argument("--out", default=None, help="report JSON (default "
                     "chiprun_out/profile_serve.json, or recall_repeat.json)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one PROD train step instead")
     ap.add_argument("--recall-repeat", action="store_true",
                     help="run only the recall-repeat study")
     ap.add_argument("--vectors-out", default="chiprun_out/recall_vectors.npz")
@@ -234,7 +265,20 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    _, log, store, _ = make_loader(PROD, n_news=args.news, seed=0)
+    _, log, store, lcfg = make_loader(PROD, n_news=args.news, seed=0)
+    if args.train:
+        report = {"card": card, "train_step": profile_train_step(
+            log, store, lcfg, dev)}
+        if args.out:
+            _write(args.out, report)
+        r = report["train_step"]
+        print(f"train step: wall {r['wall_ms']:.1f} ms, device busy "
+              f"{r['device_busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%)")
+        for kern in r["kernels"]:
+            print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
+                  f"{kern['name']}")
+        print(card)
+        return report
     params = core.init_speedyfeed(
         torch.Generator(device=dev).manual_seed(0), PROD)
     rec = Recommender(PROD, params, store, k=10, index_kind="ivf-pq",

@@ -1,0 +1,147 @@
+"""Host-to-device input pipeline (double-buffered prefetch).
+
+While step N runs, the next batch is assembled by the DynamicBatcher's
+threads and copied to the device by this prefetcher's thread; the
+bounded queue lets at most ``depth`` batches be in flight.
+
+The copies are queued on the CUDA stream that was current when the
+prefetcher started (the stream the step runs on), from pinned host
+memory with ``non_blocking``: the copy of batch N+1 is queued behind the
+work already queued, and the step that reads it is queued after the
+copy, so the stream orders every read after its copy and no event is
+needed.
+
+The prefetcher also owns epoch turnover: on ``EPOCH_END`` it stops the
+exhausted batcher and starts the next epoch's, so the consumer sees one
+uninterrupted batch stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+import warnings
+
+import torch
+
+from repro_torch import data
+
+# producer finished cleanly (max_epochs reached, queue drained); distinct
+# from None, which means timeout
+STREAM_END = data.Sentinel("STREAM_END")
+
+
+@dataclasses.dataclass
+class PrefetchedBatch:
+    bucket: int          # seg-length bucket
+    arrays: dict         # batch tensors on the device
+    stats: dict | None   # host-side loader stats (data efficiency etc.)
+    epoch: int = 0
+
+
+class DevicePrefetcher:
+    """Background thread: DynamicBatcher -> device tensors -> bounded queue.
+
+    ``make_batcher(epoch)`` must return a started DynamicBatcher; a fresh
+    one is created per epoch with the epoch index available for reseeding.
+    """
+
+    def __init__(self, make_batcher, *, depth: int = 2,
+                 max_epochs: int | None = None, device="cpu",
+                 poll: float = 0.25):
+        self._make = make_batcher
+        self._max_epochs = max_epochs
+        self._device = torch.device(device)
+        self._poll = poll
+        self._stream = None
+        self._q = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._finished = threading.Event()
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "DevicePrefetcher":
+        if self._device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self._device)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _to_device(self, item: dict) -> dict:
+        arrays = {k: torch.from_numpy(v) for k, v in item.items()}
+        if self._stream is None:
+            return arrays
+        with torch.cuda.stream(self._stream):
+            return {k: v.pin_memory().to(self._device, non_blocking=True)
+                    for k, v in arrays.items()}
+
+    def _run(self):
+        epoch = 0
+        batcher = None
+        try:
+            batcher = self._make(epoch)
+            while not self._stop.is_set():
+                item = batcher.get(timeout=self._poll)
+                if item is None:               # timeout: loader still busy
+                    continue
+                if item is data.EPOCH_END:
+                    batcher.stop()
+                    batcher = None
+                    epoch += 1
+                    if self._max_epochs is not None \
+                            and epoch >= self._max_epochs:
+                        return
+                    batcher = self._make(epoch)
+                    continue
+                stats = item.pop("_stats", None)
+                bucket = int(item.pop("_bucket",
+                                      (stats or {}).get("seg_len", 0)))
+                pb = PrefetchedBatch(bucket, self._to_device(item), stats,
+                                     epoch)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(pb, timeout=0.1)   # backpressure
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:      # surfaced on the consumer side
+            self._error = e
+        finally:
+            if batcher is not None:
+                batcher.stop()
+            self._finished.set()
+
+    def get(self, timeout: float = 30.0):
+        """Next device batch; ``STREAM_END`` once the producer finished
+        cleanly and the queue drained; ``None`` only on timeout (producer
+        alive but slow). Raises the producer's error, if any."""
+        end = time.monotonic() + timeout
+        while True:
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise err
+            try:
+                return self._q.get(timeout=0.05)
+            except queue.Empty:
+                if self._finished.is_set() and self._q.empty():
+                    if self._error is not None:   # a crash is not a clean
+                        continue                  # end: re-loop raises it
+                    return STREAM_END
+                if time.monotonic() >= end:
+                    return None
+
+    def stop(self, timeout: float = 5.0):
+        """Shut the producer down. Never raises (safe in ``finally``);
+        producer errors surface through ``get``. A producer that does not
+        join within ``timeout`` is left as a daemon thread, with a
+        warning."""
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                warnings.warn(
+                    f"prefetch producer thread did not stop within "
+                    f"{timeout}s and was abandoned (daemon)", stacklevel=2)
+            self._thread = None

@@ -1,0 +1,229 @@
+"""Trainer: the step and the fit loop over the async input pipeline.
+
+The step path never waits on the device: batches arrive device-resident
+from the DevicePrefetcher, each at its seg-length bucket (PyTorch runs
+eagerly, so a bucket needs no program of its own), and step metrics stay
+device scalars in a MetricsBuffer fetched in one transfer every
+``log_every`` steps.
+
+The non-finite guard lives in the step (``configs.speedyfeed_arch``):
+when the loss is NaN or Inf the parameters, all of the Adam state and
+the cache keep their old values, decided on the device by a select, and
+the step still advances. The step reports it as ``nonfinite_step``;
+``fit`` raises ``NonFiniteLossError`` after ``max_consecutive_nonfinite``
+such steps in a row (checked when the metrics are drained).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+import warnings
+
+import torch
+
+from repro_torch.distributed.straggler import StepTimeMonitor
+from repro_torch.serving.service import check_device
+
+from .prefetch import STREAM_END, DevicePrefetcher
+from .state import TrainState
+
+
+class NonFiniteLossError(RuntimeError):
+    """Too many consecutive steps with a non-finite loss."""
+
+
+class MetricsBuffer:
+    """Accumulates per-step metric dicts of device scalars; ``drain``
+    fetches everything pending in one device-to-host transfer.
+
+    ``max_pending`` bounds the backlog when the caller never drains.
+    Every drained scalar is appended to a bounded per-key ``history``
+    (``history_len`` entries); non-scalar entries are kept in ``last``
+    only, with one warning per key.
+    """
+
+    def __init__(self, max_pending: int = 512, history_len: int = 4096):
+        self.max_pending = max_pending
+        self.history_len = history_len
+        self._pending = []
+        self._warned: set = set()
+        self.losses: list = []
+        self.history: dict = {}      # key -> deque of host floats
+        self.last: dict = {}
+
+    def append(self, metrics: dict):
+        self._pending.append(metrics)
+        if len(self._pending) >= self.max_pending:
+            self.drain()
+
+    def _fetch(self):
+        """The pending dicts with every tensor scalar as a host float, from
+        one stacked transfer."""
+        scalars = [v for m in self._pending for v in m.values()
+                   if isinstance(v, torch.Tensor) and v.dim() == 0]
+        got = torch.stack([v.detach().double() for v in scalars]).tolist() \
+            if scalars else []
+        host = {id(v): x for v, x in zip(scalars, got)}
+        out = []
+        for m in self._pending:
+            row = {}
+            for k, v in m.items():
+                if isinstance(v, torch.Tensor):
+                    v = host[id(v)] if v.dim() == 0 else v.detach().cpu()
+                row[k] = v
+            out.append(row)
+        return out
+
+    def drain(self) -> dict:
+        """Fetch everything accumulated since the last drain; returns the
+        most recent step's metrics (host values)."""
+        if self._pending:
+            host = self._fetch()
+            self._pending = []
+            for m in host:
+                for k, v in m.items():
+                    if isinstance(v, (int, float)):
+                        dq = self.history.get(k)
+                        if dq is None:
+                            dq = self.history[k] = collections.deque(
+                                maxlen=self.history_len)
+                        dq.append(float(v))
+                    elif k not in self._warned:
+                        self._warned.add(k)
+                        warnings.warn(
+                            f"MetricsBuffer: metric {k!r} is not a scalar; "
+                            f"kept in .last but not in the history",
+                            stacklevel=2)
+            self.losses.extend(float(m["loss"]) for m in host if "loss" in m)
+            self.last = host[-1]
+        return self.last
+
+
+def _trailing_nonfinite(history: dict) -> int:
+    """Length of the trailing run of guarded steps in the drained
+    ``nonfinite_step`` history (0 when the newest drained step was fine)."""
+    n = 0
+    for v in reversed(history.get("nonfinite_step", ())):
+        if v <= 0:
+            break
+        n += 1
+    return n
+
+
+@dataclasses.dataclass
+class TrainResult:
+    steps_done: int
+    losses: list
+    wall_seconds: float
+    metrics: dict
+    bucket_steps: dict = dataclasses.field(default_factory=dict)
+    host_stall_fraction: float = 0.0
+    state: object = None      # the final TrainState
+    history: dict = dataclasses.field(default_factory=dict)  # key -> values
+
+
+class Trainer:
+    """Owns the step function and the fit loop.
+
+    ``make_step(cfg)`` returns the raw step ``(params, opt, cache, step,
+    rng, batch) -> (params, opt, cache, metrics)``; ``init_fn(cfg, gen) ->
+    TrainState`` builds the initial state from a seeded generator on the
+    device. Both come from the configuration module (see
+    ``training.get_trainer``). ``device`` defaults to the card and raises
+    without one; pass ``device="cpu"`` to train on the CPU.
+    """
+
+    def __init__(self, cfg, *, make_step, init_fn, device="cuda"):
+        self.cfg = cfg
+        self.device = check_device(device)
+        self._raw_step = make_step(cfg)
+        self._init_fn = init_fn
+        self.bucket_steps: dict = {}      # bucket -> steps run
+        self.monitor: StepTimeMonitor | None = None   # set by fit()
+        self.last_state: TrainState | None = None     # final state of fit()
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._init_fn(self.cfg, gen)
+
+    def step(self, state: TrainState, batch: dict, bucket=None):
+        """One train step on a batch of device tensors. Parameters, Adam
+        state and cache are updated in place; returns (the next
+        TrainState, device metrics)."""
+        params, opt, cache, metrics = self._raw_step(
+            state.params, state.opt, state.cache, state.step, state.rng,
+            batch)
+        if bucket is not None:
+            self.bucket_steps[bucket] = self.bucket_steps.get(bucket, 0) + 1
+        return TrainState(params, opt, cache, state.step + 1,
+                          state.rng), metrics
+
+    def fit(self, make_batcher, *, steps: int, state: TrainState | None = None,
+            seed: int = 0, ckpt_dir: str | None = None, log_every: int = 20,
+            prefetch_depth: int = 2, batch_timeout: float = 60.0,
+            max_consecutive_nonfinite: int = 8) -> TrainResult:
+        """Train until ``steps`` total steps. ``make_batcher(epoch)`` ->
+        a started DynamicBatcher; epochs roll over inside the prefetcher.
+        Checkpoints are not ported yet: ``ckpt_dir`` raises."""
+        if ckpt_dir is not None:
+            raise NotImplementedError("checkpoints are not ported yet")
+        t0 = time.time()
+        bs0 = dict(self.bucket_steps)
+        state = state if state is not None else self.init_state(seed)
+        step = state.step
+        prefetcher = DevicePrefetcher(make_batcher, depth=prefetch_depth,
+                                      device=self.device).start()
+        monitor = StepTimeMonitor(n_hosts=1)
+        buf = MetricsBuffer()
+        stall, de_sum, de_n = 0.0, 0.0, 0
+        drain_mark, drain_step = time.perf_counter(), step
+        try:
+            while step < steps:
+                tw = time.perf_counter()
+                pb = prefetcher.get(timeout=batch_timeout)
+                stall += time.perf_counter() - tw
+                if pb is STREAM_END:       # bounded-epoch source ran dry
+                    break
+                if pb is None:
+                    raise RuntimeError(
+                        f"no batch within {batch_timeout}s at step {step}")
+                state, metrics = self.step(state, pb.arrays, pb.bucket)
+                buf.append(metrics)
+                if pb.stats and "data_efficiency" in pb.stats:
+                    de_sum += float(pb.stats["data_efficiency"])
+                    de_n += 1
+                step += 1
+                if log_every and step % log_every == 0:
+                    m = buf.drain()
+                    bad = _trailing_nonfinite(buf.history)
+                    if max_consecutive_nonfinite and \
+                            bad >= max_consecutive_nonfinite:
+                        raise NonFiniteLossError(
+                            f"{bad} consecutive non-finite losses at step "
+                            f"{step}: params held at their last finite "
+                            f"values by the guard")
+                    now = time.perf_counter()
+                    monitor.record(0, (now - drain_mark)
+                                   / max(step - drain_step, 1))
+                    drain_mark, drain_step = now, step
+                    print(f"step {step}: loss={m.get('loss', 0):.4f} "
+                          f"acc={m.get('ar_acc', 0):.3f} "
+                          f"reused={int(m.get('reused', 0))} "
+                          f"p_t={m.get('p_t', 0):.2f} "
+                          f"de={de_sum / max(de_n, 1):.2f} "
+                          f"[bucket {pb.bucket}]", flush=True)
+        finally:
+            prefetcher.stop()
+        self.monitor = monitor
+        self.last_state = state
+        final = dict(buf.drain())
+        if de_n:      # loader-side Eq. 1 data efficiency (paper Figure 8)
+            final["loader_data_efficiency"] = de_sum / de_n
+        wall = time.time() - t0
+        bsteps = {k: v - bs0.get(k, 0) for k, v in self.bucket_steps.items()
+                  if v - bs0.get(k, 0) > 0}
+        return TrainResult(step, buf.losses, wall, final, bsteps,
+                           stall / max(wall, 1e-9), state=state,
+                           history={k: list(v)
+                                    for k, v in buf.history.items()})

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card, against their plain PyTorch versions,
-and the serving slice on the card at a small size.
+and the serving and training slices on the card at a small size.
 
 Every test here is marked ``gpu`` and skips where no GPU is present (the
 kernels have no CPU mode). The file imports only torch, numpy and the
@@ -19,6 +19,7 @@ from repro_torch.kernels import pq_scoring as pq_mod  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 BUS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PQ_TOL = 1e-5
 
 
@@ -71,6 +72,103 @@ def test_bus_attention_cuda_uniform_mean_on_an_all_masked_segment(cuda):
     got = bus_mod.bus_attention_cuda(q, k, v, mask)
     exp = v[1, 2].mean(dim=0)                              # over Sk keys
     assert float((got[1, 2] - exp[None]).abs().max()) <= BUS_TOL[q.dtype]
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 3, 32, 12, 64), (7, 3, 32, 12, 64),          # odd M
+    (9, 3, 8, 12, 64), (9, 3, 16, 12, 64), (9, 3, 24, 12, 64),   # buckets
+    (3, 5, 16, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bus_attention_bwd_cuda_matches_plain(cuda, shape, dtype):
+    q, k, v, mask = _bus(*shape, cuda, dtype)          # all-masked segments
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(9), device=cuda).to(dtype)
+    got = bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)
+    exp = bus_mod.bus_attention_bwd_plain(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= BWD_TOL[dtype]
+    dv = got[2].float()
+    assert float(dv[::3, shape[1] - 1].abs().max()) > 0     # uniform p
+
+
+def test_bus_attention_grad_on_cuda_goes_through_both_kernels(cuda,
+                                                             monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    q, k, v, mask = _bus(5, 3, 16, 4, 32, cuda)
+    do = torch.randn_like(q)
+    exp = bus_mod.bus_attention_bwd_plain(q, k, v, mask, do)
+    monkeypatch.setattr(bus_mod, "bus_attention_plain", refuse)
+    monkeypatch.setattr(bus_mod, "bus_attention_bwd_plain", refuse)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    before = ops.launch_counts()
+    o = ops.bus_attention(q, k, v, mask)
+    assert o.grad_fn is not None
+    o.backward(do)
+    after = ops.launch_counts()
+    assert after["bus_attention"] == before["bus_attention"] + 1
+    assert after["bus_attention_bwd"] == before["bus_attention_bwd"] + 1
+    for t, e in zip((q, k, v), exp):
+        assert float((t.grad - e).abs().max()) <= BWD_TOL[torch.float32]
+
+
+def test_train_step_on_the_card_matches_the_plain_path(cuda):
+    """One Algorithm-1 step at the small configuration with remat: loss
+    and every gradient through the kernels against the plain path."""
+    import dataclasses
+    from repro_torch import core, data
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import leaves
+    cfg = train.small_speedyfeed_config()
+    cfg = dataclasses.replace(cfg, plm=dataclasses.replace(cfg.plm,
+                                                           remat=True))
+    b = data.synth_centralized_batch(
+        m_cap=cfg.merged_cap, n_segments=3, seg_len=cfg.plm.seg_len,
+        b_cap=cfg.batch_users, hist_len=cfg.hist_len, vocab=cfg.plm.vocab)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = core.init_speedyfeed(gen, cfg)
+    flat = [p.requires_grad_() for _, p in leaves(params)]
+    neg = core.sample_negatives(gen, cfg.merged_cap,
+                                (cfg.batch_users, cfg.hist_len - 1),
+                                cfg.n_neg)
+    out = {}
+    for impl in ("kernel", "plain"):
+        cache = core.init_cache(cfg.cache, cuda)
+        ops.reset_launch_counts()
+        res = core.speedyfeed_forward(params, cfg, batch, cache, 0, u=1.0,
+                                      neg_idx=neg, impl=impl)
+        grads = torch.autograd.grad(res.loss, flat, allow_unused=True)
+        out[impl] = (res.loss, grads, ops.launch_counts())
+    (lk, gk, ck), (lp, gp, cp) = out["kernel"], out["plain"]
+    L = cfg.plm.n_layers
+    assert ck["bus_attention"] == 2 * L and ck["bus_attention_bwd"] == L
+    assert cp["bus_attention"] == 0 and cp["bus_attention_bwd"] == 0
+    assert abs(float(lk.detach()) - float(lp.detach())) <= 1e-4
+    assert all((a is None) == (b is None) for a, b in zip(gk, gp))
+    rows = [(n, a, b) for (n, _), a, b in zip(leaves(params), gk, gp)
+            if b is not None]
+    top_mag = max(float(b.abs().max()) for _, _, b in rows)
+    for n, a, b in rows:
+        if n.endswith("attn/k/b"):    # 0 in exact arithmetic on both paths
+            assert float(a.abs().max()) <= 1e-5 * top_mag, n
+            assert float(b.abs().max()) <= 1e-5 * top_mag, n
+        else:
+            assert float((a - b).abs().max()) <= 1e-3 * float(
+                b.abs().max()), n
+
+
+def test_trainer_fit_on_the_card(cuda):
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    res = train.train_speedyfeed(steps=3, device=cuda, log_every=1)
+    assert res.steps_done == 3 and all(np.isfinite(res.losses))
+    counts = ops.launch_counts()
+    assert counts["bus_attention_bwd"] == 3 * 2     # 2 layers, no remat
+    assert counts["bus_attention"] == 3 * 2
 
 
 @pytest.mark.parametrize("M,K,Bc,Bv,code_dtype", [

@@ -34,8 +34,9 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 def test_the_walk_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"ops.py", "buslm.py", "index.py", "serve.py",
-            "chip_smoke.py"} <= names
+    assert {"ops.py", "buslm.py", "index.py", "serve.py", "cache.py",
+            "pipeline.py", "adam.py", "straggler.py", "prefetch.py",
+            "trainer.py", "train.py", "chip_smoke.py"} <= names
 
 
 def _require_no_gpu():
@@ -59,3 +60,16 @@ def test_service_default_device_raises_without_a_gpu():
     builder = serving.IndexBuilder("exact", 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving.RetrievalService(builder, np.zeros((4, 8), np.float32))
+
+
+def test_train_entry_points_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch import training
+    from repro_torch.launch import train
+    cfg = train.small_speedyfeed_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train_speedyfeed(steps=1, cfg=cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.get_trainer("speedyfeed", cfg=cfg)

@@ -149,7 +149,9 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
     ops.reset_launch_counts()
     assert torch.equal(ops.bus_attention(*t), bus_attention_plain(*t))
     assert torch.equal(ops.pq_lut_scores(*p), pq_lut_scores_plain(*p))
-    assert ops.launch_counts() == {"bus_attention": 0, "pq_lut_scores": 0}
+    assert ops.launch_counts() == {"bus_attention": 0,
+                                   "bus_attention_bwd": 0,
+                                   "pq_lut_scores": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
