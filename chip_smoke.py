@@ -40,10 +40,28 @@ Phases, each of which exits non-zero on failure:
      (train) kernels and through the plain path on the same parameters,
               batch and draws: loss within 1e-4, every gradient leaf
               within 1e-3 of that leaf's largest magnitude.
-  7. kernels  each kernel against its plain version at the main paths'
-              shapes, timed with CUDA events beside its bound and, for
-              the bus kernels, ``F.scaled_dot_product_attention`` (its
-              forward, its backward) as a yardstick.
+  7. lm       the LM family's serving path: Qwen3-14B at full width and
+              depth (40 layers, d 5120, 40/8 heads of 128, d_ff 17,408,
+              vocab 151,936, qk-norm) in bf16, random weights from a
+              seeded generator. One warm-up and one timed prefill at B=1,
+              S=32,768 (exactly 40 flash launches, finite last-row
+              logits); 32 greedy decode steps at B=16 against an
+              8,192-slot bf16 KV cache, then 8 against the int8 cache (no
+              flash launch); prefill of B=4, T=64 against the logits of
+              the T-th decode step from an empty cache, and a prefill at
+              S=2,048 through the kernel against ``impl="plain"``: in
+              bf16 (logits reported; every layer's attention output,
+              kernel vs plain on the same input, within TOL_ATTN_BF16),
+              then with the weights cast to f32 in place, each within
+              TOL_LM_REL_F32 of the largest logit.
+  8. kernels  each kernel against its plain version at the main paths'
+              shapes, timed with CUDA events beside its bound and
+              ``F.scaled_dot_product_attention`` as a yardstick (for the
+              bus kernels its forward and its backward, for flash its
+              causal forward on the same data). The flash launch at the
+              prefill shape is held to plain on its first, a middle and
+              its last FLASH_ROWS rows; its bf16 checks are element-wise,
+              each beside a control that must fail them.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON; the last line is the ``{"ok": true, ...}``
@@ -60,6 +78,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # bf16 on the tensor cores, dense
 N_NEWS = 16384
 N_REQUESTS = 128
 BATCH = 16
@@ -68,6 +87,33 @@ TOL_DISTORTION = 0.01            # share of residual energy PQ codes lose
 TOL_BWD = 1e-4                   # backward kernel vs plain, f32
 TOL_LOSS, TOL_GRAD = 1e-4, 1e-3  # train step, kernel vs plain path
 TRAIN_STEPS, TIMED_STEPS, PLAIN_E = 4, 3, 256
+TOL_FLASH = {"float32": 2e-4, "bfloat16": 2e-2}   # the JAX tests' own
+# bf16 flash output, element-wise, on top of the flat limit: both versions
+# round an f32 result to bf16, so they differ by at most one bf16 ulp,
+# which is at most 2^-7 of the value (the absolute term covers values
+# near 0). A flat 2e-2 is close to a typical |o| (~0.03 at S=4,096), so
+# a key tile's PV dropped would pass it; each check also runs such a
+# control through the plain version and fails if the limit misses it.
+RTOL_FLASH_BF16, ATOL_FLASH_BF16 = 2.0 ** -7, 1e-4
+TOL_LSE = 1e-4                   # f32 in both versions, sums reordered
+FLASH_ROWS = 512                 # rows of the S=32,768 launch held to plain
+# LM logits, kernel path against decode or plain, relative to the largest
+# |logit|. In bf16 the paths round at other places (the decode's einsums
+# round to bf16, the kernel accumulates in f32), and at depth 40 with
+# random weights that rounding moves the logits by several % of the
+# largest: bf16 logits are reported, and the same comparisons with the
+# weights cast to f32 are held to TOL_LM_REL_F32. What is held in bf16 is
+# each layer's attention output, kernel against plain on the same input
+# (the plain path's hidden state), relative to its largest value: one
+# ulp of rounding before the output projection and one after it, within
+# TOL_ATTN_BF16; the hidden-state gap the layers accumulate is reported
+# beside it.
+TOL_LM_REL_F32 = 1e-3
+TOL_ATTN_BF16 = 2.0 ** -6
+LM_PREFILL_SEQ = 32768           # prefill_32k's sequence; batch cut 32 -> 1
+LM_DECODE_BATCH, LM_DECODE_SLOTS = 16, 8192   # decode_32k cut: 128, 32,768
+LM_DECODE_STEPS, LM_Q8_STEPS = 32, 8
+LM_CHECK_B, LM_CHECK_T, LM_PLAIN_SEQ, FLASH_CHECK_SEQ = 4, 64, 2048, 4096
 
 
 def fail(msg: str):
@@ -102,14 +148,31 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOP_PER_S
+def bound_ms(n_bytes: float, n_flops: float,
+             flop_per_s: float = F32_FLOP_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def flash_miss(o, o_p) -> float:
+    """Largest |o - o_p| over the bf16 limit RTOL * |o_p| + ATOL: the
+    check passes at <= 1."""
+    o_p = o_p.float()
+    lim = RTOL_FLASH_BF16 * o_p.abs() + ATOL_FLASH_BF16
+    return float(((o.float() - o_p).abs() / lim).max())
+
+
+def dropped_tile(v, start: int, width: int = 64):
+    """v with one key tile's values zeroed: the control that the flash
+    checks must catch (a kernel that lost that tile's PV)."""
+    v = v.clone()
+    v[:, start:start + width] = 0
+    return v
 
 
 def main() -> int:
@@ -120,21 +183,26 @@ def main() -> int:
         fail(f"no src/repro_torch beside {__file__}: run from the repo")
     sys.path.insert(0, str(ROOT / "src"))
     import dataclasses
+    import gc
 
     import numpy as np
     from repro_torch import core, data, serving, training
-    from repro_torch.configs import PROD
+    from repro_torch.configs import PROD, lm_family
     from repro_torch.kernels import ops
     from repro_torch.kernels.bus_attention import (bus_attention_bwd_cuda,
                                                    bus_attention_bwd_plain,
                                                    bus_attention_cuda,
                                                    bus_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import (pq_lut_scores_cuda,
                                                 pq_lut_scores_plain)
     from repro_torch.launch.profile import pq_distortion
     from repro_torch.launch.serve import (Recommender, _pad_histories,
                                           measure_recall, micro_batch_loop)
     from repro_torch.launch.train import first_batch_of_bucket, make_loader
+    from repro_torch.models import lm
+    from repro_torch.nn import attention, embed, rmsnorm
     from repro_torch.optim.adam import leaves
     from repro_torch.serving.index import (_masked_topk, _pq_scan_inputs,
                                            _topk_padded)
@@ -395,6 +463,184 @@ def main() -> int:
           f"key-bias gradients are not ~0: {zero_leaves}")
     del grads, gk, gp, flat
 
+    # --------------------------------------------------------------- lm
+    # the trainer's memory goes first; the peak counts from here
+    del trainer, state, res, top_batch, watch, now, neg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = lm_family.QWEN3_14B
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    lm_params = lm.init(torch.Generator(device=dev).manual_seed(0), qcfg,
+                        bf16)
+    torch.cuda.synchronize()
+    lm_rep = {"config": dataclasses.asdict(qcfg),
+              "params": qcfg.param_count(),
+              "params_gb": torch.cuda.memory_allocated() / 1e9,
+              "init_s": time.perf_counter() - t0}
+    prefill = lm_family.make_fn(qcfg, "prefill")
+    decode = lm_family.make_fn(qcfg, "decode")
+    gl = torch.Generator(device=dev).manual_seed(2)
+    V = qcfg.vocab
+
+    def greedy(tok, cache, steps):
+        """``steps`` synchronised greedy decode steps from slot 0; returns
+        (per-step ms, the flash launches they made, last logits)."""
+        ops.reset_launch_counts()
+        ms = []
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(lm_params, tok, cache, t)
+            tok = logits.argmax(dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, ops.launch_counts()["flash_attention"], logits
+
+    toks = torch.randint(0, V, (1, LM_PREFILL_SEQ), generator=gl, device=dev)
+    t0 = time.perf_counter()
+    prefill(lm_params, toks)                             # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = prefill(lm_params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()
+    lm_rep["prefill"] = {
+        "batch": 1, "seq": LM_PREFILL_SEQ, "warmup_s": warm_s,
+        "s": prefill_s, "tokens_per_s": LM_PREFILL_SEQ / prefill_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": prefill_launches}
+    print("lm prefill: " + json.dumps(lm_rep["prefill"]), flush=True)
+    check(tuple(last.shape) == (1, V), f"prefill logits {tuple(last.shape)}")
+    check(bool(torch.isfinite(last).all()), "non-finite prefill logits")
+    check(prefill_launches["flash_attention"] == qcfg.n_layers,
+          f"flash_attention launched {prefill_launches['flash_attention']} "
+          f"times in one prefill, expected {qcfg.n_layers}")
+    del toks, last
+    torch.cuda.empty_cache()
+
+    for name, quant, steps in (("decode", False, LM_DECODE_STEPS),
+                               ("decode_q8", True, LM_Q8_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        cache = lm.init_cache(qcfg, LM_DECODE_BATCH, LM_DECODE_SLOTS, bf16,
+                              quant=quant, device=dev)
+        tok = torch.randint(0, V, (LM_DECODE_BATCH, 1), generator=gl,
+                            device=dev)
+        ms, flash_n, logits = greedy(tok, cache, steps)
+        steady = ms[1:]
+        lm_rep[name] = {
+            "batch": LM_DECODE_BATCH, "slots": LM_DECODE_SLOTS,
+            "steps": steps, "cache_gb": sum(nbytes(t) for t in
+                                            cache.values()) / 1e9,
+            "first_step_ms": ms[0],
+            "ms_per_step": float(np.mean(steady)),
+            "ms_per_step_median": float(np.median(steady)),
+            "tokens_per_s": LM_DECODE_BATCH * 1e3 / float(np.mean(steady)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_launches": flash_n}
+        print(f"lm {name}: " + json.dumps(lm_rep[name]), flush=True)
+        check(bool(torch.isfinite(logits).all()), f"non-finite {name} logits")
+        check(flash_n == 0, f"{name} launched flash_attention {flash_n} "
+              f"times, expected 0")
+        del cache, logits
+        torch.cuda.empty_cache()
+
+    def cast_(tree, dtype):
+        """Cast every tensor of a nested dict/list in place, one at a time
+        (the peak is the new tree plus one old leaf)."""
+        keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+        for key in list(keys):
+            if torch.is_tensor(tree[key]):
+                tree[key] = tree[key].to(dtype)
+            else:
+                cast_(tree[key], dtype)
+
+    def by_layer(ccfg, toks):
+        """Layer by layer at S=toks' length, in ccfg's dtype: each layer's
+        attention output through the kernel against plain on the plain
+        path's hidden state (``local``), and the gap between the hidden
+        states the two paths carry to the next layer (``carried``), each
+        relative to the plain value's largest magnitude."""
+        acfg = ccfg.attn_cfg(local=True)
+        local, carried = [], []
+        with torch.no_grad():
+            x = embed(lm_params["embed"], toks, dtype=ccfg.torch_dtype)
+            x_k = x
+            for layer in lm_params["layers"]:
+                h = rmsnorm(layer["ln1"], x)
+                a_k = attention(layer["attn"], h, acfg, impl="kernel").float()
+                a_p = attention(layer["attn"], h, acfg, impl="plain").float()
+                local.append(float((a_k - a_p).abs().max()
+                                   / a_p.abs().max()))
+                x_k = lm._block(layer, x_k, ccfg, "kernel")
+                x = lm._block(layer, x, ccfg, "plain")
+                carried.append(float((x_k.float() - x.float()).abs().max()
+                                     / x.float().abs().max()))
+        return {"seq": toks.shape[1], "attn_local_max_rel_err": local,
+                "hidden_carried_max_rel_err": carried}
+
+    # prefill through the kernel against the T-th decode step's logits,
+    # and the prefill through the kernel against its plain version; in
+    # bf16 (with the layer-by-layer reading), then with the weights cast
+    # to f32
+    dec_toks = torch.randint(0, V, (LM_CHECK_B, LM_CHECK_T), generator=gl,
+                             device=dev)
+    plain_toks = torch.randint(0, V, (1, LM_PLAIN_SEQ), generator=gl,
+                               device=dev)
+    lm_rep["check"] = {"tol_rel_f32": TOL_LM_REL_F32,
+                       "tol_attn_bf16": TOL_ATTN_BF16}
+    for dt in ("bfloat16", "float32"):
+        ccfg = dataclasses.replace(qcfg, dtype=dt)
+        cast_(lm_params, ccfg.torch_dtype)
+        ref = lm_family.make_fn(ccfg, "prefill")(lm_params, dec_toks).float()
+        step = lm_family.make_fn(ccfg, "decode")
+        cache = lm.init_cache(ccfg, LM_CHECK_B, LM_CHECK_T,
+                              ccfg.torch_dtype, device=dev)
+        for t in range(LM_CHECK_T):
+            logits, cache = step(lm_params, dec_toks[:, t:t + 1], cache, t)
+        logits = logits.float()
+        with torch.no_grad():
+            kern = lm.prefill(lm_params, ccfg, plain_toks).float()
+            plain_l = lm.prefill(lm_params, ccfg, plain_toks,
+                                 impl="plain").float()
+        lm_rep["check"][dt] = {
+            "prefill_vs_decode": {
+                "batch": LM_CHECK_B, "T": LM_CHECK_T,
+                "max_rel_err": float((logits - ref).abs().max()
+                                     / ref.abs().max()),
+                "argmax_agree": float((logits.argmax(-1) == ref.argmax(-1))
+                                      .float().mean()),
+                "max_abs_logit": float(ref.abs().max())},
+            "kernel_vs_plain": {
+                "seq": LM_PLAIN_SEQ,
+                "max_rel_err": float((kern - plain_l).abs().max()
+                                     / plain_l.abs().max())}}
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(kern).all()),
+              f"non-finite {dt} check logits")
+        del ref, cache, logits, kern, plain_l
+        if dt == "bfloat16":
+            lm_rep["check"][dt]["by_layer"] = by_layer(ccfg, plain_toks)
+        torch.cuda.empty_cache()
+    report["lm"] = lm_rep
+    print("lm check: " + json.dumps(lm_rep["check"]), flush=True)
+    f32 = lm_rep["check"]["float32"]
+    for name in ("prefill_vs_decode", "kernel_vs_plain"):
+        check(f32[name]["max_rel_err"] <= TOL_LM_REL_F32,
+              f"f32 {name} logits differ by {f32[name]['max_rel_err']} of "
+              f"the largest")
+    local = lm_rep["check"]["bfloat16"]["by_layer"]["attn_local_max_rel_err"]
+    worst = int(np.argmax(local))
+    check(local[worst] <= TOL_ATTN_BF16,
+          f"bf16 attention of layer {worst}, kernel vs plain on the same "
+          f"input, differs by {local[worst]} of its largest value")
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- kernels
     kernels = []
     g = torch.Generator(device=dev).manual_seed(1)
@@ -525,6 +771,98 @@ def main() -> int:
                             iters=100),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": [BATCH, n_sub, n_codes, N], "dtype": "float32/uint8"})
+
+    # flash attention at Qwen3-14B's heads: against plain at S=4,096 in
+    # f32 and bf16 and at one Sq != Sk causal shape; timed at the prefill
+    # shape, S=32,768 in bf16, and that launch's own output held to plain
+    # by row windows (an unsliced plain call there would need 172 GB of
+    # scores; its time is taken at S=4,096)
+    Hq, Hkv, Dh = qcfg.n_heads, qcfg.n_kv, qcfg.hd
+
+    def qkv(Sq, Sk, dtype):
+        return (torch.randn(1, Sq, Hq, Dh, generator=g, device=dev).to(dtype),
+                torch.randn(1, Sk, Hkv, Dh, generator=g, device=dev).to(dtype),
+                torch.randn(1, Sk, Hkv, Dh, generator=g, device=dev).to(dtype))
+
+    def hold(label, o, lse, q, k, v, dtype):
+        """Hold (o, lse) of a kernel launch against the plain version on
+        q/k/v; in bf16 also element-wise, with a control: the plain
+        version with the last key tile's PV dropped must miss (under the
+        flat limit alone it would pass: that tile carries ~1/64 of the
+        weight of the rows that see it)."""
+        o_p, lse_p = flash_attention_fwd_plain(q, k, v, True)
+        e = {"o": float((o.float() - o_p.float()).abs().max()),
+             "lse": float((lse - lse_p).abs().max())}
+        ok = e["o"] <= TOL_FLASH[str(dtype)[6:]] and e["lse"] <= TOL_LSE
+        if dtype == bf16:
+            e["o_over_limit"] = flash_miss(o, o_p)
+            o_c = flash_attention_fwd_plain(
+                q, k, dropped_tile(v, k.shape[1] - 64), True)[0]
+            e["control_o_over_limit"] = flash_miss(o_c, o_p)
+            e["control_o"] = float((o_c.float() - o_p.float()).abs().max())
+            ok = ok and e["o_over_limit"] <= 1
+            check(e["control_o_over_limit"] > 1,
+                  f"flash_attention {label}: the bf16 limit misses a dropped "
+                  f"key tile: {e}")
+        flash_err[label] = e
+        check(ok, f"flash_attention {label} differs from plain: {e}")
+
+    flash_err = {}
+    for label, Sq, dtype in (("float32", FLASH_CHECK_SEQ, torch.float32),
+                             ("bfloat16", FLASH_CHECK_SEQ, bf16),
+                             ("bfloat16_sq_quarter", FLASH_CHECK_SEQ // 4,
+                              bf16)):
+        q, k, v = qkv(Sq, FLASH_CHECK_SEQ, dtype)
+        o, lse = flash_attention_cuda(q, k, v, True)
+        hold(label, o, lse, q, k, v, dtype)
+        del o, lse
+        if label == "bfloat16":
+            plain_ms = time_ms(
+                torch, lambda: flash_attention_fwd_plain(q, k, v, True),
+                iters=3, warmup=1)
+    S, R = LM_PREFILL_SEQ, FLASH_ROWS
+    q, k, v = qkv(S, S, bf16)
+    o, lse = flash_attention_cuda(q, k, v, True)
+    # the first, a middle and the last R rows: row i of a window starting
+    # at r0 sees keys [0, r0 + i], so plain on k/v[:, :r0 + R] computes
+    # exactly those rows (q_off = r0)
+    for name, r0 in (("first", 0), ("middle", S // 2), ("last", S - R)):
+        hold(f"prefill_shape_rows_{name}", o[:, r0:r0 + R],
+             lse[:, :, r0:r0 + R], q[:, r0:r0 + R], k[:, :r0 + R],
+             v[:, :r0 + R], bf16)
+    flash_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, True),
+                       iters=3, warmup=1)
+    # yardstick: SDPA's causal forward on the same data, kv heads repeated
+    # for the groups ([B, H, S, D] layout, copies made outside the timing)
+    G = Hq // Hkv
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    sdpa_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
+                      iters=5, warmup=2)
+    pairs = S * (S + 1) // 2                   # visible (query, key) pairs
+    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), 4 * Dh * Hq * pairs,
+                          BF16_FLOP_PER_S)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:146",
+        "launches": prefill_launches["flash_attention"],
+        "launches_by_path": {"prefill": prefill_launches["flash_attention"],
+                             "decode": lm_rep["decode"]["flash_launches"],
+                             "serve": launches["flash_attention"],
+                             "train": train_launches["flash_attention"]},
+        "max_abs_err": max(e["o"] for e in flash_err.values()),
+        "errors": flash_err,
+        "ms": flash_ms, "plain_ms": plain_ms,
+        "plain_shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, Dh],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
+        "tflop_per_s": 4 * Dh * Hq * pairs / flash_ms / 1e9,
+        "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16", "causal": True})
+    report["lm"]["flash_ms_per_prefill"] = qcfg.n_layers * flash_ms
+    report["lm"]["flash_share_of_prefill"] = (
+        qcfg.n_layers * flash_ms / 1e3 / report["lm"]["prefill"]["s"])
+    del q, k, v, o, lse, qs, ks, vs
 
     report["kernels"] = kernels
     report["card"] = card

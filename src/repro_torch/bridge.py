@@ -15,12 +15,27 @@ from repro_torch.serving.snapshot import IndexSnapshot
 from repro_torch.training.state import TrainState
 
 
+def tensor_from_jax(leaf, device="cuda") -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` takes) -> a tensor.
+
+    numpy has no bfloat16 of its own: JAX's bf16 arrays come as
+    ``ml_dtypes.bfloat16``, which torch cannot read. They go through
+    float32, which holds every bf16 value, to ``torch.bfloat16``: exact.
+    """
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.as_tensor(np.array(arr)).to(device)
+
+
 def params_from_jax(tree, device="cuda"):
     """A JAX parameter tree (dicts of numpy leaves) -> the port's tree.
 
-    Dense weights keep their ``[in, out]`` layout. The PLM's stacked
-    ``layers`` subtree (a leading ``n_layers`` axis from ``jax.vmap``) is
-    split into a list of per-layer dicts.
+    Dense weights keep their ``[in, out]`` layout and every leaf its dtype
+    (bf16 included). A stacked ``layers`` subtree (a leading ``n_layers``
+    axis from ``jax.vmap``, as in the PLM and the LM) is split into a list
+    of per-layer dicts.
     """
     def conv(node, *, stacked=False):
         if isinstance(node, dict):
@@ -29,9 +44,20 @@ def params_from_jax(tree, device="cuda"):
                 return [conv(_index(node, i)) for i in range(n)]
             return {k: conv(v, stacked=(k == "layers")) for k, v in
                     node.items()}
-        return torch.as_tensor(np.array(node)).to(device)
+        return tensor_from_jax(node, device)
 
     return conv(tree)
+
+
+def lm_cache_from_jax(cache, device="cuda") -> dict:
+    """A JAX LM KV cache (``models/lm.py:init_cache``'s dict of stacked
+    [L, ...] arrays, as numpy) -> the port's cache dict: ``{k, v}`` or the
+    int8 layout ``{k_q, k_s, v_q, v_s}``, each layer with its own
+    storage (JAX's broadcast cache is copied out)."""
+    keys = set(cache)
+    if keys not in ({"k", "v"}, {"k_q", "k_s", "v_q", "v_s"}):
+        raise ValueError(f"not an LM KV cache: keys {sorted(keys)}")
+    return {k: tensor_from_jax(v, device) for k, v in cache.items()}
 
 
 def _leading(node) -> int:

@@ -8,19 +8,50 @@ failed launch is an error, never a reason to run something else.
 Bus attention is differentiable: ``bus_attention`` goes through one
 ``torch.autograd.Function`` on every device, whose forward and backward
 are the CUDA kernels on the card and their plain versions on the CPU.
+Flash attention's backward kernels are not ported yet: on the card
+``flash_attention`` raises when an input requires grad, rather than
+return an output that autograd cannot reach.
 """
 from __future__ import annotations
 
 import torch
 
 from . import bus_attention as _bus
+from . import flash_attention as _flash
 from . import pq_scoring as _pq
 from ._build import build
 
 # kernel name -> (library, C symbol whose launches it counts)
 KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
            "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
-           "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores")}
+           "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
+           "flash_attention": (_flash.KERNEL, "flash_attention_fwd")}
+
+FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it
+
+
+def flash_attention_supported(seq_len: int) -> bool:
+    """Whether ``nn.attention`` routes a self-attention call of this length
+    to the flash kernel: the JAX package's rule (S divides into the
+    default block, clamped to S, and is a multiple of 8), so both packages
+    route the same calls. The CUDA kernel itself takes any length."""
+    return seq_len % 8 == 0 and seq_len % min(FLASH_BLOCK, seq_len) == 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
+    dtype. The CUDA kernel's tiles are its own, so the TPU wrapper's
+    ``block_q``/``block_k`` are not taken. On a CUDA tensor this is
+    forward only until the backward kernels are ported: an input that
+    requires grad raises."""
+    if q.device.type == "cpu":
+        return _flash.flash_attention_fwd_plain(q, k, v, causal)[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention on the card is forward only: its backward "
+            "kernels are not ported yet, so an input that requires grad "
+            "would lose its gradient")
+    return _flash.flash_attention_cuda(q, k, v, causal)[0]
 
 
 class _BusAttention(torch.autograd.Function):

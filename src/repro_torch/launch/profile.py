@@ -4,6 +4,7 @@ the serve slice's recall goes.
     python -m repro_torch.launch.profile [--news 16384] \
         [--out chiprun_out/profile_serve.json]
     python -m repro_torch.launch.profile --train [--out PATH]
+    python -m repro_torch.launch.profile --lm [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
 random weights, a ``make_loader`` corpus, IVF-PQ with nlist from the
@@ -23,6 +24,13 @@ With ``--train`` it instead profiles one Algorithm-1 step at PROD (the
 seg-length bucket that the DynamicBatcher builds at the paper's token
 budget: device time by kernel name and the device's busy share, printed
 (and written to ``--out`` when it is given).
+
+With ``--lm`` it instead profiles the LM family's serving path: Qwen3-14B
+at full width and depth in bf16 with seeded random weights, one prefill
+of B=1, S=32,768 and one decode step at B=16 against an 8,192-slot
+bf16 KV cache (after one warm call each): device time by kernel name and
+the device's busy share, printed and written to ``--out`` (default
+``chiprun_out/profile_lm.json``).
 
 With ``--recall-repeat`` it instead studies where the spread of recall@10
 between runs comes from (``recall_repeat``), and writes the corpus
@@ -45,10 +53,11 @@ import numpy as np
 import torch
 
 from repro_torch import core, data, serving, training
-from repro_torch.configs import PROD
+from repro_torch.configs import PROD, lm_family
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Recommender, _pad_histories
 from repro_torch.launch.train import first_batch_of_bucket, make_loader
+from repro_torch.models import lm
 from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
@@ -101,6 +110,32 @@ def profile_train_step(log, store, lcfg, dev) -> dict:
 
     out = _profiled(step)
     out["bucket"] = top
+    return out
+
+
+def profile_lm(dev) -> dict:
+    """``torch.profiler`` over one Qwen3-14B prefill of B=1 at
+    ``prefill_32k``'s sequence and one decode step at B=16 against an
+    8,192-slot bf16 cache (the smoke's shapes), each after one warm
+    call."""
+    cfg = lm_family.QWEN3_14B
+    seq = lm_family.LM_SHAPES["prefill_32k"]["seq"]
+    decode_batch, slots = 16, 8192
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prefill = lm_family.make_fn(cfg, "prefill")
+    decode = lm_family.make_fn(cfg, "decode")
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+    out = {"prefill": _profiled(lambda: prefill(params, toks))}
+    out["prefill"].update(batch=1, seq=seq)
+    del toks
+    cache = lm.init_cache(cfg, decode_batch, slots, torch.bfloat16,
+                          device=dev)
+    tok = torch.randint(0, cfg.vocab, (decode_batch, 1), generator=gen,
+                        device=dev)
+    out["decode_step"] = _profiled(lambda: decode(params, tok, cache, 0))
+    out["decode_step"].update(batch=decode_batch, slots=slots)
     return out
 
 
@@ -247,6 +282,8 @@ def main(argv=None):
                     "chiprun_out/profile_serve.json, or recall_repeat.json)")
     ap.add_argument("--train", action="store_true",
                     help="profile one PROD train step instead")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile one Qwen3-14B prefill and decode step")
     ap.add_argument("--recall-repeat", action="store_true",
                     help="run only the recall-repeat study")
     ap.add_argument("--vectors-out", default="chiprun_out/recall_vectors.npz")
@@ -265,6 +302,19 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if args.lm:
+        report = {"card": card, **profile_lm(dev)}
+        _write(args.out or "chiprun_out/profile_lm.json", report)
+        for name in ("prefill", "decode_step"):
+            r = report[name]
+            print(f"{name}: wall {r['wall_ms']:.1f} ms, device busy "
+                  f"{r['device_busy_ms']:.1f} ms "
+                  f"({100 * r['busy_share']:.1f}%)")
+            for kern in r["kernels"]:
+                print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
+                      f"{kern['name']}")
+        print(card)
+        return report
     _, log, store, lcfg = make_loader(PROD, n_news=args.news, seed=0)
     if args.train:
         report = {"card": card, "train_step": profile_train_step(

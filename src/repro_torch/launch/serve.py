@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import core, serving
-from repro_torch.serving.service import check_device
+from repro_torch.device import check_device
 
 
 @dataclasses.dataclass

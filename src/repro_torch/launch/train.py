@@ -15,7 +15,7 @@ import argparse
 import numpy as np
 
 from repro_torch import core, data, training
-from repro_torch.serving.service import check_device
+from repro_torch.device import check_device
 
 
 def small_speedyfeed_config(**over):

@@ -1,4 +1,4 @@
-"""Substrate layers: initializers, dense, layernorm, embedding.
+"""Substrate layers: initializers, dense, layernorm, rmsnorm, embedding.
 
 Parameters are nested dicts of tensors, in the JAX package's layout:
 a dense weight is ``[in, out]`` and is applied as ``x @ w``. Initializers
@@ -11,33 +11,42 @@ import math
 import torch
 
 
-def normal_init(gen: torch.Generator, shape, stddev: float = 0.02):
-    return torch.randn(shape, generator=gen, device=gen.device) * stddev
+def normal_init(gen: torch.Generator, shape, stddev: float = 0.02,
+                dtype=torch.float32):
+    """Drawn in f32, then cast (as the JAX package does)."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            .mul_(stddev).to(dtype))
 
 
-def xavier_init(gen: torch.Generator, shape):
+def xavier_init(gen: torch.Generator, shape, dtype=torch.float32):
     fan_in, fan_out = shape[-2], shape[-1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=gen, device=gen.device)
-    return u * (2 * limit) - limit
+    return (u * (2 * limit) - limit).to(dtype)
 
 
 def init_dense(gen: torch.Generator, in_dim: int, out_dim: int, *,
-               use_bias: bool = True, stddev: float | None = None):
+               use_bias: bool = True, stddev: float | None = None,
+               dtype=torch.float32):
     if stddev is None:
-        w = xavier_init(gen, (in_dim, out_dim))
+        w = xavier_init(gen, (in_dim, out_dim), dtype)
     else:
-        w = normal_init(gen, (in_dim, out_dim), stddev)
+        w = normal_init(gen, (in_dim, out_dim), stddev, dtype)
     p = {"w": w}
     if use_bias:
-        p["b"] = torch.zeros(out_dim, device=gen.device)
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=gen.device)
     return p
 
 
-def dense(params, x):
-    y = x @ params["w"]
-    if "b" in params:
-        y = y + params["b"]
+def dense(params, x, *, dtype=None):
+    """x @ w (+ b). With ``dtype``, w, x and b are cast to it first."""
+    w, b = params["w"], params.get("b")
+    if dtype is not None:
+        w, x = w.to(dtype), x.to(dtype)
+        b = None if b is None else b.to(dtype)
+    y = x @ w
+    if b is not None:
+        y = y + b
     return y
 
 
@@ -55,10 +64,25 @@ def layernorm(params, x, *, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def init_rmsnorm(gen: torch.Generator, dim: int, dtype=torch.float32):
+    return {"scale": torch.ones(dim, dtype=dtype, device=gen.device)}
+
+
+def rmsnorm(params, x, *, eps: float = 1e-6):
+    """RMS norm in f32, returned in x's dtype."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
 def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
-                   stddev: float = 0.02):
-    return {"table": normal_init(gen, (vocab, dim), stddev)}
+                   stddev: float = 0.02, dtype=torch.float32):
+    return {"table": normal_init(gen, (vocab, dim), stddev, dtype)}
 
 
-def embed(params, ids):
-    return params["table"][ids]
+def embed(params, ids, *, dtype=None):
+    """Rows of the table; with ``dtype``, cast to it (the gathered rows
+    only: casting before or after the gather gives the same values)."""
+    rows = params["table"][ids]
+    return rows if dtype is None else rows.to(dtype)

@@ -29,20 +29,12 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.device import check_device
+
 from .index import _topk_padded
 from .online import DeltaBuffer, DeltaView, hybrid_search
 from .snapshot import IndexSnapshot
 from .store import EmbeddingStore
-
-
-def check_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device with no GPU raises (the
-    CPU runs only when asked for)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was requested but none is "
-                           "available; pass device='cpu' to run on the CPU")
-    return device
 
 
 @dataclasses.dataclass(frozen=True)

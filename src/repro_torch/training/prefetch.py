@@ -26,6 +26,7 @@ import warnings
 import torch
 
 from repro_torch import data
+from repro_torch.device import check_device
 
 # producer finished cleanly (max_epochs reached, queue drained); distinct
 # from None, which means timeout
@@ -45,14 +46,16 @@ class DevicePrefetcher:
 
     ``make_batcher(epoch)`` must return a started DynamicBatcher; a fresh
     one is created per epoch with the epoch index available for reseeding.
+    ``device`` defaults to the card, like ``Trainer``, and raises without
+    one; pass ``device="cpu"`` to keep the batches on the CPU.
     """
 
     def __init__(self, make_batcher, *, depth: int = 2,
-                 max_epochs: int | None = None, device="cpu",
+                 max_epochs: int | None = None, device="cuda",
                  poll: float = 0.25):
         self._make = make_batcher
         self._max_epochs = max_epochs
-        self._device = torch.device(device)
+        self._device = check_device(device)
         self._poll = poll
         self._stream = None
         self._q = queue.Queue(maxsize=max(1, depth))

@@ -22,8 +22,8 @@ import warnings
 
 import torch
 
+from repro_torch.device import check_device
 from repro_torch.distributed.straggler import StepTimeMonitor
-from repro_torch.serving.service import check_device
 
 from .prefetch import STREAM_END, DevicePrefetcher
 from .state import TrainState

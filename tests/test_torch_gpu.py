@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain PyTorch versions,
-and the serving and training slices on the card at a small size.
+and the serving, training and LM serving slices on the card at a small
+size.
 
 Every test here is marked ``gpu`` and skips where no GPU is present (the
 kernels have no CPU mode). The file imports only torch, numpy and the
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import bus_attention as bus_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import pq_scoring as pq_mod  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -21,6 +23,11 @@ pytestmark = pytest.mark.gpu
 BUS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PQ_TOL = 1e-5
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # JAX tests' own
+# bf16 also element-wise: both versions round an f32 result to bf16, so
+# they differ by at most one ulp, at most 2^-7 of the value
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-4
+LSE_TOL = 1e-4        # f32 either way: sums of exp in another order
 
 
 @pytest.fixture
@@ -309,3 +316,131 @@ def test_background_rebuild_on_the_card_while_queries_run(cuda):
     _, got = svc.query(q)
     hits = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)])
     assert hits >= 0.5
+
+
+def _flash(B, Sq, Sk, Hq, Hkv, D, dev, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 128, 128, 4, 4, 64),      # MHA
+    (2, 256, 256, 8, 2, 64),      # GQA 4:1
+    (1, 128, 128, 8, 1, 32),      # MQA
+    (2, 512, 512, 4, 4, 128),     # head dim 128
+    (1, 64, 128, 4, 4, 32),       # Sq != Sk: causal offset q_off = 64
+    (2, 100, 300, 4, 2, 16),      # ragged tiles, q_off = 200
+    (1, 1024, 1024, 40, 8, 128),  # Qwen3-14B's heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                            causal, dtype):
+    q, k, v = _flash(B, Sq, Sk, Hq, Hkv, D, cuda, dtype)
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, causal)
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    assert float((o.float() - o_p.float()).abs().max()) <= FLASH_TOL[dtype]
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(o.float(), o_p.float(),
+                                   rtol=FLASH_BF16_RTOL,
+                                   atol=FLASH_BF16_ATOL)
+
+
+def test_flash_attention_cuda_reads_strided_views(cuda):
+    # q/k/v as slices of one fused [B, S, Hq + 2 Hkv, D] projection: the
+    # kernel reads them through their strides, with no copy
+    B, S, Hq, Hkv, D = 2, 192, 8, 2, 64
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    assert not q.is_contiguous()
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    assert float((o - o_p).abs().max()) <= FLASH_TOL[torch.float32]
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash(1, 64, 64, 4, 2, 32, cuda)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_mod.flash_attention_cuda(q, k[:, :32], v[:, :32], True)
+    with pytest.raises(TypeError):
+        flash_mod.flash_attention_cuda(q.half(), k.half(), v.half(), True)
+    q24, k24, v24 = _flash(1, 64, 64, 4, 2, 24, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_mod.flash_attention_cuda(q24, k24, v24, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mod.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                       .transpose(2, 3), k, v, True)
+
+
+def test_flash_attention_on_cuda_raises_when_an_input_requires_grad(cuda):
+    q, k, v = _flash(1, 64, 64, 4, 2, 32, cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():                         # no graph: forward only
+        assert ops.flash_attention(q, k, v).shape == q.shape
+
+
+def test_attention_on_cuda_launches_the_flash_kernel_only_unmasked(
+        cuda, monkeypatch):
+    import dataclasses
+    from repro_torch import nn
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(flash_mod, "flash_attention_fwd_plain", refuse)
+    cfg = nn.AttnConfig(d_model=64, n_heads=4, n_kv=2, head_dim=16,
+                        qk_norm=True, qkv_bias=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = nn.init_attention(gen, cfg)
+    x = torch.randn(2, 32, 64, generator=gen, device=cuda)
+
+    def flash_launches(**kw):
+        before = ops.launch_counts()["flash_attention"]
+        with torch.no_grad():
+            nn.attention(params, x, kw.pop("cfg", cfg), **kw)
+        return ops.launch_counts()["flash_attention"] - before
+
+    assert flash_launches() == 1
+    assert flash_launches(mask=torch.ones(2, 32, dtype=torch.bool,
+                                          device=cuda)) == 0
+    assert flash_launches(cfg=dataclasses.replace(cfg, chunk_size=8)) == 0
+
+
+def test_lm_prefill_and_decode_on_cuda_match_the_cpu(cuda):
+    from repro_torch.configs import lm_family
+    from repro_torch.models import lm
+    cfg = lm_family.reduced_lm(lm_family.QWEN3_14B)
+    params = lm.init(torch.Generator().manual_seed(0), cfg)
+
+    def to_card(node):
+        if isinstance(node, dict):
+            return {k: to_card(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_card(v) for v in node]
+        return node.to(cuda)
+
+    params_d = to_card(params)
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = lm_family.make_fn(cfg, "prefill")
+    decode = lm_family.make_fn(cfg, "decode")
+    before = ops.launch_counts()["flash_attention"]
+    got = prefill(params_d, toks.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
+    exp = prefill(params, toks)
+    assert float((got.cpu() - exp).abs().max()) <= 1e-4
+    cache_d = lm.init_cache(cfg, 2, 16, torch.float32, device=cuda)
+    cache = lm.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    for t in range(8):
+        got, cache_d = decode(params_d, toks[:, t:t + 1].to(cuda), cache_d, t)
+        exp, cache = decode(params, toks[:, t:t + 1], cache, t)
+        assert float((got.cpu() - exp).abs().max()) <= 1e-4
+    assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers

@@ -36,7 +36,8 @@ def test_the_walk_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "buslm.py", "index.py", "serve.py", "cache.py",
             "pipeline.py", "adam.py", "straggler.py", "prefetch.py",
-            "trainer.py", "train.py", "chip_smoke.py"} <= names
+            "trainer.py", "train.py", "lm.py", "lm_family.py", "rope.py",
+            "flash_attention.py", "device.py", "chip_smoke.py"} <= names
 
 
 def _require_no_gpu():
@@ -73,3 +74,22 @@ def test_train_entry_points_default_device_raises_without_a_gpu():
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         training.get_trainer("speedyfeed", cfg=cfg)
+
+
+def test_prefetcher_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch import training
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.DevicePrefetcher(lambda epoch: None)
+    pf = training.DevicePrefetcher(lambda epoch: None, device="cpu")
+    assert pf._device == torch.device("cpu")
+
+
+def test_lm_cache_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch.configs import lm_family
+    from repro_torch.models import lm
+    cfg = lm_family.reduced_lm(lm_family.QWEN3_14B)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 8)
+    assert lm.init_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"

@@ -19,6 +19,8 @@ from repro.kernels.ref import pq_lut_scores as pq_ref  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.bus_attention import (  # noqa: E402
     bus_attention_cuda, bus_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd_plain)
 from repro_torch.kernels.pq_scoring import (  # noqa: E402
     pq_lut_scores_cuda, pq_lut_scores_plain)
 
@@ -149,9 +151,13 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
     ops.reset_launch_counts()
     assert torch.equal(ops.bus_attention(*t), bus_attention_plain(*t))
     assert torch.equal(ops.pq_lut_scores(*p), pq_lut_scores_plain(*p))
+    qf, kf, vf = t[0][:, 0], t[1][:, 0, :8], t[2][:, 0, :8]   # [B, S, H, D]
+    assert torch.equal(ops.flash_attention(qf, kf, vf),
+                       flash_attention_fwd_plain(qf, kf, vf, True)[0])
     assert ops.launch_counts() == {"bus_attention": 0,
                                    "bus_attention_bwd": 0,
-                                   "pq_lut_scores": 0}
+                                   "pq_lut_scores": 0,
+                                   "flash_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
