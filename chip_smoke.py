@@ -7,9 +7,9 @@ versions.
 
 Phases, each of which exits non-zero on failure:
 
-  1. setup    print the card (``nvidia-smi``), turn TF32 off, build both
+  1. setup    print the card (``nvidia-smi``), turn TF32 off, build the
               kernel libraries from ``src/repro_torch/kernels/csrc`` with
-              nvcc, in parallel.
+              nvcc, one process per source, in parallel.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -54,11 +54,32 @@ Phases, each of which exits non-zero on failure:
               kernel vs plain on the same input, within TOL_ATTN_BF16),
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit.
-  8. kernels  each kernel against its plain version at the main paths'
-              shapes, timed with CUDA events beside its bound and
-              ``F.scaled_dot_product_attention`` as a yardstick (for the
-              bus kernels its forward and its backward, for flash its
-              causal forward on the same data). The flash launch at the
+  8. recsys   the recsys family's serving path at full width, f32,
+              seeded random weights, batches from ``recsys_synth``:
+              DLRM-RM2 (26 fields, criteo_like_vocab, d 64: a fused
+              32,710,656 x 64 table, 8.37 GB), Wide&Deep (40 fields, d
+              32, nnz 2, plus the d=1 wide table) and DCN-v2 (d 16, 3
+              cross layers of 429), each through ``make_fn``: serve_p99
+              (B=512, p50/p99 over RS_P99_CALLS synchronised calls after
+              3 warm-ups) and serve_bulk (B=262,144, samples/s), the
+              EmbeddingBag launches per forward (1, 2, 1) and per cell,
+              peak memory; DLRM-RM2's retrieval_cand (1 query against
+              10^6 x 128 candidates, top-100). Kernel vs plain: the p99
+              logits within TOL_RS_LOGITS of the largest, the bulk
+              lookups within TOL_RS_BULK; on the fused table the last
+              row, negative indices and out-of-range -> NaN; a bf16 table
+              within TOL_RS_BF16; the kernel's row timed at serve_bulk's
+              shape. BERT4Rec (3M items, d 64, seq 200): serve_p99 (B=512
+              against the whole catalogue) and retrieval_cand, 0 kernel
+              launches, its first rows against the same serve on the CPU;
+              its serve_bulk would need a 3.1 TB score matrix and is left
+              out. Each config's tables are freed before the next.
+  9. kernels  each kernel against its plain version at the main paths'
+              shapes, timed with CUDA events beside its bound and a
+              PyTorch call as a yardstick (for the bus kernels
+              ``F.scaled_dot_product_attention``'s forward and backward,
+              for flash its causal forward on the same data, for the
+              EmbeddingBag ``F.embedding_bag``). The flash launch at the
               prefill shape is held to plain on its first, a middle and
               its last FLASH_ROWS rows; its bf16 checks are element-wise,
               each beside a control that must fail them.
@@ -114,6 +135,16 @@ LM_PREFILL_SEQ = 32768           # prefill_32k's sequence; batch cut 32 -> 1
 LM_DECODE_BATCH, LM_DECODE_SLOTS = 16, 8192   # decode_32k cut: 128, 32,768
 LM_DECODE_STEPS, LM_Q8_STEPS = 32, 8
 LM_CHECK_B, LM_CHECK_T, LM_PLAIN_SEQ, FLASH_CHECK_SEQ = 4, 64, 2048, 4096
+# recsys: timed calls per cell; kernel vs plain forward logits within
+# TOL_RS_LOGITS of the largest |logit| (f32 products and sums reordered);
+# the bulk lookups (nnz <= 2, f32, products rounded then added in order
+# as plain does) within TOL_RS_BULK; a bf16 table within the JAX tests'
+# 2e-2 of the largest output; BERT4Rec's scores on the card against the
+# CPU within TOL_RS_B4R_CPU (f32 GEMMs in other orders)
+RS_P99_CALLS, RS_BULK_CALLS, RS_RETRIEVAL_CALLS, RS_B4R_CALLS = 100, 5, 20, 50
+TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
+TOL_RS_B4R_CPU = 1e-4
+RS_B4R_CPU_ROWS = 4
 
 
 def fail(msg: str):
@@ -173,6 +204,319 @@ def dropped_tile(v, start: int, width: int = 64):
     v = v.clone()
     v[:, start:start + width] = 0
     return v
+
+
+def latencies_ms(torch, fn, n: int, warmup: int = 3) -> list:
+    """Host-clock ms of ``n`` synchronised calls of ``fn`` after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def tree_to(tree, device):
+    """A copy of a nested dict/list of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def distinct_rows(idx, V: int) -> int:
+    """Distinct table rows an EmbeddingBag call reads: the in-range
+    indices, a negative one naming row V + i. A row that several slots
+    name needs one read from device memory; the repeats can come from
+    L2."""
+    i = idx[(idx >= -V) & (idx < V)].long()
+    return int(i.remainder(V).unique().numel())
+
+
+def gathered_bytes(idx, V: int, row_bytes: int) -> int:
+    """Bytes an EmbeddingBag call must gather: each distinct in-range row
+    once, a row below 32 B costing one 32 B sector."""
+    return distinct_rows(idx, V) * max(row_bytes, 32)
+
+
+def recsys_phase(torch, np, dev):
+    """The recsys family's serving path at full width (see the module
+    docstring, phase 8). Returns (report, the embedding_bag kernel row).
+    Memory is reported above what was resident when a config began."""
+    import gc
+
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.data import recsys_synth
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                                   embedding_bag_plain)
+    from repro_torch.models.recsys import bert4rec, common, ctr
+
+    rep = {"tol_logits_rel": TOL_RS_LOGITS, "tol_bulk_lookup": TOL_RS_BULK}
+    B_p99 = rf.RS_SHAPES["serve_p99"]["batch"]
+    B_bulk = rf.RS_SHAPES["serve_bulk"]["batch"]
+    n_cand = rf.RS_SHAPES["retrieval_cand"]["n_cand"]
+    rng = np.random.default_rng(7)
+    row = None
+
+    def ctr_batch(cfg, B):
+        return recsys_synth.ctr_batch(
+            rng, batch=B, n_dense=cfg.n_dense,
+            vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+            device=dev)
+
+    def resident() -> int:
+        """Free what the last config left, restart the peak; the bytes
+        still allocated (earlier phases' leftovers), which each config's
+        memory figures are counted above."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    for cfg, per_forward in ((rf.DLRM_RM2, 1), (rf.WIDE_DEEP, 2),
+                             (rf.DCN_V2, 1)):
+        base = resident()
+        t0 = time.perf_counter()
+        params = ctr.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        r = {"resident_before_gb": base / 1e9,
+             "init_s": time.perf_counter() - t0,
+             "params_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+             "table_rows": int(params["tables"]["fused"].shape[0]),
+             "embed_dim": cfg.sparse.embed_dim, "nnz": cfg.sparse.nnz,
+             "fields": cfg.sparse.n_fields}
+        serve = rf.make_fn(cfg, "serve")
+        small, bulk = ctr_batch(cfg, B_p99), ctr_batch(cfg, B_bulk)
+
+        # serve_p99: the counts from 0 before the timed calls, read after
+        ops.reset_launch_counts()
+        serve(params, small)
+        r["launches_per_forward"] = ops.launch_counts()["embedding_bag"]
+        ops.reset_launch_counts()
+        ms = latencies_ms(torch, lambda: serve(params, small), RS_P99_CALLS)
+        r["serve_p99"] = {
+            "batch": B_p99, "calls": RS_P99_CALLS,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "launches": ops.launch_counts()["embedding_bag"]}
+        ops.reset_launch_counts()
+        ms = latencies_ms(torch, lambda: serve(params, bulk), RS_BULK_CALLS,
+                          warmup=1)
+        r["serve_bulk"] = {
+            "batch": B_bulk, "calls": RS_BULK_CALLS,
+            "ms": float(np.mean(ms)),
+            "samples_per_s": B_bulk / (float(np.mean(ms)) / 1e3),
+            "launches": ops.launch_counts()["embedding_bag"]}
+        logits = serve(params, small)
+        bulk_logits = serve(params, bulk)
+        check(tuple(logits.shape) == (B_p99,)
+              and tuple(bulk_logits.shape) == (B_bulk,),
+              f"{cfg.name} logits {tuple(logits.shape)}, "
+              f"{tuple(bulk_logits.shape)}")
+        check(bool(torch.isfinite(logits).all()
+                   and torch.isfinite(bulk_logits).all()),
+              f"non-finite {cfg.name} logits")
+        check(r["launches_per_forward"] == per_forward,
+              f"{cfg.name}: {r['launches_per_forward']} embedding_bag "
+              f"launches per forward, expected {per_forward}")
+        for cell, n in (("serve_p99", RS_P99_CALLS + 3),
+                        ("serve_bulk", RS_BULK_CALLS + 1)):
+            check(r[cell]["launches"] == n * per_forward,
+                  f"{cfg.name} {cell}: {r[cell]['launches']} embedding_bag "
+                  f"launches, expected {n * per_forward}")
+
+        # kernel vs plain: the p99 forward's logits, the bulk lookups
+        with torch.no_grad():
+            plain = ctr.forward(params, cfg, small, impl="plain")
+            top = float(plain.abs().max())
+            r["logits_max_rel_err"] = float((logits - plain).abs().max()) / top
+            errs = []
+            tables = [(params["tables"], cfg.sparse)]
+            if cfg.wide:
+                tables.append((params["wide"], cfg.wide_spec))
+            for t, spec in tables:
+                got = common.lookup(t, spec, bulk["sparse_idx"],
+                                    bulk["sparse_w"])
+                exp = common.lookup(t, spec, bulk["sparse_idx"],
+                                    bulk["sparse_w"], impl="plain")
+                errs.append(float((got - exp).abs().max()))
+                del got, exp
+            del tables, t
+        r["bulk_lookup_max_abs_err"] = errs
+        check(r["logits_max_rel_err"] <= TOL_RS_LOGITS,
+              f"{cfg.name} logits, kernel vs plain, differ by "
+              f"{r['logits_max_rel_err']} of the largest")
+        check(max(errs) <= TOL_RS_BULK,
+              f"{cfg.name} bulk lookups, kernel vs plain, differ by {errs}")
+
+        if cfg is rf.DLRM_RM2:
+            # retrieval_cand: one query against 10^6 precomputed candidates
+            retrieve = rf.make_fn(cfg, "retrieval")
+            cand = torch.randn(n_cand, rf.ctr_repr_dim(cfg), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(3))
+            one = ctr_batch(cfg, 1)
+            ops.reset_launch_counts()
+            ms = latencies_ms(torch, lambda: retrieve(params, one, cand),
+                              RS_RETRIEVAL_CALLS)
+            scores, rows = retrieve(params, one, cand)
+            with torch.no_grad():
+                u = ctr.user_repr(params, cfg, one)
+            re = float((scores - (cand[rows[0]] @ u[0])[None]).abs().max())
+            r["retrieval_cand"] = {
+                "candidates": n_cand, "dim": rf.ctr_repr_dim(cfg),
+                "calls": RS_RETRIEVAL_CALLS, "ms": float(np.mean(ms)),
+                "p99_ms": float(np.percentile(ms, 99)),
+                "launches": ops.launch_counts()["embedding_bag"],
+                "rescore_max_abs_err": re}
+            check(tuple(scores.shape) == (1, 100)
+                  and bool((scores[0, :-1] >= scores[0, 1:]).all()),
+                  "retrieval scores are not a sorted top-100")
+            check(re <= 1e-4, f"retrieval scores differ from a rescore by "
+                  f"{re}")
+            del cand
+
+            # the kernel at serve_bulk's shape, on the fused table
+            table = params["tables"]["fused"]
+            V, d = table.shape
+            idx = (bulk["sparse_idx"] + common.field_offsets(
+                cfg.sparse, dev)[None, :, None]).contiguous()
+            w = bulk["sparse_w"]
+            out = embedding_bag_cuda(table, idx, w)
+            exp = embedding_bag_plain(table, idx, w)
+            torch.cuda.synchronize()
+            err = float((out - exp).abs().max())
+            check(err <= TOL_RS_BULK, f"embedding_bag at the bulk shape "
+                  f"differs from plain by {err}")
+            del exp
+            Bk, Fk, nnz = idx.shape
+            flat_idx, flat_w = idx.view(Bk * Fk, nnz), w.view(Bk * Fk, nnz)
+            lib = torch.nn.functional.embedding_bag
+            b_ms, b_by = bound_ms(
+                gathered_bytes(idx, V, d * table.element_size())
+                + nbytes(idx, w, out), 2 * Bk * Fk * nnz * d)
+            row = {
+                "name": "embedding_bag", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                "replaces": "src/repro/kernels/embedding_bag.py:37",
+                "max_abs_err": err,
+                "ms": time_ms(torch, lambda: embedding_bag_cuda(table, idx,
+                                                                w)),
+                "plain_ms": time_ms(torch, lambda: embedding_bag_plain(
+                    table, idx, w), iters=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(torch, lambda: lib(
+                    flat_idx, table, per_sample_weights=flat_w,
+                    mode="sum")),
+                "shape": [Bk, Fk, nnz, V, d], "dtype": "float32",
+                "index_slots": idx.numel(),
+                "distinct_rows": distinct_rows(idx, V)}
+            del out
+
+            # the table's last row, negative indices, out-of-range -> NaN
+            edge = torch.tensor([[[V - 1, 0], [-1, 5], [V, 1], [-V - 1, 2],
+                                  [-V, V - 2]]], dtype=torch.int32,
+                                device=dev)
+            ew = torch.ones(edge.shape, device=dev)
+            ew[0, 2, 0] = 0.0                  # weight 0 does not hide it
+            got = embedding_bag_cuda(table, edge, ew)
+            exp = torch.stack([table[V - 1] + table[0], table[V - 1]
+                               + table[5], table[1], table[2],
+                               table[0] + table[V - 2]])
+            nan = torch.isnan(got[0]).all(dim=-1).tolist()
+            fin = [0, 1, 4]
+            e_err = float((got[0, fin] - exp[fin]).abs().max())
+            r["edge_indices"] = {"nan_bags": nan, "max_abs_err": e_err,
+                                 "last_row": V - 1}
+            check(nan == [False, False, True, True, False],
+                  f"out-of-range bags are not NaN (only): {nan}")
+            check(e_err == 0.0, f"edge-index bags differ by {e_err}")
+
+            # a bf16 table against plain
+            nb = min(V, 1_000_000)
+            tb = table[:nb].to(torch.bfloat16)
+            bi = torch.randint(0, nb, (4096, 26, 2), device=dev,
+                               dtype=torch.int32)
+            bw = torch.rand(bi.shape, device=dev)
+            got = embedding_bag_cuda(tb, bi, bw).float()
+            exp = embedding_bag_plain(tb, bi, bw).float()
+            r["bf16_max_rel_err"] = float((got - exp).abs().max()
+                                          / exp.abs().max())
+            check(r["bf16_max_rel_err"] <= TOL_RS_BF16,
+                  f"bf16 embedding_bag differs from plain by "
+                  f"{r['bf16_max_rel_err']} of the largest")
+            del tb, bi, bw, got, exp, idx, w, flat_idx, flat_w, table
+        r["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        rep[cfg.name] = r
+        print(f"recsys {cfg.name}: " + json.dumps(r), flush=True)
+        del params, small, bulk, logits, bulk_logits, plain
+
+    # BERT4Rec: masked attention takes the plain path, so 0 launches
+    base = resident()
+    cfg = rf.BERT4REC
+    params = bert4rec.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    r = {"resident_before_gb": base / 1e9,
+         "params_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+         "items": cfg.n_items, "serve_bulk": "left out: a [262144, 3M] "
+         "f32 score matrix is 3.1 TB"}
+    toks = recsys_synth.bert4rec_batch(
+        rng, batch=B_p99, seq_len=cfg.seq_len, n_items=cfg.n_items,
+        n_mask=cfg.n_mask, n_neg=cfg.n_neg, mask_token=cfg.mask_token,
+        device=dev)["tokens"]
+    batch = {"tokens": toks}
+    serve = rf.make_fn(cfg, "serve")
+    ops.reset_launch_counts()
+    ms = latencies_ms(torch, lambda: serve(params, batch), RS_B4R_CALLS)
+    scores, ids = serve(params, batch)
+    r["serve_p99"] = {"batch": B_p99, "calls": RS_B4R_CALLS,
+                      "p50_ms": float(np.percentile(ms, 50)),
+                      "p99_ms": float(np.percentile(ms, 99)),
+                      "launches": ops.launch_counts()["embedding_bag"]}
+    retrieve = rf.make_fn(cfg, "retrieval")
+    cand_ids = torch.randint(1, cfg.n_items, (n_cand,), device=dev,
+                             dtype=torch.int32)
+    one = {"tokens": toks[:1]}
+    ops.reset_launch_counts()
+    ms = latencies_ms(torch, lambda: retrieve(params, one, cand_ids),
+                      RS_RETRIEVAL_CALLS)
+    r["retrieval_cand"] = {"candidates": n_cand, "calls": RS_RETRIEVAL_CALLS,
+                           "ms": float(np.mean(ms)),
+                           "p99_ms": float(np.percentile(ms, 99)),
+                           "launches": ops.launch_counts()["embedding_bag"]}
+    r["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the first rows against the same serve on the CPU
+    cpu_params = tree_to(params, "cpu")
+    with torch.no_grad():
+        n = RS_B4R_CPU_ROWS
+        s_cpu, i_cpu = bert4rec.serve(cpu_params, cfg,
+                                      {"tokens": toks[:n].cpu()})
+    r["cpu_check"] = {
+        "rows": n,
+        "scores_max_abs_err": float((scores[:n].cpu() - s_cpu).abs().max()),
+        "top10_sets_equal": all(
+            set(a[:10]) == set(b[:10]) for a, b in
+            zip(ids[:n].cpu().tolist(), i_cpu.tolist()))}
+    rep[cfg.name] = r
+    print(f"recsys {cfg.name}: " + json.dumps(r), flush=True)
+    check(tuple(scores.shape) == (B_p99, 100)
+          and bool(torch.isfinite(scores).all()), "BERT4Rec serve scores")
+    check(r["serve_p99"]["launches"] == 0
+          and r["retrieval_cand"]["launches"] == 0,
+          "BERT4Rec launched embedding_bag")
+    check(r["cpu_check"]["scores_max_abs_err"] <= TOL_RS_B4R_CPU
+          and r["cpu_check"]["top10_sets_equal"],
+          f"BERT4Rec serve on the card vs the CPU: {r['cpu_check']}")
+    del params, cpu_params, scores, ids, cand_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep, row
 
 
 def main() -> int:
@@ -641,6 +985,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------- recsys
+    report["recsys"], ebag_row = recsys_phase(torch, np, dev)
+
     # ---------------------------------------------------------- kernels
     kernels = []
     g = torch.Generator(device=dev).manual_seed(1)
@@ -863,6 +1210,20 @@ def main() -> int:
     report["lm"]["flash_share_of_prefill"] = (
         qcfg.n_layers * flash_ms / 1e3 / report["lm"]["prefill"]["s"])
     del q, k, v, o, lse, qs, ks, vs
+
+    # the EmbeddingBag row, timed in the recsys phase at serve_bulk's shape
+    rs = report["recsys"]
+    rs_launches = {f"{name} {cell}": rs[name][cell]["launches"]
+                   for name in ("dlrm-rm2", "wide-deep", "dcn-v2", "bert4rec")
+                   for cell in ("serve_p99", "serve_bulk", "retrieval_cand")
+                   if isinstance(rs[name].get(cell), dict)
+                   and "launches" in rs[name][cell]}
+    ebag_row["launches"] = sum(rs_launches.values())
+    ebag_row["launches_by_path"] = {
+        "recsys": rs_launches, "serve": launches["embedding_bag"],
+        "train": train_launches["embedding_bag"],
+        "lm_prefill": prefill_launches["embedding_bag"]}
+    kernels.append(ebag_row)
 
     report["kernels"] = kernels
     report["card"] = card

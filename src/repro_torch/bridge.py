@@ -30,12 +30,14 @@ def tensor_from_jax(leaf, device="cuda") -> torch.Tensor:
 
 
 def params_from_jax(tree, device="cuda"):
-    """A JAX parameter tree (dicts of numpy leaves) -> the port's tree.
+    """A JAX parameter tree (dicts and lists of numpy leaves) -> the port's
+    tree.
 
     Dense weights keep their ``[in, out]`` layout and every leaf its dtype
     (bf16 included). A stacked ``layers`` subtree (a leading ``n_layers``
     axis from ``jax.vmap``, as in the PLM and the LM) is split into a list
-    of per-layer dicts.
+    of per-layer dicts. A list node (DCN-v2's ``cross``, BERT4Rec's
+    ``blocks``) stays a list, each element carried over in turn.
     """
     def conv(node, *, stacked=False):
         if isinstance(node, dict):
@@ -44,6 +46,8 @@ def params_from_jax(tree, device="cuda"):
                 return [conv(_index(node, i)) for i in range(n)]
             return {k: conv(v, stacked=(k == "layers")) for k, v in
                     node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
         return tensor_from_jax(node, device)
 
     return conv(tree)

@@ -8,15 +8,18 @@ failed launch is an error, never a reason to run something else.
 Bus attention is differentiable: ``bus_attention`` goes through one
 ``torch.autograd.Function`` on every device, whose forward and backward
 are the CUDA kernels on the card and their plain versions on the CPU.
-Flash attention's backward kernels are not ported yet: on the card
-``flash_attention`` raises when an input requires grad, rather than
-return an output that autograd cannot reach.
+Flash attention's backward kernels are not ported yet, and the
+EmbeddingBag kernel has no backward (the JAX package gives its Pallas
+kernel no VJP): on the card ``flash_attention`` and ``embedding_bag``
+raise when an input requires grad, rather than return an output that
+autograd cannot reach.
 """
 from __future__ import annotations
 
 import torch
 
 from . import bus_attention as _bus
+from . import embedding_bag as _ebag
 from . import flash_attention as _flash
 from . import pq_scoring as _pq
 from ._build import build
@@ -25,7 +28,8 @@ from ._build import build
 KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
            "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
            "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
-           "flash_attention": (_flash.KERNEL, "flash_attention_fwd")}
+           "flash_attention": (_flash.KERNEL, "flash_attention_fwd"),
+           "embedding_bag": (_ebag.KERNEL, "embedding_bag")}
 
 FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it
 
@@ -97,6 +101,21 @@ def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
     if lut.device.type == "cpu":
         return _pq.pq_lut_scores_plain(lut, codes, valid)
     return _pq.pq_lut_scores_cuda(lut, codes, valid)
+
+
+def embedding_bag(table, idx, weights=None):
+    """table: [V, d]; idx: [B, F, nnz] int32; weights: [B, F, nnz] f32 or
+    None (all ones) -> [B, F, d] in the table's dtype. On a CUDA tensor
+    this is forward only: a table or weights that require grad raise."""
+    if table.device.type == "cpu":
+        return _ebag.embedding_bag_plain(table, idx, weights)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (table, weights)):
+        raise NotImplementedError(
+            "embedding_bag on the card is forward only: the kernel has no "
+            "backward, so a table or weights that require grad would lose "
+            "their gradient")
+    return _ebag.embedding_bag_cuda(table, idx, weights)
 
 
 def _libraries():

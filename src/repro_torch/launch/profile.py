@@ -5,6 +5,7 @@ the serve slice's recall goes.
         [--out chiprun_out/profile_serve.json]
     python -m repro_torch.launch.profile --train [--out PATH]
     python -m repro_torch.launch.profile --lm [--out PATH]
+    python -m repro_torch.launch.profile --recsys [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
 random weights, a ``make_loader`` corpus, IVF-PQ with nlist from the
@@ -32,6 +33,13 @@ bf16 KV cache (after one warm call each): device time by kernel name and
 the device's busy share, printed and written to ``--out`` (default
 ``chiprun_out/profile_lm.json``).
 
+With ``--recsys`` it instead profiles the recsys family's serving path:
+one DLRM-RM2 ``serve_bulk`` forward (B=262,144) at full width (the fused
+32,710,656 x 64 f32 table, seeded random weights, a ``recsys_synth``
+batch) after one warm call: device time by kernel name and the device's
+busy share, printed and written to ``--out`` (default
+``chiprun_out/profile_recsys.json``).
+
 With ``--recall-repeat`` it instead studies where the spread of recall@10
 between runs comes from (``recall_repeat``), and writes the corpus
 embeddings and the probe users' vectors to ``--vectors-out`` (an .npz that
@@ -53,11 +61,13 @@ import numpy as np
 import torch
 
 from repro_torch import core, data, serving, training
-from repro_torch.configs import PROD, lm_family
+from repro_torch.configs import PROD, lm_family, recsys_family
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Recommender, _pad_histories
 from repro_torch.launch.train import first_batch_of_bucket, make_loader
+from repro_torch.data import recsys_synth
 from repro_torch.models import lm
+from repro_torch.models.recsys import ctr
 from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
@@ -137,6 +147,29 @@ def profile_lm(dev) -> dict:
     out["decode_step"] = _profiled(lambda: decode(params, tok, cache, 0))
     out["decode_step"].update(batch=decode_batch, slots=slots)
     return out
+
+
+def profile_recsys(dev) -> dict:
+    """``torch.profiler`` over one DLRM-RM2 forward at ``serve_bulk``'s
+    batch (the smoke's shape), after one warm call."""
+    cfg = recsys_family.DLRM_RM2
+    B = recsys_family.RS_SHAPES["serve_bulk"]["batch"]
+    params = ctr.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = recsys_synth.ctr_batch(
+        np.random.default_rng(7), batch=B, n_dense=cfg.n_dense,
+        vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz, device=dev)
+    serve = recsys_family.make_fn(cfg, "serve", device=dev)
+    out = _profiled(lambda: serve(params, batch))
+    out.update(config=cfg.name, batch=B)
+    return out
+
+
+def _print_table(name: str, r: dict):
+    print(f"{name}: wall {r['wall_ms']:.3f} ms, device busy "
+          f"{r['device_busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%)")
+    for kern in r["kernels"]:
+        print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
+              f"{kern['name']}")
 
 
 def _cells_of(snap, n_rows: int):
@@ -284,6 +317,8 @@ def main(argv=None):
                     help="profile one PROD train step instead")
     ap.add_argument("--lm", action="store_true",
                     help="profile one Qwen3-14B prefill and decode step")
+    ap.add_argument("--recsys", action="store_true",
+                    help="profile one DLRM-RM2 serve_bulk forward")
     ap.add_argument("--recall-repeat", action="store_true",
                     help="run only the recall-repeat study")
     ap.add_argument("--vectors-out", default="chiprun_out/recall_vectors.npz")
@@ -306,13 +341,13 @@ def main(argv=None):
         report = {"card": card, **profile_lm(dev)}
         _write(args.out or "chiprun_out/profile_lm.json", report)
         for name in ("prefill", "decode_step"):
-            r = report[name]
-            print(f"{name}: wall {r['wall_ms']:.1f} ms, device busy "
-                  f"{r['device_busy_ms']:.1f} ms "
-                  f"({100 * r['busy_share']:.1f}%)")
-            for kern in r["kernels"]:
-                print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
-                      f"{kern['name']}")
+            _print_table(name, report[name])
+        print(card)
+        return report
+    if args.recsys:
+        report = {"card": card, "serve_bulk": profile_recsys(dev)}
+        _write(args.out or "chiprun_out/profile_recsys.json", report)
+        _print_table("dlrm-rm2 serve_bulk", report["serve_bulk"])
         print(card)
         return report
     _, log, store, lcfg = make_loader(PROD, n_news=args.news, seed=0)
@@ -321,12 +356,7 @@ def main(argv=None):
             log, store, lcfg, dev)}
         if args.out:
             _write(args.out, report)
-        r = report["train_step"]
-        print(f"train step: wall {r['wall_ms']:.1f} ms, device busy "
-              f"{r['device_busy_ms']:.1f} ms ({100 * r['busy_share']:.1f}%)")
-        for kern in r["kernels"]:
-            print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
-                  f"{kern['name']}")
+        _print_table("train step", report["train_step"])
         print(card)
         return report
     params = core.init_speedyfeed(

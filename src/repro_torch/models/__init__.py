@@ -1,1 +1,2 @@
-"""Model families beside SpeedyFeed: the LM family (``lm``)."""
+"""Model families beside SpeedyFeed: the LM family (``lm``) and the recsys
+family (``recsys``)."""

@@ -1,4 +1,5 @@
-"""Substrate layers: initializers, dense, layernorm, rmsnorm, embedding.
+"""Substrate layers: initializers, dense, MLP, layernorm, rmsnorm,
+embedding.
 
 Parameters are nested dicts of tensors, in the JAX package's layout:
 a dense weight is ``[in, out]`` and is applied as ``x @ w``. Initializers
@@ -48,6 +49,28 @@ def dense(params, x, *, dtype=None):
     if b is not None:
         y = y + b
     return y
+
+
+def init_mlp(gen: torch.Generator, dims, *, use_bias: bool = True,
+             dtype=torch.float32):
+    """Plain MLP stack (the recsys towers): ``{"l0": dense, ...}``, layer
+    i mapping dims[i] -> dims[i + 1]."""
+    return {f"l{i}": init_dense(gen, dims[i], dims[i + 1], use_bias=use_bias,
+                                dtype=dtype)
+            for i in range(len(dims) - 1)}
+
+
+def mlp(params, x, *, act=torch.relu, final_act=None, dtype=None):
+    """``act`` after every layer but the last, ``final_act`` (if any)
+    after the last."""
+    n = len(params)
+    for i in range(n):
+        x = dense(params[f"l{i}"], x, dtype=dtype)
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
 
 
 def init_layernorm(gen: torch.Generator, dim: int):

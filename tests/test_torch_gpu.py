@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, against their plain PyTorch versions,
-and the serving, training and LM serving slices on the card at a small
-size.
+and the serving, training, LM serving and recsys serving slices on the
+card at a small size.
 
 Every test here is marked ``gpu`` and skips where no GPU is present (the
 kernels have no CPU mode). The file imports only torch, numpy and the
@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import bus_attention as bus_mod  # noqa: E402
+from repro_torch.kernels import embedding_bag as ebag_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import pq_scoring as pq_mod  # noqa: E402
 
@@ -28,6 +29,10 @@ FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # JAX tests' own
 # they differ by at most one ulp, at most 2^-7 of the value
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-4
 LSE_TOL = 1e-4        # f32 either way: sums of exp in another order
+# EmbeddingBag, kernel vs plain: f32 sums of up to 16 products in another
+# order (exact for nnz <= 2); bf16 rounds those f32 sums once, so one ulp
+# (2^-7 of the value) apart at most, plus the f32 gap near 0
+EBAG_TOL_F32, EBAG_BF16_RTOL = 2e-5, 2.0 ** -7
 
 
 @pytest.fixture
@@ -444,3 +449,136 @@ def test_lm_prefill_and_decode_on_cuda_match_the_cpu(cuda):
         exp, cache = decode(params, toks[:, t:t + 1], cache, t)
         assert float((got.cpu() - exp).abs().max()) <= 1e-4
     assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
+
+
+def _ebag(V, d, B, F, nnz, dev, dtype=torch.float32, seed=0, lo=0, hi=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(V, d, generator=g, device=dev).to(dtype)
+    idx = torch.randint(lo, V if hi is None else hi, (B, F, nnz),
+                        generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand(B, F, nnz, generator=g, device=dev)
+    return table, idx, w
+
+
+@pytest.mark.parametrize("d", [1, 7, 16, 32, 64, 128])
+@pytest.mark.parametrize("nnz", [1, 2, 16])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_cuda_matches_plain(cuda, d, nnz, weighted, dtype):
+    table, idx, w = _ebag(1000, d, 67, 13, nnz, cuda, dtype)
+    w = w if weighted else None
+    got = ebag_mod.embedding_bag_cuda(table, idx, w)
+    exp = ebag_mod.embedding_bag_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (67, 13, d)
+    if dtype == torch.float32 and nnz <= 2:
+        assert torch.equal(got, exp)
+    elif dtype == torch.float32:
+        assert float((got - exp).abs().max()) <= EBAG_TOL_F32
+    else:
+        lim = EBAG_BF16_RTOL * exp.float().abs() + EBAG_TOL_F32
+        assert bool(((got.float() - exp.float()).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("d", [1, 64])
+def test_embedding_bag_cuda_out_of_range_and_negative_indices(cuda, d):
+    V = 50
+    table, idx, w = _ebag(V, d, 40, 3, 2, cuda, lo=-2 * V, hi=2 * V)
+    w[0, 0, 1] = 0.0
+    idx[0, 0] = torch.tensor([3, V], device=cuda)   # NaN despite weight 0
+    idx[0, 1] = torch.tensor([-1, -V], device=cuda)  # rows V-1 and 0
+    got = ebag_mod.embedding_bag_cuda(table, idx, w)
+    exp = ebag_mod.embedding_bag_plain(table, idx, w)
+    torch.cuda.synchronize()
+    nan = torch.isnan(exp)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan[0, 0].all()) and not bool(nan[0, 1].any())
+    assert bool(nan.any()) and not bool(nan.all())
+    assert torch.equal(got[~nan], exp[~nan])
+    row = w[0, 1, 0] * table[V - 1] + w[0, 1, 1] * table[0]
+    assert float((got[0, 1] - row).abs().max()) <= EBAG_TOL_F32
+
+
+def test_embedding_bag_cuda_gathers_past_2_31_bytes(cuda):
+    # 8,389,632 rows x 64 f32 = 2.15e9 bytes: the last rows sit past 2^31
+    V, d = 2 ** 23 + 1024, 64
+    table = torch.empty(V, d, device=cuda)
+    table[:8] = 1.0
+    tail = torch.randn(1024, d, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    table[-1024:] = tail
+    idx = torch.tensor([[[V - 1], [V - 1024], [0], [-1]]], device=cuda,
+                       dtype=torch.int32)
+    got = ebag_mod.embedding_bag_cuda(table, idx)
+    torch.cuda.synchronize()
+    exp = torch.stack([tail[-1], tail[0], torch.ones(d, device=cuda),
+                       tail[-1]])[None]
+    assert torch.equal(got, exp)
+
+
+def test_embedding_bag_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda, monkeypatch):
+    table, idx, w = _ebag(100, 16, 4, 3, 2, cuda)
+    with pytest.raises(TypeError, match="int32"):
+        ebag_mod.embedding_bag_cuda(table, idx.long(), w)
+    with pytest.raises(TypeError, match="weights"):
+        ebag_mod.embedding_bag_cuda(table, idx, w.double())
+    with pytest.raises(TypeError, match="weights"):
+        ebag_mod.embedding_bag_cuda(table, idx, w[:, :, :1].contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ebag_mod.embedding_bag_cuda(table.half(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ebag_mod.embedding_bag_cuda(table.t().contiguous().t(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ebag_mod.embedding_bag_cuda(table, idx.transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        ebag_mod.embedding_bag_cuda(table, idx, w.transpose(1, 2)
+                                    .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="table on"):
+        ebag_mod.embedding_bag_cuda(table, idx.cpu(), w)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.embedding_bag(table.clone().requires_grad_(), idx, w)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.embedding_bag(table, idx, w.clone().requires_grad_())
+    with torch.no_grad():                          # no graph: forward only
+        assert ops.embedding_bag(table.clone().requires_grad_(), idx,
+                                 w).shape == (4, 3, 16)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda *a, **kw: (8, 0))
+    with pytest.raises(RuntimeError, match="sm_90a"):
+        ops.embedding_bag(table, idx, w)
+
+
+def test_recsys_forward_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
+    from repro_torch.configs import recsys_family
+    from repro_torch.data import recsys_synth
+    from repro_torch.models.recsys import common, ctr
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def to_card(node):
+        if isinstance(node, dict):
+            return {k: to_card(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_card(v) for v in node]
+        return node.to(cuda)
+
+    for name, per_forward in (("DLRM_RM2", 1), ("WIDE_DEEP", 2),
+                              ("DCN_V2", 1)):
+        cfg = recsys_family.reduced_ctr(getattr(recsys_family, name))
+        params = ctr.init(torch.Generator().manual_seed(0), cfg)
+        batch = recsys_synth.ctr_batch(
+            np.random.default_rng(0), batch=64, n_dense=cfg.n_dense,
+            vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+            device="cpu")
+        exp = ctr.forward(params, cfg, batch)
+        with monkeypatch.context() as m:
+            m.setattr(ebag_mod, "embedding_bag_plain", refuse)
+            m.setattr(common, "embedding_bag_plain", refuse)
+            serve = recsys_family.make_fn(cfg, "serve")
+            before = ops.launch_counts()["embedding_bag"]
+            got = serve(to_card(params), batch)
+            assert ops.launch_counts()["embedding_bag"] == \
+                before + per_forward, name
+        assert float((got.cpu() - exp).abs().max()) <= 1e-5, name

@@ -37,7 +37,13 @@ def test_the_walk_covers_the_package():
     assert {"ops.py", "buslm.py", "index.py", "serve.py", "cache.py",
             "pipeline.py", "adam.py", "straggler.py", "prefetch.py",
             "trainer.py", "train.py", "lm.py", "lm_family.py", "rope.py",
-            "flash_attention.py", "device.py", "chip_smoke.py"} <= names
+            "flash_attention.py", "device.py", "chip_smoke.py",
+            "embedding_bag.py", "common.py", "ctr.py", "bert4rec.py",
+            "recsys_synth.py", "recsys_family.py"} <= names
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert (csrc / "embedding_bag.cu").is_file()
+    # both embedding_bag.py files: the kernel's module and nn's plain one
+    assert sum(p.name == "embedding_bag.py" for p in PORT_FILES) == 2
 
 
 def _require_no_gpu():
@@ -93,3 +99,29 @@ def test_lm_cache_default_device_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.init_cache(cfg, 1, 8)
     assert lm.init_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+
+
+def test_recsys_entry_points_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch.configs import recsys_family
+    from repro_torch.data import recsys_synth
+    cfg = recsys_family.reduced_ctr(recsys_family.DLRM_RM2)
+    kw = dict(batch=2, n_dense=cfg.n_dense,
+              vocab_sizes=cfg.sparse.vocab_sizes)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recsys_synth.ctr_batch(np.random.default_rng(0), **kw)
+    b4r = dict(batch=2, seq_len=8, n_items=50, n_mask=2, n_neg=3,
+               mask_token=50)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recsys_synth.bert4rec_batch(np.random.default_rng(0), **b4r)
+    for c in (cfg, recsys_family.BERT4REC):
+        for kind in ("serve", "retrieval"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                recsys_family.make_fn(c, kind)
+    batch = recsys_synth.ctr_batch(np.random.default_rng(0), device="cpu",
+                                   **kw)
+    assert batch["sparse_idx"].device.type == "cpu"
+    assert recsys_synth.bert4rec_batch(np.random.default_rng(0),
+                                       device="cpu", **b4r)[
+        "tokens"].device.type == "cpu"
+    assert callable(recsys_family.make_fn(cfg, "serve", device="cpu"))

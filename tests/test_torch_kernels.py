@@ -19,6 +19,7 @@ from repro.kernels.ref import pq_lut_scores as pq_ref  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.bus_attention import (  # noqa: E402
     bus_attention_cuda, bus_attention_plain)
+from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd_plain)
 from repro_torch.kernels.pq_scoring import (  # noqa: E402
@@ -154,10 +155,15 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
     qf, kf, vf = t[0][:, 0], t[1][:, 0, :8], t[2][:, 0, :8]   # [B, S, H, D]
     assert torch.equal(ops.flash_attention(qf, kf, vf),
                        flash_attention_fwd_plain(qf, kf, vf, True)[0])
+    table, idx = t[0].reshape(-1, 16), torch.tensor([[[0, -1], [3, 5]]],
+                                                    dtype=torch.int32)
+    assert torch.equal(ops.embedding_bag(table, idx),
+                       embedding_bag_plain(table, idx))
     assert ops.launch_counts() == {"bus_attention": 0,
                                    "bus_attention_bwd": 0,
                                    "pq_lut_scores": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "embedding_bag": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
