@@ -54,7 +54,24 @@ Phases, each of which exits non-zero on failure:
               kernel vs plain on the same input, within TOL_ATTN_BF16),
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit.
-  8. recsys   the recsys family's serving path at full width, f32,
+  8. lm-train the LM family's training path: Qwen3-14B at full width, 8
+              of its 40 layers, bf16 parameters and f32 Adam moments
+              (seeded), B=2 at train_4k's S=4,096 (labels the tokens
+              shifted left, -100 last), through ``make_fn(cfg,
+              "train")``: 1 warm-up and 3 synchronised timed steps
+              (s/step, tokens/s, peak memory, model TFLOP/s as the JAX
+              cell counts them), finite losses, every leaf's moments
+              written and every matrix moved, ``count`` 4, and exactly 16
+              flash forward (with the remat recompute), 8 dq and 8 dk/dv
+              launches per step. Then at depth 2: one step with
+              ``accum_steps=2`` (twice the launches), and, in f32 with
+              TF32 off at B=1, the loss and every gradient leaf through
+              the kernels against ``impl="plain"`` (TOL_LOSS, TOL_GRAD);
+              then, on those gradients, the in-place Adam over each leaf
+              it splits into row chunks (embed, head, FFN) against the
+              same update of the whole leaf and against Adam in f64
+              (TOL_ADAM).
+  9. recsys   the recsys family's serving path at full width, f32,
               seeded random weights, batches from ``recsys_synth``:
               DLRM-RM2 (26 fields, criteo_like_vocab, d 64: a fused
               32,710,656 x 64 table, 8.37 GB), Wide&Deep (40 fields, d
@@ -74,15 +91,18 @@ Phases, each of which exits non-zero on failure:
               launches, its first rows against the same serve on the CPU;
               its serve_bulk would need a 3.1 TB score matrix and is left
               out. Each config's tables are freed before the next.
-  9. kernels  each kernel against its plain version at the main paths'
+  10. kernels each kernel against its plain version at the main paths'
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
-              for flash its causal forward on the same data, for the
+              for flash its causal forward and, for the flash backward,
+              its causal GQA backward on the same data, for the
               EmbeddingBag ``F.embedding_bag``). The flash launch at the
               prefill shape is held to plain on its first, a middle and
               its last FLASH_ROWS rows; its bf16 checks are element-wise,
-              each beside a control that must fail them.
+              each beside a control that must fail them. The flash
+              backward runs at the train shape in f32 and bf16, its bf16
+              check beside a control that drops the last key tile.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON; the last line is the ``{"ok": true, ...}``
@@ -141,6 +161,20 @@ LM_CHECK_B, LM_CHECK_T, LM_PLAIN_SEQ, FLASH_CHECK_SEQ = 4, 64, 2048, 4096
 # as plain does) within TOL_RS_BULK; a bf16 table within the JAX tests'
 # 2e-2 of the largest output; BERT4Rec's scores on the card against the
 # CPU within TOL_RS_B4R_CPU (f32 GEMMs in other orders)
+# LM training: train_4k's sequence at lm_family.ONE_CARD_TRAIN's depth
+# and batch (8 of 40 layers, 2 of 256 rows); the kernel vs plain,
+# accumulation and chunked-Adam checks at depth 2. The in-place Adam by
+# row chunks, ADAM_CHECK_STEPS steps with the clip off, against the whole
+# leaf and against Adam in f64: parameters and moments within TOL_ADAM
+# of each one's largest magnitude (a few f32 roundings an element); the
+# clip's norm, a sum of up to 2^26 f32 squares a chunk, within
+# TOL_ADAM_NORM of the f64 norm (~u*sqrt(n)/3 = 1e-6 at n = 2^26)
+LM_TRAIN_TIMED, LM_CHECK_LAYERS = 3, 2
+ADAM_CHECK_STEPS, TOL_ADAM, TOL_ADAM_NORM = 2, 1e-6, 1e-5
+# flash backward vs plain: f32 within the JAX tests' 1e-4, relative to
+# each gradient's largest magnitude at this length; bf16 within their
+# 2e-2 and element-wise as the forward (RTOL/ATOL_FLASH_BF16)
+TOL_FLASH_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 RS_P99_CALLS, RS_BULK_CALLS, RS_RETRIEVAL_CALLS, RS_B4R_CALLS = 100, 5, 20, 50
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
 TOL_RS_B4R_CPU = 1e-4
@@ -519,6 +553,252 @@ def recsys_phase(torch, np, dev):
     return rep, row
 
 
+def adam_by_chunks(torch, names, params, grads) -> dict:
+    """Each leaf of ``params`` the in-place Adam splits into row chunks
+    takes ADAM_CHECK_STEPS steps of the LM's TRAIN_OPT, at its full lr (no
+    warm-up: every element moves by ~lr) and with the clip off, over its
+    gradient: once by ``adam.CHUNK`` and once with CHUNK above the leaf.
+    Returns, per leaf, the errors of p, m and v chunked against whole and
+    whole against Adam in f64, each relative to the largest magnitude,
+    and the clip's global norm (summed by chunks) against the f64 norm."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import lm_family
+    from repro_torch.optim import adam
+
+    acfg = dataclasses.replace(lm_family.TRAIN_OPT, grad_clip=0.0)
+    chunk0 = adam.CHUNK
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    out = {"chunk": chunk0, "steps": ADAM_CHECK_STEPS, "lr": acfg.lr,
+           "leaves": {}}
+    for n, p, g in zip(names, params, grads):
+        if p.numel() <= chunk0:
+            continue
+        runs = []
+        for chunk in (chunk0, p.numel()):
+            adam.CHUNK = chunk
+            try:
+                tree = {"w": p.detach().clone()}
+                st = optim.adam_init(tree)
+                for _ in range(ADAM_CHECK_STEPS):
+                    tree, st, _ = optim.adam_update(tree, {"w": g}, st,
+                                                    acfg)
+            finally:
+                adam.CHUNK = chunk0
+            runs.append((tree["w"], st["m"]["w"], st["v"]["w"]))
+            del tree, st
+        (pc, mc, vc), (pw, mw, vw) = runs
+        leaf = {"shape": list(p.shape),
+                "chunk_rows": chunk0 // p[0].numel(),
+                "chunked_vs_whole": {"p": rel(pc, pw), "m": rel(mc, mw),
+                                     "v": rel(vc, vw)}}
+        # Adam in f64 over the whole leaf, a chunk of rows at a time
+        err = {k: [0.0, 0.0] for k in "pmv"}
+        sq, moved = 0.0, 0.0
+        for rows in zip(*(t.split(leaf["chunk_rows"])
+                          for t in (p.detach(), g, pw, mw, vw))):
+            p0, gs = rows[0].double(), rows[1].double()
+            sq += float(gs.square().sum())
+            pr, mr, vr = p0, 0.0, 0.0
+            for t in range(1, ADAM_CHECK_STEPS + 1):
+                mr = acfg.b1 * mr + (1 - acfg.b1) * gs
+                vr = acfg.b2 * vr + (1 - acfg.b2) * gs * gs
+                upd = (mr / (1 - acfg.b1 ** t)) / (
+                    (vr / (1 - acfg.b2 ** t)).sqrt() + acfg.eps)
+                pr = pr - acfg.lr * (upd + acfg.weight_decay * pr)
+            for k, got, ref in zip("pmv", rows[2:], (pr, mr, vr)):
+                err[k][0] = max(err[k][0],
+                                float((got.double() - ref).abs().max()))
+                err[k][1] = max(err[k][1], float(ref.abs().max()))
+            moved = max(moved, float((rows[2].double() - p0).abs().max()))
+        leaf["whole_vs_f64"] = {k: e / max(m, 1e-30)
+                                for k, (e, m) in err.items()}
+        leaf["moved"] = moved
+        norm = float(optim.clip_by_global_norm([g.clone()], 1.0))
+        leaf["norm"] = {"chunked": norm, "f64": sq ** 0.5,
+                        "rel_err": abs(norm / sq ** 0.5 - 1)}
+        out["leaves"][n] = leaf
+        del runs, pc, mc, vc, pw, mw, vw
+    return out
+
+
+def lm_train_phase(torch, np, dev):
+    """The LM family's training path (see the module docstring, phase 8).
+    Returns (report, the launch counts of the timed run's four steps)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import optim
+    from repro_torch.configs import lm_family
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import leaves
+
+    S = lm_family.LM_SHAPES["train_4k"]["seq"]
+    B = lm_family.ONE_CARD_TRAIN["batch"]
+    bf16 = torch.bfloat16
+    gt = torch.Generator(device=dev).manual_seed(4)
+
+    def batch_of(cfg, B):
+        return lm_family.train_batch(cfg, B, S, gt, dev)
+
+    def resident() -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def launches_since(before):
+        now = ops.launch_counts()
+        return {k: now[k] - before[k] for k in ("flash_attention",
+                                                "flash_attention_bwd_dq",
+                                                "flash_attention_bwd_dkv")}
+
+    # ---- the timed run: depth 8, B=2, S=4,096, bf16
+    base = resident()
+    cfg = dataclasses.replace(lm_family.QWEN3_14B,
+                              n_layers=lm_family.ONE_CARD_TRAIN["n_layers"])
+    L = cfg.n_layers
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, bf16)
+    opt = optim.adam_init(params)
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    before = {p: t.detach().to("cpu", copy=True) for p, t in leaves(params)}
+    step = lm_family.make_fn(cfg, "train")
+    batch = batch_of(cfg, B)
+    tokens = B * S
+    losses, step_s, per_step = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(1 + LM_TRAIN_TIMED):
+        b0 = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        per_step.append(launches_since(b0))
+    launches = ops.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    s_step = float(np.mean(step_s[1:]))
+    changed = {p: int((t != before[p].to(dev)).sum())
+               for p, t in leaves(params)}
+    m_zero = [p for p, t in leaves(opt["m"]) if not bool(t.ne(0).any())]
+    rep = {"config": cfg.name, "layers": L, "batch": B,
+           "seq": S, "params": cfg.param_count(), "state_gb": state_gb,
+           "losses": losses, "step_s": step_s, "s_per_step": s_step,
+           "tokens_per_s": tokens / s_step,
+           "model_tflop_per_s": 6 * cfg.active_param_count() * tokens
+           / s_step / 1e12,
+           "peak_gb": peak_gb, "resident_before_gb": base / 1e9,
+           "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+           "count": int(opt["count"]), "launches_per_step": per_step,
+           "launches": {k: launches[k] for k in per_step[0]},
+           "elements_changed": changed}
+    print("lm-train: " + json.dumps({k: v for k, v in rep.items()
+                                     if k != "elements_changed"}),
+          flush=True)
+    check(all(np.isfinite(losses)), f"LM train losses {losses}")
+    check(rep["count"] == 1 + LM_TRAIN_TIMED, f"opt count {rep['count']}")
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    check(all(c == want for c in per_step),
+          f"LM train launches per step {per_step}, expected {want}")
+    # every leaf got a gradient and an update of its moments; every matrix
+    # moved. A norm scale (1.0 in bf16, an ulp of 2^-7) cannot move by an
+    # Adam step of lr ~1e-5: its count is reported, not held
+    check(not m_zero, f"leaves whose first moment is still 0: {m_zero}")
+    still = [p for p, t in leaves(params) if t.dim() >= 2 and changed[p] == 0]
+    check(not still, f"matrices that did not move: {still}")
+    del params, opt, before, batch, step, m
+
+    # ---- accumulation over two microbatches of 1 x 4,096: depth 2
+    base = resident()
+    cfg2 = dataclasses.replace(lm_family.QWEN3_14B, n_layers=LM_CHECK_LAYERS)
+    L2 = cfg2.n_layers
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg2, bf16)
+    opt = optim.adam_init(params)
+    step = optim.make_train_step(
+        lambda p, b: lm.lm_loss(p, cfg2, b),
+        dataclasses.replace(lm_family.TRAIN_OPT, accum_steps=2),
+        lm_family.TRAIN_SCHEDULE)
+    b0 = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch_of(cfg2, 2))
+    torch.cuda.synchronize()
+    rep["accum"] = {"layers": L2, "accum_steps": 2, "microbatch": [1, S],
+                    "s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                    "launches": launches_since(b0),
+                    "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                    / 1e9}
+    print("lm-train accum: " + json.dumps(rep["accum"]), flush=True)
+    want = {"flash_attention": 4 * L2, "flash_attention_bwd_dq": 2 * L2,
+            "flash_attention_bwd_dkv": 2 * L2}
+    check(np.isfinite(rep["accum"]["loss"]), "non-finite accumulated loss")
+    check(rep["accum"]["launches"] == want, f"accumulated step launches "
+          f"{rep['accum']['launches']}, expected {want}")
+    del params, opt, step, m
+
+    # ---- kernel vs plain: loss and gradients, depth 2, f32, B=1
+    base = resident()
+    cfgf = dataclasses.replace(cfg2, dtype="float32")
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfgf,
+                     torch.float32)
+    names = [p for p, _ in leaves(params)]
+    flat = [t.requires_grad_() for _, t in leaves(params)]
+    batch = batch_of(cfgf, 1)
+    res = {}
+    for impl in ("kernel", "plain"):
+        b0 = ops.launch_counts()
+        loss, _ = lm.lm_loss(params, cfgf, batch, impl=impl)
+        res[impl] = (float(loss.detach()),
+                     torch.autograd.grad(loss, flat), launches_since(b0))
+        del loss
+    (lk, gk, ck), (lp, gp, cp) = res["kernel"], res["plain"]
+    ratios = {n: float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-30)
+              for n, a, b in zip(names, gk, gp)}
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+    rep["plain"] = {"layers": L2, "batch": 1, "seq": S, "dtype": "float32",
+                    "loss_kernel": lk, "loss_plain": lp,
+                    "loss_abs_err": abs(lk - lp),
+                    "grad_worst_rel_err": worst[0][1],
+                    "grad_worst_leaves": worst, "n_grad_leaves": len(names),
+                    "launches_kernel": ck, "launches_plain": cp,
+                    "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                    / 1e9}
+    print("lm-train plain: " + json.dumps(rep["plain"]), flush=True)
+    check(abs(lk - lp) <= TOL_LOSS, f"LM train loss kernel {lk} vs plain "
+          f"{lp}")
+    check(worst[0][1] <= TOL_GRAD, f"LM gradient leaf {worst[0][0]} "
+          f"differs by {worst[0][1]} of its magnitude")
+    check(sum(cp.values()) == 0 and ck == {
+        "flash_attention": 2 * L2, "flash_attention_bwd_dq": L2,
+        "flash_attention_bwd_dkv": L2}, f"launches kernel {ck}, plain {cp}")
+    del res, gp, batch
+
+    # ---- the in-place Adam by row chunks, on the card, over the f32
+    # kernel gradients
+    rep["adam"] = adam_by_chunks(torch, names, flat, gk)
+    print("lm-train adam: " + json.dumps(rep["adam"]), flush=True)
+    split = rep["adam"]["leaves"]
+    check(len(split) == 2 + 3 * L2,
+          f"Adam split {sorted(split)}, expected embed, head and "
+          f"{3 * L2} FFN matrices")
+    bad = {n: e for n, e in split.items()
+           if max(*e["chunked_vs_whole"].values(),
+                  *e["whole_vs_f64"].values()) > TOL_ADAM
+           or e["norm"]["rel_err"] > TOL_ADAM_NORM}
+    check(not bad, f"Adam by row chunks: {bad}")
+    del params, flat, gk
+    resident()
+    return rep, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -538,6 +818,7 @@ def main() -> int:
                                                    bus_attention_cuda,
                                                    bus_attention_plain)
     from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import (pq_lut_scores_cuda,
                                                 pq_lut_scores_plain)
@@ -985,6 +1266,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------------- lm-train
+    report["lm_train"], lm_train_launches = lm_train_phase(torch, np, dev)
+
     # ----------------------------------------------------------- recsys
     report["recsys"], ebag_row = recsys_phase(torch, np, dev)
 
@@ -1197,6 +1481,7 @@ def main() -> int:
         "launches": prefill_launches["flash_attention"],
         "launches_by_path": {"prefill": prefill_launches["flash_attention"],
                              "decode": lm_rep["decode"]["flash_launches"],
+                             "lm_train": lm_train_launches["flash_attention"],
                              "serve": launches["flash_attention"],
                              "train": train_launches["flash_attention"]},
         "max_abs_err": max(e["o"] for e in flash_err.values()),
@@ -1210,6 +1495,99 @@ def main() -> int:
     report["lm"]["flash_share_of_prefill"] = (
         qcfg.n_layers * flash_ms / 1e3 / report["lm"]["prefill"]["s"])
     del q, k, v, o, lse, qs, ks, vs
+
+    # the flash backward at the LM training shape (B=2, S=4,096), against
+    # plain on the same saved o/lse, in f32 and bf16. The bf16 control:
+    # the plain gradients of a kernel that lost the last key tile (dk, dv
+    # of that tile zero; dq's last rows without that tile's ds k, which is
+    # plain on the last tile alone: row i of it sees keys up to i, as the
+    # global row does) must miss the element-wise limit
+    Bt, St = lm_family.ONE_CARD_TRAIN["batch"], \
+        lm_family.LM_SHAPES["train_4k"]["seq"]
+    bwd_err = {}
+    for dtype in (torch.float32, bf16):
+        name = str(dtype)[6:]
+        q, do = (torch.randn(Bt, St, Hq, Dh, generator=g, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(Bt, St, Hkv, Dh, generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, True)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+        exp = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        e = {}
+        for gname, a, b in zip(("dq", "dk", "dv"), got, exp):
+            e[gname] = float((a.float() - b.float()).abs().max())
+            e[gname + "_rel"] = e[gname] / float(b.float().abs().max())
+            if dtype == bf16:
+                e[gname + "_over_limit"] = flash_miss(a, b)
+        if dtype == bf16:
+            t0_ = St - 64
+            last = flash_attention_bwd_plain(
+                q[:, t0_:], k[:, t0_:], v[:, t0_:], o[:, t0_:],
+                lse[..., t0_:], do[:, t0_:], True)[0]
+            dq_c = exp[0].float()
+            dq_c[:, t0_:] -= last.float()
+            controls = (dq_c, dropped_tile(exp[1], t0_),
+                        dropped_tile(exp[2], t0_))
+            for gname, c, b in zip(("dq", "dk", "dv"), controls, exp):
+                e[gname + "_control_over_limit"] = flash_miss(c, b)
+                check(e[gname + "_control_over_limit"] > 1,
+                      f"flash_attention_bwd {gname}: the bf16 limit misses "
+                      f"a dropped key tile: {e}")
+            ok = all(e[n] <= TOL_FLASH_BWD[name]
+                     and e[n + "_over_limit"] <= 1 for n in ("dq", "dk",
+                                                              "dv"))
+            del last, dq_c, controls
+        else:
+            ok = all(e[n + "_rel"] <= TOL_FLASH_BWD[name]
+                     for n in ("dq", "dk", "dv"))
+        bwd_err[name] = e
+        check(ok, f"flash_attention_bwd {name} differs from plain: {e}")
+        del got, exp
+    bwd_ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, True), iters=5, warmup=1)
+    bwd_plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=2, warmup=1)
+    # yardstick: the backward alone of SDPA's causal GQA attention on the
+    # same data ([B, H, S, D] copies made outside the timing)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=5, warmup=2)
+    pairs_t = Bt * Hq * St * (St + 1) // 2
+    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse, do) + nbytes(q, k, v),
+                          10 * Dh * pairs_t, BF16_FLOP_PER_S)
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:281",
+        "launches": lm_train_launches["flash_attention_bwd_dq"]
+        + lm_train_launches["flash_attention_bwd_dkv"],
+        "launches_by_path": {
+            "lm_train": {"dq": lm_train_launches["flash_attention_bwd_dq"],
+                         "dkv": lm_train_launches["flash_attention_bwd_dkv"]},
+            "prefill": prefill_launches["flash_attention_bwd_dq"]
+            + prefill_launches["flash_attention_bwd_dkv"],
+            "serve": launches["flash_attention_bwd_dq"]
+            + launches["flash_attention_bwd_dkv"],
+            "train": train_launches["flash_attention_bwd_dq"]
+            + train_launches["flash_attention_bwd_dkv"]},
+        "max_abs_err": max(bwd_err["bfloat16"][n] for n in ("dq", "dk",
+                                                            "dv")),
+        "errors": bwd_err,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
+        "tflop_per_s": 10 * Dh * pairs_t / bwd_ms / 1e9,
+        "shape": [Bt, St, St, Hq, Hkv, Dh], "dtype": "bfloat16",
+        "causal": True})
+    layers_t = report["lm_train"]["layers"]
+    report["lm_train"]["flash_bwd_ms_per_step"] = layers_t * bwd_ms
+    report["lm_train"]["flash_bwd_share_of_step"] = (
+        layers_t * bwd_ms / 1e3 / report["lm_train"]["s_per_step"])
+    del q, k, v, o, lse, do, qs, ks, vs, dos, o_sdpa
 
     # the EmbeddingBag row, timed in the recsys phase at serve_bulk's shape
     rs = report["recsys"]

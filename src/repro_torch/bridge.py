@@ -64,6 +64,17 @@ def lm_cache_from_jax(cache, device="cuda") -> dict:
     return {k: tensor_from_jax(v, device) for k, v in cache.items()}
 
 
+def lm_opt_from_jax(opt, device="cuda") -> dict:
+    """A JAX Adam state ``{"m", "v", "count"}`` (numpy leaves) -> the
+    port's: the moment trees have the params' layout, so their stacked
+    ``layers`` split into lists as ``params_from_jax`` splits them, and a
+    bridged state continues in ``optim.adam_update``."""
+    return {"m": params_from_jax(opt["m"], device),
+            "v": params_from_jax(opt["v"], device),
+            "count": torch.as_tensor(np.array(opt["count"]),
+                                     dtype=torch.int32).to(device)}
+
+
 def _leading(node) -> int:
     while isinstance(node, dict):
         node = next(iter(node.values()))
@@ -90,10 +101,7 @@ def state_from_jax(params, opt, cache, step: int, *, seed: int = 0,
     emb, written_step = cache
     return TrainState(
         params=params_from_jax(params, device),
-        opt={"m": params_from_jax(opt["m"], device),
-             "v": params_from_jax(opt["v"], device),
-             "count": torch.as_tensor(np.array(opt["count"]),
-                                      dtype=torch.int32).to(device)},
+        opt=lm_opt_from_jax(opt, device),
         cache=CacheState(
             torch.as_tensor(np.array(emb)).to(device),
             torch.as_tensor(np.array(written_step),

@@ -1,11 +1,11 @@
-"""The LM family's configurations and its serving entry points.
+"""The LM family's configurations and its train and serving entry points.
 
 The five configs carry the exact widths of the JAX package's
 ``configs/lm_family.py``. The dense three (Qwen3-14B, ChatGLM3-6B,
-Qwen2-72B) serve here; DBRX and Llama-4-Scout need MoE and chunked-local
-iRoPE, and ``models.lm`` raises for them. ``make_fn`` is the counterpart
-of a JAX ``Cell.make_fn`` with no mesh; the XLA dry-run machinery
-(``Cell``, ``abstract_args``) has no counterpart in the port.
+Qwen2-72B) train and serve here; DBRX and Llama-4-Scout need MoE and
+chunked-local iRoPE, and ``models.lm`` raises for them. ``make_fn`` is
+the counterpart of a JAX ``Cell.make_fn`` with no mesh; the XLA dry-run
+machinery (``Cell``, ``abstract_args``) has no counterpart in the port.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import optim
 from repro_torch.models import lm
 
 LM_SHAPES = {
@@ -21,6 +22,13 @@ LM_SHAPES = {
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
+
+TRAIN_OPT = optim.AdamConfig(lr=3e-4, weight_decay=0.1, grad_clip=1.0)
+TRAIN_SCHEDULE = optim.linear_warmup_cosine(3e-4, 200, 10000)
+# train_4k cut to one 80 GB card: depth 40 -> 8 and batch 256 -> 2 (the
+# full Qwen3-14B's 177 GB of bf16 parameters and gradients and f32
+# moments do not fit); the shape chip_smoke.py and profile --lm-train run
+ONE_CARD_TRAIN = dict(n_layers=8, batch=2)
 
 QWEN3_14B = lm.LMConfig(
     name="qwen3-14b", n_layers=40, d_model=5120, n_heads=40, n_kv=8,
@@ -66,20 +74,34 @@ def reduced_lm(cfg: lm.LMConfig) -> lm.LMConfig:
         remat=False, loss_chunk=0, dtype="float32")
 
 
+def train_batch(cfg: lm.LMConfig, batch: int, seq: int,
+                generator: torch.Generator, device="cuda") -> dict:
+    """A train batch from ``generator`` (on ``device``): tokens [batch,
+    seq] uniform over the vocabulary; labels the tokens shifted left by
+    one, -100 (ignored) at the last position."""
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                         device=device)
+    ignore = torch.full((batch, 1), -100, dtype=toks.dtype, device=device)
+    return {"tokens": toks, "labels": torch.cat([toks[:, 1:], ignore], 1)}
+
+
 def make_fn(cfg: lm.LMConfig, kind: str):
-    """The serving step of ``kind`` for ``cfg``, run without autograd:
+    """The step of ``kind`` for ``cfg``:
+    ``train``: (params, opt_state, {tokens, labels} [B, S]) -> (params,
+    opt_state, metrics), ``lm_loss`` and its Adam step (the JAX cell's
+    ``TRAIN_OPT`` and ``TRAIN_SCHEDULE``), parameters and moments updated
+    in place;
     ``prefill``: (params, tokens [B, S]) -> last-position logits [B, V];
     ``decode``: (params, token [B, 1], cache, cache_index) -> (logits,
-    cache), the cache updated in place. ``train`` waits for the LM
-    training slice."""
+    cache), the cache updated in place. The serving steps run without
+    autograd."""
+    if kind == "train":
+        return optim.make_train_step(lambda p, b: lm.lm_loss(p, cfg, b),
+                                     TRAIN_OPT, TRAIN_SCHEDULE)
     if kind == "prefill":
         fn = lambda p, t: lm.prefill(p, cfg, t)              # noqa: E731
     elif kind == "decode":
         fn = lambda p, t, c, i: lm.decode_step(p, cfg, t, c, i)  # noqa: E731
-    elif kind == "train":
-        raise NotImplementedError("LM training (lm_loss, the Adam step and "
-                                  "the flash backward kernels) is not "
-                                  "ported yet")
     else:
         raise ValueError(f"unknown LM step kind: {kind!r}")
     return torch.no_grad()(fn)

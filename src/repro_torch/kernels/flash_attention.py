@@ -1,5 +1,6 @@
-"""Flash attention forward (causal or not, GQA): the plain PyTorch version
-and the CUDA kernel's wrapper (``csrc/flash_attention.cu``).
+"""Flash attention (causal or not, GQA), forward and backward: the plain
+PyTorch versions and the CUDA kernels' wrappers
+(``csrc/flash_attention.cu``).
 
 q: [B, Sq, Hq, D] attends over k/v: [B, Sk, Hkv, D], q-head h reading
 kv head h // G (G = Hq // Hkv). Scores are scaled by D^-1/2 and, when
@@ -9,6 +10,13 @@ f32; the output comes back in q's dtype together with the row
 logsumexp ``lse = m + log(max(l, 1e-30))`` ([B, Hq, Sq], f32), the only
 statistic a backward pass needs. A causal call needs Sq <= Sk, so that
 every row sees at least one key.
+
+The backward (FlashAttention-2) takes the saved q, k, v, o, lse and the
+cotangent dO, and recomputes the probabilities ``p = exp(s - lse)``
+rather than storing them: ``delta = rowsum(dO * O)`` (f32), ``ds = p *
+(dO v^T - delta)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``,
+``dv = p^T dO``. dq comes back in q's dtype; dk and dv are summed over
+each kv head's group of q heads in f32 and come back in k's and v's.
 """
 from __future__ import annotations
 
@@ -26,6 +34,14 @@ _L = ctypes.c_longlong
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             *([_L] * 12), _I, _I, ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, dq, B, Sq, Sk, Hq, Hkv, D, 15 strides,
+    # causal, dtype, scale, stream
+    "flash_attention_bwd_dq": [*([_P] * 7), *([_I] * 6), *([_L] * 15),
+                               _I, _I, ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, Sq, Sk, Hq, Hkv, D, 18 strides,
+    # causal, dtype, scale, stream
+    "flash_attention_bwd_dkv": [*([_P] * 8), *([_I] * 6), *([_L] * 18),
+                                _I, _I, ctypes.c_float, _P],
 })
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,23 +82,67 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = True):
     return o.reshape(B, Sq, Hq, D).to(q.dtype), lse.reshape(B, Hq, Sq)
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_fwd_plain``'s output for the
+    cotangent ``do`` [B, Sq, Hq, D], from the saved o and lse ([B, Hq,
+    Sq], f32): p is recomputed from lse, as the kernels do, all in f32.
+    An explicit function (not autograd over the forward), so the tests
+    hold the function the CUDA kernels implement."""
+    B, Sq, Sk, Hq, Hkv, D = check_shapes(q, k, v, causal)
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    dog = do.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    delta = (dog * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]          # [B, Hkv, G, Sq, 1]
+    # scale, mask, then p = exp(s - lse), in place: two [.., Sq, Sk] f32
+    # tensors are live at a time (p and ds)
+    p = torch.einsum("bqkgd,bskd->bkgqs", qg, kf).mul_(scale)
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+                >= torch.arange(Sk, device=q.device)[None, :])
+        p.masked_fill_(~keep, NEG_INF)
+    p.sub_(lse.reshape(B, Hkv, G, Sq, 1)).exp_()
+    ds = torch.einsum("bqkgd,bskd->bkgqs", dog, vf).sub_(delta).mul_(p)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    # the sums over g fold each kv head's group of q heads, in f32
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_kernel_inputs(q, k, v, causal, **more):
+    """What both CUDA wrappers require of q/k/v and of the extra
+    [B, Sq, Hq, D] tensors ``more`` (o, dO); returns check_shapes'."""
+    check_device(q)
+    shapes = check_shapes(q, k, v, causal)
+    D = shapes[-1]
+    named = {"q": q, "k": k, "v": v, **more}
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in named.values()):
+        raise TypeError("unsupported dtypes " + "/".join(
+            f"{n}={t.dtype}" for n, t in named.items()))
+    if D % 16 or not 16 <= D <= 128:
+        raise ValueError(f"head dim {D} is not a multiple of 16 in [16, 128]")
+    for name, t in named.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if name in more and t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not q's "
+                             f"{tuple(q.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    return shapes
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True):
     """Launch the CUDA forward; same contract as
     ``flash_attention_fwd_plain``. q/k/v may be strided views as long as
     their last axis is contiguous. Raises on anything the kernel does not
     take."""
-    check_device(q)
-    B, Sq, Sk, Hq, Hkv, D = check_shapes(q, k, v, causal)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"unsupported dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if D % 16 or not 16 <= D <= 128:
-        raise ValueError(f"head dim {D} is not a multiple of 16 in [16, 128]")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s head dim must be contiguous")
+    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -93,3 +153,36 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
                   B, Sq, Sk, Hq, Hkv, D, *strides, int(causal),
                   _DTYPES[q.dtype], float(D ** -0.5))
     return o, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
+    """Launch the CUDA backward (the dq kernel, then the dk/dv kernel);
+    same contract as ``flash_attention_bwd_plain``. q/k/v/o/dO may be
+    strided views with a contiguous last axis; lse is [B, Hq, Sq] f32.
+    delta = rowsum(dO * O) is one f32 torch expression here, as the JAX
+    package computes it outside its kernels. Raises on anything the
+    kernels do not take."""
+    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal, o=o,
+                                                 do=do)
+    if (lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq)
+            or lse.device != q.device):
+        raise ValueError(f"lse must be [B, Hq, Sq] f32 on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    lse = lse.contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
+    dk = torch.empty(B, Sk, Hkv, D, dtype=k.dtype, device=q.device)
+    dv = torch.empty(B, Sk, Hkv, D, dtype=v.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dims = (B, Sq, Sk, Hq, Hkv, D)
+    tail = (int(causal), _DTYPES[q.dtype], float(D ** -0.5))
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    KERNEL.launch("flash_attention_bwd_dq", q.device, *ptrs, dq.data_ptr(),
+                  *dims, *[s for t in (q, k, v, do, dq)
+                           for s in t.stride()[:3]], *tail)
+    KERNEL.launch("flash_attention_bwd_dkv", q.device, *ptrs, dk.data_ptr(),
+                  dv.data_ptr(), *dims,
+                  *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
+                  *tail)
+    return dq, dk, dv

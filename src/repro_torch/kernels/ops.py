@@ -5,14 +5,13 @@ how the tests run). A CUDA tensor launches the CUDA kernel, or raises:
 a device that is not sm_90, a missing ``nvcc``, a failed build or a
 failed launch is an error, never a reason to run something else.
 
-Bus attention is differentiable: ``bus_attention`` goes through one
-``torch.autograd.Function`` on every device, whose forward and backward
-are the CUDA kernels on the card and their plain versions on the CPU.
-Flash attention's backward kernels are not ported yet, and the
-EmbeddingBag kernel has no backward (the JAX package gives its Pallas
-kernel no VJP): on the card ``flash_attention`` and ``embedding_bag``
-raise when an input requires grad, rather than return an output that
-autograd cannot reach.
+Bus attention and flash attention are differentiable: each goes through
+one ``torch.autograd.Function`` on every device, whose forward and
+backward are the CUDA kernels on the card and their plain versions on
+the CPU. The EmbeddingBag kernel has no backward (the JAX package gives
+its Pallas kernel no VJP): on the card ``embedding_bag`` raises when an
+input requires grad, rather than return an output that autograd cannot
+reach.
 """
 from __future__ import annotations
 
@@ -29,6 +28,10 @@ KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
            "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
            "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
            "flash_attention": (_flash.KERNEL, "flash_attention_fwd"),
+           "flash_attention_bwd_dq": (_flash.KERNEL,
+                                      "flash_attention_bwd_dq"),
+           "flash_attention_bwd_dkv": (_flash.KERNEL,
+                                       "flash_attention_bwd_dkv"),
            "embedding_bag": (_ebag.KERNEL, "embedding_bag")}
 
 FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it
@@ -42,20 +45,36 @@ def flash_attention_supported(seq_len: int) -> bool:
     return seq_len % 8 == 0 and seq_len % min(FLASH_BLOCK, seq_len) == 0
 
 
+class _FlashAttention(torch.autograd.Function):
+    """(q, k, v) -> o. Saves q/k/v, o and lse and recomputes the
+    probabilities in the backward (the JAX package's custom VJP,
+    ``kernels/ops.py``); the gradients come back in the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            o, lse = _flash.flash_attention_fwd_plain(q, k, v, causal)
+        else:
+            o, lse = _flash.flash_attention_cuda(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        bwd = (_flash.flash_attention_bwd_plain if q.device.type == "cpu"
+               else _flash.flash_attention_bwd_cuda)
+        return (*bwd(q, k, v, o, lse, do, ctx.causal), None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
-    dtype. The CUDA kernel's tiles are its own, so the TPU wrapper's
-    ``block_q``/``block_k`` are not taken. On a CUDA tensor this is
-    forward only until the backward kernels are ported: an input that
-    requires grad raises."""
-    if q.device.type == "cpu":
-        return _flash.flash_attention_fwd_plain(q, k, v, causal)[0]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on the card is forward only: its backward "
-            "kernels are not ported yet, so an input that requires grad "
-            "would lose its gradient")
-    return _flash.flash_attention_cuda(q, k, v, causal)[0]
+    dtype, differentiable. The CUDA kernels' tiles are their own, so the
+    TPU wrapper's ``block_q``/``block_k`` are not taken."""
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 class _BusAttention(torch.autograd.Function):

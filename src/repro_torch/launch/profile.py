@@ -5,6 +5,7 @@ the serve slice's recall goes.
         [--out chiprun_out/profile_serve.json]
     python -m repro_torch.launch.profile --train [--out PATH]
     python -m repro_torch.launch.profile --lm [--out PATH]
+    python -m repro_torch.launch.profile --lm-train [--out PATH]
     python -m repro_torch.launch.profile --recsys [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
@@ -33,6 +34,14 @@ bf16 KV cache (after one warm call each): device time by kernel name and
 the device's busy share, printed and written to ``--out`` (default
 ``chiprun_out/profile_lm.json``).
 
+With ``--lm-train`` it instead profiles the LM family's training path:
+one train step of Qwen3-14B at full width and 8 of its 40 layers (bf16
+parameters, f32 moments, seeded random weights, B=2 at train_4k's
+S=4,096: ``chip_smoke.py``'s lm-train shape) through ``make_fn(cfg,
+"train")``, after one warm step: device time by kernel name and the
+device's busy share, printed and written to ``--out`` (default
+``chiprun_out/profile_lm_train.json``).
+
 With ``--recsys`` it instead profiles the recsys family's serving path:
 one DLRM-RM2 ``serve_bulk`` forward (B=262,144) at full width (the fused
 32,710,656 x 64 f32 table, seeded random weights, a ``recsys_synth``
@@ -60,7 +69,7 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch import core, data, serving, training
+from repro_torch import core, data, optim, serving, training
 from repro_torch.configs import PROD, lm_family, recsys_family
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Recommender, _pad_histories
@@ -90,7 +99,7 @@ def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
                         for us, n, k in rows[:top]]}
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, top: int = 16) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()                                       # warm
@@ -100,7 +109,7 @@ def _profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _kernel_table(prof, wall)
+    return _kernel_table(prof, wall, top)
 
 
 def profile_train_step(log, store, lcfg, dev) -> dict:
@@ -146,6 +155,30 @@ def profile_lm(dev) -> dict:
                         device=dev)
     out["decode_step"] = _profiled(lambda: decode(params, tok, cache, 0))
     out["decode_step"].update(batch=decode_batch, slots=slots)
+    return out
+
+
+def profile_lm_train(dev) -> dict:
+    """``torch.profiler`` over one Qwen3-14B train step at full width and
+    ``lm_family.ONE_CARD_TRAIN``'s depth and batch at ``train_4k``'s
+    sequence (the smoke's shape), after one warm step."""
+    cut = lm_family.ONE_CARD_TRAIN
+    cfg = dataclasses.replace(lm_family.QWEN3_14B, n_layers=cut["n_layers"])
+    seq = lm_family.LM_SHAPES["train_4k"]["seq"]
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     torch.bfloat16)
+    state = [params, optim.adam_init(params)]
+    train_batch = lm_family.train_batch(
+        cfg, cut["batch"], seq, torch.Generator(device=dev).manual_seed(4),
+        dev)
+    step = lm_family.make_fn(cfg, "train")
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], train_batch)
+
+    out = _profiled(run, top=24)
+    out.update(layers=cfg.n_layers, batch=cut["batch"], seq=seq,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return out
 
 
@@ -317,6 +350,8 @@ def main(argv=None):
                     help="profile one PROD train step instead")
     ap.add_argument("--lm", action="store_true",
                     help="profile one Qwen3-14B prefill and decode step")
+    ap.add_argument("--lm-train", action="store_true",
+                    help="profile one Qwen3-14B train step (8 layers)")
     ap.add_argument("--recsys", action="store_true",
                     help="profile one DLRM-RM2 serve_bulk forward")
     ap.add_argument("--recall-repeat", action="store_true",
@@ -342,6 +377,12 @@ def main(argv=None):
         _write(args.out or "chiprun_out/profile_lm.json", report)
         for name in ("prefill", "decode_step"):
             _print_table(name, report[name])
+        print(card)
+        return report
+    if args.lm_train:
+        report = {"card": card, "train_step": profile_lm_train(dev)}
+        _write(args.out or "chiprun_out/profile_lm_train.json", report)
+        _print_table("lm train step", report["train_step"])
         print(card)
         return report
     if args.recsys:

@@ -10,10 +10,13 @@ Pre-norm blocks (rmsnorm), SwiGLU FFN, a Python loop over the layers
 The MoE members (dbrx-132b, llama4-scout with its chunked-local iRoPE)
 need ``nn/moe.py`` and are not ported yet: their configs raise.
 
-Entry points: ``init``, ``forward``, and for serving ``prefill``,
-``init_cache`` and ``decode_step``. Prefill's causal self-attention goes
-through the flash kernel (``nn.attention``); a decode step attends over
-the KV cache in plain PyTorch.
+Entry points: ``init``, ``forward``, ``lm_loss`` (train), and for
+serving ``prefill``, ``init_cache`` and ``decode_step``. Causal
+self-attention over the whole sequence goes through the flash kernel
+(``nn.attention``), forward and backward; a decode step attends over the
+KV cache in plain PyTorch. With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` when gradients are on: only its input is kept,
+and the backward runs it again.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import check_device
 from repro_torch.nn import (AttnConfig, attention, decode_attention, dense,
@@ -160,8 +164,12 @@ def backbone(params, cfg: LMConfig, tokens, *, impl: str = "kernel"):
     is the MoE balance loss of the JAX package, 0 for a dense config."""
     _require_dense(cfg)
     x = embed(params["embed"], tokens, dtype=cfg.torch_dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["layers"]:
-        x = _block(layer, x, cfg, impl)
+        if remat:
+            x = checkpoint(_block, layer, x, cfg, impl, use_reentrant=False)
+        else:
+            x = _block(layer, x, cfg, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(params["ln_f"], x), aux
 
@@ -171,6 +179,46 @@ def forward(params, cfg: LMConfig, tokens, *, impl: str = "kernel"):
     ``impl`` as in ``nn.attention``: ``"plain"`` only for reference runs."""
     x, aux = backbone(params, cfg, tokens, impl=impl)
     return dense(params["head"], x, dtype=cfg.torch_dtype), aux
+
+
+def _nll(head, x, labels):
+    """x: [..., d]; labels: ints, negative = ignore -> (nll_sum f32,
+    count)."""
+    logits = dense(head, x).float()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * valid).sum(), valid.sum()
+
+
+AUX_WEIGHT = 0.01      # the JAX lm_loss's weight of the MoE balance loss
+
+
+def lm_loss(params, cfg: LMConfig, batch, *, impl: str = "kernel"):
+    """batch: {tokens [B, S], labels [B, S] (-100 = ignore)} -> (loss +
+    AUX_WEIGHT * aux, {"lm_loss", "moe_aux"}). ``impl`` as in
+    ``forward``.
+
+    With ``loss_chunk`` set (S a multiple of it and longer), the head and
+    the cross entropy run chunk by chunk along the sequence, each chunk
+    under checkpoint when gradients are on, so only one chunk's [B, chunk,
+    V] f32 logits are ever live, forward or backward."""
+    x, aux = backbone(params, cfg, batch["tokens"], impl=impl)
+    labels = batch["labels"]
+    S, c = x.shape[1], cfg.loss_chunk
+    if c and S % c == 0 and S > c:
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.long, device=x.device)
+        for i in range(0, S, c):
+            args = (params["head"], x[:, i:i + c], labels[:, i:i + c])
+            ds, dk = (checkpoint(_nll, *args, use_reentrant=False)
+                      if torch.is_grad_enabled() else _nll(*args))
+            nll_sum, count = nll_sum + ds, count + dk
+    else:
+        nll_sum, count = _nll(params["head"], x, labels)
+    loss = nll_sum / count.clamp_min(1)
+    return loss + AUX_WEIGHT * aux, {"lm_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, against their plain PyTorch versions,
-and the serving, training, LM serving and recsys serving slices on the
-card at a small size.
+and the serving, training, LM serving, LM training and recsys serving
+slices on the card at a small size.
 
 Every test here is marked ``gpu`` and skips where no GPU is present (the
 kernels have no CPU mode). The file imports only torch, numpy and the
@@ -385,12 +385,135 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                        .transpose(2, 3), k, v, True)
 
 
-def test_flash_attention_on_cuda_raises_when_an_input_requires_grad(cuda):
-    q, k, v = _flash(1, 64, 64, 4, 2, 32, cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
-    with torch.no_grad():                         # no graph: forward only
-        assert ops.flash_attention(q, k, v).shape == q.shape
+def _flash_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, dev, dtype, causal, seed=0):
+    q, k, v = _flash(B, Sq, Sk, Hq, Hkv, D, dev, dtype, seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(seed + 1), device=dev).to(dtype)
+    o, lse = flash_mod.flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+def _hold_bwd(got, exp, dtype):
+    """f32: within the JAX tests' 1e-4; bf16: within their 2e-2 and
+    element-wise within one bf16 ulp (both versions round an f32 result
+    once) plus the f32 gap near 0."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert float((a.float() - b.float()).abs().max()) <= BWD_TOL[dtype], \
+            name
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(a.float(), b.float(),
+                                       rtol=FLASH_BF16_RTOL,
+                                       atol=FLASH_BF16_ATOL, msg=name)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 128, 128, 4, 4, 64),      # MHA (tests/test_kernels.py's shapes)
+    (2, 128, 128, 8, 2, 32),      # GQA 4:1
+    (1, 64, 128, 4, 4, 32),       # Sq != Sk: q_off = 64
+    (2, 100, 300, 4, 2, 16),      # ragged tiles, q_off = 200
+    (1, 512, 512, 10, 2, 128),    # Qwen3-14B's head dim and GQA 5:1
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_cuda_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                                causal, dtype):
+    args = _flash_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, cuda, dtype, causal)
+    got = flash_mod.flash_attention_bwd_cuda(*args, causal)
+    exp = flash_mod.flash_attention_bwd_plain(*args, causal)
+    torch.cuda.synchronize()
+    _hold_bwd(got, exp, dtype)
+
+
+def test_flash_attention_bwd_cuda_reads_strided_views(cuda):
+    # q/k/v as slices of one fused projection, dO a slice of a wider
+    # tensor: the kernels read them through their strides
+    B, S, Hq, Hkv, D = 2, 192, 8, 2, 64
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    do = torch.randn(B, S, 2 * Hq, D, device=cuda)[:, :, :Hq]
+    assert not (q.is_contiguous() or do.is_contiguous())
+    o, lse = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    got = flash_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    exp = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    _hold_bwd(got, exp, torch.float32)
+
+
+def test_flash_attention_grads_on_cuda_go_through_both_kernels(
+        cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    q, k, v, _, _, do = _flash_bwd_inputs(2, 128, 128, 8, 2, 32, cuda,
+                                          torch.float32, True)
+    o, lse = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    exp = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    monkeypatch.setattr(flash_mod, "flash_attention_fwd_plain", refuse)
+    monkeypatch.setattr(flash_mod, "flash_attention_bwd_plain", refuse)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v)
+    out.backward(do)
+    after = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    _hold_bwd((q.grad, k.grad, v.grad), exp, torch.float32)
+
+
+def test_flash_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, o, lse, do = _flash_bwd_inputs(1, 64, 64, 4, 2, 32, cuda,
+                                            torch.float32, True)
+    bwd = flash_mod.flash_attention_bwd_cuda
+    with pytest.raises(TypeError):
+        bwd(q, k, v, o, lse, do.to(torch.bfloat16), True)
+    with pytest.raises(ValueError, match="lse"):
+        bwd(q, k, v, o, lse.to(torch.bfloat16), do, True)
+    with pytest.raises(ValueError, match="do shape"):
+        bwd(q, k, v, o, lse, do[:, :32], True)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, k, v, o, lse, do.transpose(2, 3).contiguous()
+            .transpose(2, 3), True)
+    with pytest.raises(RuntimeError, match="cpu"):
+        bwd(*(t.cpu() for t in (q, k, v, o, lse, do)), True)
+
+
+def test_lm_train_steps_on_the_card_match_the_cpu(cuda):
+    """Two train steps of a reduced Qwen3-14B with remat and the chunked
+    loss, on the card and on the CPU from the same parameters, with
+    accumulation over two microbatches: losses and parameters within
+    1e-4, and the flash kernels' launches per step."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import lm_family
+    from repro_torch.models import lm
+    from repro_torch.optim.adam import leaves
+    cfg = dataclasses.replace(lm_family.reduced_lm(lm_family.QWEN3_14B),
+                              remat=True, loss_chunk=16)
+    params = lm.init(torch.Generator().manual_seed(0), cfg)
+    params_d = _to(params, cuda)
+    opt, opt_d = optim.adam_init(params), optim.adam_init(params_d)
+    step = optim.make_train_step(
+        lambda p, b: lm.lm_loss(p, cfg, b),
+        dataclasses.replace(lm_family.TRAIN_OPT, accum_steps=2),
+        lm_family.TRAIN_SCHEDULE)
+    toks = torch.randint(0, cfg.vocab, (4, 64),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    L = cfg.n_layers
+    for _ in range(2):
+        before = ops.launch_counts()
+        params_d, opt_d, m_d = step(params_d, opt_d, _to(batch, cuda))
+        after = ops.launch_counts()
+        # two microbatches: forward and remat recompute, then backward
+        assert after["flash_attention"] - before["flash_attention"] == 4 * L
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            assert after[name] - before[name] == 2 * L, name
+        params, opt, m = step(params, opt, batch)
+        assert abs(float(m_d["loss"]) - float(m["loss"])) <= 1e-4
+    for (path, a), (_, b) in zip(leaves(params_d), leaves(params)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-4, \
+            path
 
 
 def test_attention_on_cuda_launches_the_flash_kernel_only_unmasked(
@@ -417,6 +540,15 @@ def test_attention_on_cuda_launches_the_flash_kernel_only_unmasked(
     assert flash_launches(mask=torch.ones(2, 32, dtype=torch.bool,
                                           device=cuda)) == 0
     assert flash_launches(cfg=dataclasses.replace(cfg, chunk_size=8)) == 0
+
+
+def _to(node, dev):
+    """A copy of a nested dict/list of tensors on ``dev``."""
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, dev) for v in node]
+    return node.to(dev)
 
 
 def test_lm_prefill_and_decode_on_cuda_match_the_cpu(cuda):

@@ -163,6 +163,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                    "bus_attention_bwd": 0,
                                    "pq_lut_scores": 0,
                                    "flash_attention": 0,
+                                   "flash_attention_bwd_dq": 0,
+                                   "flash_attention_bwd_dkv": 0,
                                    "embedding_bag": 0}
 
 

@@ -287,8 +287,7 @@ def test_moe_configs_and_lm_training_raise():
     for cfg in (lm_family.DBRX_132B, lm_family.LLAMA4_SCOUT):
         with pytest.raises(NotImplementedError, match="MoE"):
             lm.init(gen, lm_family.reduced_lm(cfg))
-    with pytest.raises(NotImplementedError, match="training"):
-        lm_family.make_fn(lm_family.QWEN3_14B, "train")
+    assert callable(lm_family.make_fn(lm_family.QWEN3_14B, "train"))
     with pytest.raises(ValueError):
         lm_family.make_fn(lm_family.QWEN3_14B, "serve")
 

@@ -265,7 +265,7 @@ def test_adam_refuses_what_is_not_ported():
     p = {"w": torch.zeros(2)}
     with pytest.raises(NotImplementedError):
         optim.adam_update(p, p, optim.adam_init(p),
-                          optim.AdamConfig(accum_steps=2))
+                          optim.AdamConfig(dp_compression="int8"))
 
 
 @pytest.mark.parametrize("name,args", [
