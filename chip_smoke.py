@@ -9,7 +9,9 @@ Phases, each of which exits non-zero on failure:
 
   1. setup    print the card (``nvidia-smi``), turn TF32 off, build the
               kernel libraries from ``src/repro_torch/kernels/csrc`` with
-              nvcc, one process per source, in parallel.
+              nvcc, one process per source, in parallel; the Hopper flash
+              forward must show no spills in ``ptxas -v`` and HGMMA
+              (wgmma) in its SASS (``cuobjdump -sass``).
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -44,16 +46,18 @@ Phases, each of which exits non-zero on failure:
               depth (40 layers, d 5120, 40/8 heads of 128, d_ff 17,408,
               vocab 151,936, qk-norm) in bf16, random weights from a
               seeded generator. One warm-up and one timed prefill at B=1,
-              S=32,768 (exactly 40 flash launches, finite last-row
-              logits); 32 greedy decode steps at B=16 against an
-              8,192-slot bf16 KV cache, then 8 against the int8 cache (no
-              flash launch); prefill of B=4, T=64 against the logits of
+              S=32,768 (exactly 40 launches of the Hopper flash forward,
+              none of the SIMT one; finite last-row logits); 32 greedy
+              decode steps at B=16 against an 8,192-slot bf16 KV cache,
+              then 8 against the int8 cache (no flash launch); prefill
+              of B=4, T=64 against the logits of
               the T-th decode step from an empty cache, and a prefill at
               S=2,048 through the kernel against ``impl="plain"``: in
               bf16 (logits reported; every layer's attention output,
               kernel vs plain on the same input, within TOL_ATTN_BF16),
               then with the weights cast to f32 in place, each within
-              TOL_LM_REL_F32 of the largest logit.
+              TOL_LM_REL_F32 of the largest logit; bf16 goes through the
+              Hopper flash forward, f32 through the SIMT one.
   8. lm-train the LM family's training path: Qwen3-14B at full width, 8
               of its 40 layers, bf16 parameters and f32 Adam moments
               (seeded), B=2 at train_4k's S=4,096 (labels the tokens
@@ -62,8 +66,9 @@ Phases, each of which exits non-zero on failure:
               (s/step, tokens/s, peak memory, model TFLOP/s as the JAX
               cell counts them), finite losses, every leaf's moments
               written and every matrix moved, ``count`` 4, and exactly 16
-              flash forward (with the remat recompute), 8 dq and 8 dk/dv
-              launches per step. Then at depth 2: one step with
+              Hopper flash forward (with the remat recompute), 8 dq and 8
+              dk/dv launches per step (the f32 check below: the SIMT
+              forward). Then at depth 2: one step with
               ``accum_steps=2`` (twice the launches), and, in f32 with
               TF32 off at B=1, the loss and every gradient leaf through
               the kernels against ``impl="plain"`` (TOL_LOSS, TOL_GRAD);
@@ -97,12 +102,20 @@ Phases, each of which exits non-zero on failure:
               ``F.scaled_dot_product_attention``'s forward and backward,
               for flash its causal forward and, for the flash backward,
               its causal GQA backward on the same data, for the
-              EmbeddingBag ``F.embedding_bag``). The flash launch at the
-              prefill shape is held to plain on its first, a middle and
-              its last FLASH_ROWS rows; its bf16 checks are element-wise,
-              each beside a control that must fail them. The flash
-              backward runs at the train shape in f32 and bf16, its bf16
-              check beside a control that drops the last key tile.
+              EmbeddingBag ``F.embedding_bag``). The flash forward on
+              both routes: the SIMT kernel in f32 at S=4,096, the Hopper
+              kernel in bf16 at S=4,096 (Sq = Sk and Sq = S/4), at the
+              prefill shape (the launch held to plain on its first, a
+              middle and its last FLASH_ROWS rows) and timed at the train
+              shape; its bf16 checks are element-wise, each beside a
+              control that must fail them. Every flash forward launch is
+              expected on the route ``forward_route`` picks. The main
+              paths are bf16 at head dim 128, so the SIMT row's
+              ``launches`` is 0; the f32 checks' launches, each counted
+              from 0, stand under ``check_launches``. The flash
+              backward runs at the train shape in f32 and bf16 on each
+              route's o and lse, its bf16 check beside a control that
+              drops the last key tile.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON; the last line is the ``{"ok": true, ...}``
@@ -138,6 +151,12 @@ TOL_FLASH = {"float32": 2e-4, "bfloat16": 2e-2}   # the JAX tests' own
 RTOL_FLASH_BF16, ATOL_FLASH_BF16 = 2.0 ** -7, 1e-4
 TOL_LSE = 1e-4                   # f32 in both versions, sums reordered
 FLASH_ROWS = 512                 # rows of the S=32,768 launch held to plain
+# the flash forward's two routes (kernels/flash_attention.py:forward_route):
+# the SIMT kernel (f32, and bf16 at other head dims) and the Hopper kernel
+# (bf16 at head dim 64 or 128); then the backward's two kernels
+FLASH_FWD = ("flash_attention", "flash_attention_wgmma")
+FLASH_KERNELS = FLASH_FWD + ("flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv")
 # LM logits, kernel path against decode or plain, relative to the largest
 # |logit|. In bf16 the paths round at other places (the decode's einsums
 # round to bf16, the kernel accumulates in f32), and at depth 40 with
@@ -238,6 +257,32 @@ def dropped_tile(v, start: int, width: int = 64):
     v = v.clone()
     v[:, start:start + width] = 0
     return v
+
+
+def flash_fwd_launches(dtype, head_dim: int, n: int) -> dict:
+    """``n`` flash forward launches at ``dtype`` and ``head_dim``, by
+    route: all on the one ``kernels/flash_attention.py:forward_route``
+    picks, none on the other."""
+    from repro_torch.kernels.flash_attention import forward_route
+    route = forward_route(dtype, head_dim)
+    return {name: n if name == route else 0 for name in FLASH_FWD}
+
+
+def flash_wgmma_library():
+    from repro_torch.kernels.flash_attention import KERNEL_WGMMA
+    return KERNEL_WGMMA.library_path()
+
+
+def sass_hgmma(lib) -> dict:
+    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each
+    instantiation of flash_fwd_wgmma_kernel in the built library."""
+    from repro_torch.kernels._build import find_nvcc
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return {fn.split(None, 1)[0]: fn.count("HGMMA")
+            for fn in sass.split("Function : ")[1:]
+            if "flash_fwd_wgmma_kernel" in fn.split(None, 1)[0]}
 
 
 def latencies_ms(torch, fn, n: int, warmup: int = 3) -> list:
@@ -654,9 +699,7 @@ def lm_train_phase(torch, np, dev):
 
     def launches_since(before):
         now = ops.launch_counts()
-        return {k: now[k] - before[k] for k in ("flash_attention",
-                                                "flash_attention_bwd_dq",
-                                                "flash_attention_bwd_dkv")}
+        return {k: now[k] - before[k] for k in FLASH_KERNELS}
 
     # ---- the timed run: depth 8, B=2, S=4,096, bf16
     base = resident()
@@ -703,8 +746,10 @@ def lm_train_phase(torch, np, dev):
           flush=True)
     check(all(np.isfinite(losses)), f"LM train losses {losses}")
     check(rep["count"] == 1 + LM_TRAIN_TIMED, f"opt count {rep['count']}")
-    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    # the forward and its remat recompute on the route forward_route picks
+    # (bf16 at head dim 128: the Hopper kernel)
+    want = {**flash_fwd_launches(bf16, cfg.hd, 2 * L),
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
     check(all(c == want for c in per_step),
           f"LM train launches per step {per_step}, expected {want}")
     # every leaf got a gradient and an update of its moments; every matrix
@@ -736,7 +781,8 @@ def lm_train_phase(torch, np, dev):
                     "peak_gb": (torch.cuda.max_memory_allocated() - base)
                     / 1e9}
     print("lm-train accum: " + json.dumps(rep["accum"]), flush=True)
-    want = {"flash_attention": 4 * L2, "flash_attention_bwd_dq": 2 * L2,
+    want = {**flash_fwd_launches(bf16, cfg2.hd, 4 * L2),
+            "flash_attention_bwd_dq": 2 * L2,
             "flash_attention_bwd_dkv": 2 * L2}
     check(np.isfinite(rep["accum"]["loss"]), "non-finite accumulated loss")
     check(rep["accum"]["launches"] == want, f"accumulated step launches "
@@ -753,6 +799,7 @@ def lm_train_phase(torch, np, dev):
     batch = batch_of(cfgf, 1)
     res = {}
     for impl in ("kernel", "plain"):
+        ops.reset_launch_counts()
         b0 = ops.launch_counts()
         loss, _ = lm.lm_loss(params, cfgf, batch, impl=impl)
         res[impl] = (float(loss.detach()),
@@ -776,9 +823,11 @@ def lm_train_phase(torch, np, dev):
           f"{lp}")
     check(worst[0][1] <= TOL_GRAD, f"LM gradient leaf {worst[0][0]} "
           f"differs by {worst[0][1]} of its magnitude")
+    # f32: the forward on the SIMT kernel
     check(sum(cp.values()) == 0 and ck == {
-        "flash_attention": 2 * L2, "flash_attention_bwd_dq": L2,
-        "flash_attention_bwd_dkv": L2}, f"launches kernel {ck}, plain {cp}")
+        **flash_fwd_launches(torch.float32, cfgf.hd, 2 * L2),
+        "flash_attention_bwd_dq": L2, "flash_attention_bwd_dkv": L2},
+        f"launches kernel {ck}, plain {cp}")
     del res, gp, batch
 
     # ---- the in-place Adam by row chunks, on the card, over the f32
@@ -842,6 +891,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    # a library already under build/ is loaded as it is, with the .log its
+    # build left (the same source and flags, by the file name's hash)
+    report["wgmma_built_this_run"] = not flash_wgmma_library().exists()
     t0 = time.perf_counter()
     logs = ops.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -849,6 +901,22 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"built {name}: {regs}", flush=True)
     print(f"kernels built in {report['build_s']:.1f} s", flush=True)
+    # the Hopper flash forward: no spills (ptxas -v), and tensor-core
+    # products in its machine code (wgmma is HGMMA in SASS)
+    ptxas = [ln.strip() for ln in logs["flash_attention_wgmma"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    report["ptxas_wgmma"] = ptxas
+    spills = [ln for ln in ptxas if "spill" in ln
+              and ln != "0 bytes stack frame, 0 bytes spill stores, "
+                        "0 bytes spill loads"]
+    check(any("spill" in ln for ln in ptxas) and not spills,
+          f"flash_attention_wgmma: ptxas reports spills: {ptxas}")
+    report["sass_hgmma"] = sass_hgmma(flash_wgmma_library())
+    print(f"flash_attention_wgmma: ptxas {ptxas}; HGMMA per function "
+          f"{report['sass_hgmma']}", flush=True)
+    check(report["sass_hgmma"] and all(report["sass_hgmma"].values()),
+          f"flash_fwd_wgmma_kernel's SASS has no HGMMA: "
+          f"{report['sass_hgmma']}")
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -1111,7 +1179,8 @@ def main() -> int:
 
     def greedy(tok, cache, steps):
         """``steps`` synchronised greedy decode steps from slot 0; returns
-        (per-step ms, the flash launches they made, last logits)."""
+        (per-step ms, the flash forward launches they made by route,
+        last logits)."""
         ops.reset_launch_counts()
         ms = []
         for t in range(steps):
@@ -1121,7 +1190,8 @@ def main() -> int:
             tok = logits.argmax(dim=-1, keepdim=True)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        return ms, ops.launch_counts()["flash_attention"], logits
+        now = ops.launch_counts()
+        return ms, {n: now[n] for n in FLASH_FWD}, logits
 
     toks = torch.randint(0, V, (1, LM_PREFILL_SEQ), generator=gl, device=dev)
     t0 = time.perf_counter()
@@ -1142,9 +1212,11 @@ def main() -> int:
     print("lm prefill: " + json.dumps(lm_rep["prefill"]), flush=True)
     check(tuple(last.shape) == (1, V), f"prefill logits {tuple(last.shape)}")
     check(bool(torch.isfinite(last).all()), "non-finite prefill logits")
-    check(prefill_launches["flash_attention"] == qcfg.n_layers,
-          f"flash_attention launched {prefill_launches['flash_attention']} "
-          f"times in one prefill, expected {qcfg.n_layers}")
+    want = flash_fwd_launches(bf16, qcfg.hd, qcfg.n_layers)
+    check({n: prefill_launches[n] for n in FLASH_FWD} == want,
+          f"flash forward launches in one bf16 prefill: "
+          f"{ {n: prefill_launches[n] for n in FLASH_FWD} }, expected "
+          f"{want}")
     del toks, last
     torch.cuda.empty_cache()
 
@@ -1169,8 +1241,8 @@ def main() -> int:
             "flash_launches": flash_n}
         print(f"lm {name}: " + json.dumps(lm_rep[name]), flush=True)
         check(bool(torch.isfinite(logits).all()), f"non-finite {name} logits")
-        check(flash_n == 0, f"{name} launched flash_attention {flash_n} "
-              f"times, expected 0")
+        check(not any(flash_n.values()), f"{name} launched the flash "
+              f"forward {flash_n} times, expected 0")
         del cache, logits
         torch.cuda.empty_cache()
 
@@ -1221,6 +1293,7 @@ def main() -> int:
     for dt in ("bfloat16", "float32"):
         ccfg = dataclasses.replace(qcfg, dtype=dt)
         cast_(lm_params, ccfg.torch_dtype)
+        ops.reset_launch_counts()
         ref = lm_family.make_fn(ccfg, "prefill")(lm_params, dec_toks).float()
         step = lm_family.make_fn(ccfg, "decode")
         cache = lm.init_cache(ccfg, LM_CHECK_B, LM_CHECK_T,
@@ -1249,9 +1322,21 @@ def main() -> int:
         del ref, cache, logits, kern, plain_l
         if dt == "bfloat16":
             lm_rep["check"][dt]["by_layer"] = by_layer(ccfg, plain_toks)
+        now = ops.launch_counts()
+        lm_rep["check"][dt]["flash_launches"] = {n: now[n]
+                                                 for n in FLASH_FWD}
         torch.cuda.empty_cache()
     report["lm"] = lm_rep
     print("lm check: " + json.dumps(lm_rep["check"]), flush=True)
+    # two kernel prefills a dtype (at T=64 and at LM_PLAIN_SEQ), and in bf16
+    # the layer-by-layer reading's attention and block (two a layer), each
+    # on its dtype's route: bf16 on the Hopper kernel, f32 on the SIMT one
+    nl = qcfg.n_layers
+    for dt, n in (("bfloat16", 4 * nl), ("float32", 2 * nl)):
+        want = flash_fwd_launches(getattr(torch, dt), qcfg.hd, n)
+        got = lm_rep["check"][dt]["flash_launches"]
+        check(got == want, f"{dt} LM check flash launches {got}, expected "
+              f"{want}")
     f32 = lm_rep["check"]["float32"]
     for name in ("prefill_vs_decode", "kernel_vs_plain"):
         check(f32[name]["max_rel_err"] <= TOL_LM_REL_F32,
@@ -1403,17 +1488,20 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": [BATCH, n_sub, n_codes, N], "dtype": "float32/uint8"})
 
-    # flash attention at Qwen3-14B's heads: against plain at S=4,096 in
-    # f32 and bf16 and at one Sq != Sk causal shape; timed at the prefill
-    # shape, S=32,768 in bf16, and that launch's own output held to plain
-    # by row windows (an unsliced plain call there would need 172 GB of
-    # scores; its time is taken at S=4,096)
+    # flash attention at Qwen3-14B's heads, on both routes of the forward
+    # (kernels/flash_attention.py:forward_route): the Hopper kernel for
+    # bf16, the SIMT kernel for f32. Each against plain at S=4,096 (f32 on
+    # SIMT, bf16 on Hopper, and a bf16 Sq = S/4 causal shape); the Hopper
+    # kernel timed at the prefill shape, S=32,768, whose launch is also held
+    # to plain by row windows (an unsliced plain call there would need 172
+    # GB of scores; plain's time is taken at S=4,096), and, below, at the
+    # train shape; the SIMT kernel timed at S=4,096 in f32
     Hq, Hkv, Dh = qcfg.n_heads, qcfg.n_kv, qcfg.hd
+    G = Hq // Hkv
 
-    def qkv(Sq, Sk, dtype):
-        return (torch.randn(1, Sq, Hq, Dh, generator=g, device=dev).to(dtype),
-                torch.randn(1, Sk, Hkv, Dh, generator=g, device=dev).to(dtype),
-                torch.randn(1, Sk, Hkv, Dh, generator=g, device=dev).to(dtype))
+    def qkv(B, Sq, Sk, dtype):
+        return tuple(torch.randn(B, n, h, Dh, generator=g, device=dev)
+                     .to(dtype) for n, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
 
     def hold(label, o, lse, q, k, v, dtype):
         """Hold (o, lse) of a kernel launch against the plain version on
@@ -1438,22 +1526,59 @@ def main() -> int:
         flash_err[label] = e
         check(ok, f"flash_attention {label} differs from plain: {e}")
 
+    def launch_on(q, k, v):
+        """flash_attention_cuda(q, k, v, causal), checked to have launched
+        one kernel, on the route forward_route picks."""
+        b0 = ops.launch_counts()
+        out = flash_attention_cuda(q, k, v, True)
+        now = ops.launch_counts()
+        got = {n: now[n] - b0[n] for n in FLASH_FWD}
+        want = flash_fwd_launches(q.dtype, q.shape[-1], 1)
+        check(got == want,
+              f"flash forward on {q.dtype} went {got}, expected {want}")
+        return out
+
+    def sdpa_fwd_ms(q, k, v, **kw):
+        """SDPA's causal forward on the same data, kv heads repeated for
+        the groups ([B, H, S, D] copies made outside the timing)."""
+        qs = q.transpose(1, 2).contiguous()
+        ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        return time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
+                       **kw)
+
+    def fwd_flop(B, Sq):
+        return 4 * Dh * Hq * B * Sq * (Sq + 1) // 2   # 4 D a visible pair
+
     flash_err = {}
     for label, Sq, dtype in (("float32", FLASH_CHECK_SEQ, torch.float32),
                              ("bfloat16", FLASH_CHECK_SEQ, bf16),
                              ("bfloat16_sq_quarter", FLASH_CHECK_SEQ // 4,
                               bf16)):
-        q, k, v = qkv(Sq, FLASH_CHECK_SEQ, dtype)
-        o, lse = flash_attention_cuda(q, k, v, True)
+        q, k, v = qkv(1, Sq, FLASH_CHECK_SEQ, dtype)
+        o, lse = launch_on(q, k, v)
         hold(label, o, lse, q, k, v, dtype)
-        del o, lse
+        if label == "float32":
+            # the SIMT route's row: f32 at S=4,096, bound at the f32 rate
+            simt = {
+                "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v,
+                                                                  True),
+                              iters=3, warmup=1),
+                "plain_ms": time_ms(
+                    torch, lambda: flash_attention_fwd_plain(q, k, v, True),
+                    iters=3, warmup=1),
+                "library_ms": sdpa_fwd_ms(q, k, v, iters=3, warmup=1)}
+            simt["bound_ms"], simt["bound_by"] = bound_ms(
+                nbytes(q, k, v, o, lse), fwd_flop(1, Sq))
+            simt["tflop_per_s"] = fwd_flop(1, Sq) / simt["ms"] / 1e9
         if label == "bfloat16":
             plain_ms = time_ms(
                 torch, lambda: flash_attention_fwd_plain(q, k, v, True),
                 iters=3, warmup=1)
+        del o, lse
     S, R = LM_PREFILL_SEQ, FLASH_ROWS
-    q, k, v = qkv(S, S, bf16)
-    o, lse = flash_attention_cuda(q, k, v, True)
+    q, k, v = qkv(1, S, S, bf16)
+    o, lse = launch_on(q, k, v)
     # the first, a middle and the last R rows: row i of a window starting
     # at r0 sees keys [0, r0 + i], so plain on k/v[:, :r0 + R] computes
     # exactly those rows (q_off = r0)
@@ -1462,39 +1587,64 @@ def main() -> int:
              lse[:, :, r0:r0 + R], q[:, r0:r0 + R], k[:, :r0 + R],
              v[:, :r0 + R], bf16)
     flash_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, True),
-                       iters=3, warmup=1)
-    # yardstick: SDPA's causal forward on the same data, kv heads repeated
-    # for the groups ([B, H, S, D] layout, copies made outside the timing)
-    G = Hq // Hkv
-    qs = q.transpose(1, 2).contiguous()
-    ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    sdpa_ms = time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
-                      iters=5, warmup=2)
-    pairs = S * (S + 1) // 2                   # visible (query, key) pairs
-    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), 4 * Dh * Hq * pairs,
+                       iters=10, warmup=2)
+    sdpa_ms = sdpa_fwd_ms(q, k, v, iters=5, warmup=2)
+    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), fwd_flop(1, S),
                           BF16_FLOP_PER_S)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:146",
-        "launches": prefill_launches["flash_attention"],
-        "launches_by_path": {"prefill": prefill_launches["flash_attention"],
-                             "decode": lm_rep["decode"]["flash_launches"],
-                             "lm_train": lm_train_launches["flash_attention"],
-                             "serve": launches["flash_attention"],
-                             "train": train_launches["flash_attention"]},
-        "max_abs_err": max(e["o"] for e in flash_err.values()),
-        "errors": flash_err,
+        # the main paths run bf16 at head dim 128, the Hopper kernel's
+        # route, so this is 0; the f32 checks' launches, each counted from
+        # 0, are apart under check_launches
+        "launches": prefill_launches["flash_attention"]
+        + lm_train_launches["flash_attention"],
+        "check_launches": {
+            "lm_check_float32":
+            lm_rep["check"]["float32"]["flash_launches"]["flash_attention"],
+            "lm_train_float32_depth2": report["lm_train"]["plain"]
+            ["launches_kernel"]["flash_attention"]},
+        "launches_by_path": {
+            "prefill": prefill_launches["flash_attention"],
+            "decode": lm_rep["decode"]["flash_launches"]["flash_attention"],
+            "lm_train": lm_train_launches["flash_attention"],
+            "serve": launches["flash_attention"],
+            "train": train_launches["flash_attention"]},
+        "max_abs_err": flash_err["float32"]["o"],
+        "errors": {"float32": flash_err["float32"]},
+        **simt,
+        "shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, Dh],
+        "dtype": "float32", "causal": True})
+    kernels.append({
+        "name": "flash_attention_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:146",
+        "launches": prefill_launches["flash_attention_wgmma"]
+        + lm_train_launches["flash_attention_wgmma"],
+        "launches_by_path": {
+            "prefill": prefill_launches["flash_attention_wgmma"],
+            "lm_train": lm_train_launches["flash_attention_wgmma"],
+            "decode":
+            lm_rep["decode"]["flash_launches"]["flash_attention_wgmma"],
+            "serve": launches["flash_attention_wgmma"],
+            "train": train_launches["flash_attention_wgmma"]},
+        "max_abs_err": max(e["o"] for n, e in flash_err.items()
+                           if n != "float32"),
+        "errors": {n: e for n, e in flash_err.items() if n != "float32"},
         "ms": flash_ms, "plain_ms": plain_ms,
         "plain_shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, Dh],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
-        "tflop_per_s": 4 * Dh * Hq * pairs / flash_ms / 1e9,
-        "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16", "causal": True})
+        "tflop_per_s": fwd_flop(1, S) / flash_ms / 1e9,
+        "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16",
+        "causal": True,
+        "sass_hgmma": report["sass_hgmma"], "ptxas": report["ptxas_wgmma"],
+        "ptxas_built_this_run": report["wgmma_built_this_run"]})
+    flash_row = kernels[-1]
     report["lm"]["flash_ms_per_prefill"] = qcfg.n_layers * flash_ms
     report["lm"]["flash_share_of_prefill"] = (
         qcfg.n_layers * flash_ms / 1e3 / report["lm"]["prefill"]["s"])
-    del q, k, v, o, lse, qs, ks, vs
+    del q, k, v, o, lse
 
     # the flash backward at the LM training shape (B=2, S=4,096), against
     # plain on the same saved o/lse, in f32 and bf16. The bf16 control:
@@ -1511,7 +1661,9 @@ def main() -> int:
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(Bt, St, Hkv, Dh, generator=g, device=dev)
                 .to(dtype) for _ in range(2))
-        o, lse = flash_attention_cuda(q, k, v, True)
+        # o and lse from the forward's own route: bf16 from the Hopper
+        # kernel, f32 from the SIMT one
+        o, lse = launch_on(q, k, v)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
         exp = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
         torch.cuda.synchronize()
@@ -1587,6 +1739,19 @@ def main() -> int:
     report["lm_train"]["flash_bwd_ms_per_step"] = layers_t * bwd_ms
     report["lm_train"]["flash_bwd_share_of_step"] = (
         layers_t * bwd_ms / 1e3 / report["lm_train"]["s_per_step"])
+    # the Hopper forward at the train shape, on the bf16 q/k/v above; a
+    # step launches it twice a layer (forward and remat recompute)
+    tr = {"ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, True),
+                        iters=10, warmup=2),
+          "library_ms": sdpa_fwd_ms(q, k, v, iters=10, warmup=2),
+          "shape": [Bt, St, St, Hq, Hkv, Dh]}
+    tr["bound_ms"], tr["bound_by"] = bound_ms(
+        nbytes(q, k, v, o, lse), fwd_flop(Bt, St), BF16_FLOP_PER_S)
+    tr["tflop_per_s"] = fwd_flop(Bt, St) / tr["ms"] / 1e9
+    flash_row["train_shape"] = tr
+    report["lm_train"]["flash_fwd_ms_per_step"] = 2 * layers_t * tr["ms"]
+    report["lm_train"]["flash_fwd_share_of_step"] = (
+        2 * layers_t * tr["ms"] / 1e3 / report["lm_train"]["s_per_step"])
     del q, k, v, o, lse, do, qs, ks, vs, dos, o_sdpa
 
     # the EmbeddingBag row, timed in the recsys phase at serve_bulk's shape

@@ -89,12 +89,16 @@ class CudaKernel:
         return lib
 
     def lib(self):
-        """The loaded library, built first if this source has no build."""
+        """The loaded library, built first if this source has no build;
+        ``build_log`` then holds the compiler's output of that build."""
         with self._lock:
             if self._lib is None:
                 path = self.library_path()
                 if not path.exists():
                     build([self])
+                log = path.with_suffix(".log")
+                if not self.build_log and log.exists():
+                    self.build_log = log.read_text()
                 self._lib = self._load(path)
             return self._lib
 
@@ -114,8 +118,9 @@ def build(kernels) -> None:
     """Build the given kernels' libraries, one ``nvcc`` each, all at once.
 
     Output goes to a temporary name and is renamed into place, so a
-    concurrent loader never sees a half-written library. Raises with the
-    compiler's output when any build fails.
+    concurrent loader never sees a half-written library; the compiler's
+    output (``ptxas -v``'s registers and spills) is kept beside it as
+    ``.log``. Raises with the compiler's output when any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -136,6 +141,7 @@ def build(kernels) -> None:
             errors.append(f"{kern.name} ({kern.source.name}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

@@ -40,7 +40,10 @@
 // This kernel runs the products on the CUDA cores in f32 (register tiles
 // of 4 x 4 scores and 4 x D/16 outputs per thread: 2 to 2.7 FMAs per
 // shared-memory load), so its ceiling is the 67 TFLOP/s f32 rate, 15x short
-// of the bound; wgmma on bf16 tiles fed by TMA is the next step.
+// of the bound. So bf16 at head dim 64 or 128 goes to
+// flash_attention_wgmma.cu (wgmma on bf16 tiles fed by TMA) instead; this
+// kernel takes f32 (a tf32 product would miss the f32 tolerance) and bf16
+// at the other head dims (kernels/flash_attention.py:forward_route).
 //
 // Backward (FlashAttention-2): replaces the Pallas TPU kernels of
 // flash_attention_bwd in the same file (_bwd_dq_kernel and

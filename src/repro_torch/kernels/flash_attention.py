@@ -17,6 +17,14 @@ rather than storing them: ``delta = rowsum(dO * O)`` (f32), ``ds = p *
 (dO v^T - delta)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``,
 ``dv = p^T dO``. dq comes back in q's dtype; dk and dv are summed over
 each kv head's group of q heads in f32 and come back in k's and v's.
+
+Two CUDA forwards, chosen by ``forward_route`` from the dtype and head
+dim before any launch: bf16 at a head dim in ``WGMMA_HEAD_DIMS`` goes to
+the Hopper kernel (``csrc/flash_attention_wgmma.cu``: TMA and wgmma,
+which reads q/k/v through TMA and so needs 16-byte-aligned bases and
+strides), everything else to the SIMT kernel (``csrc/flash_attention.cu``,
+f32 arithmetic). Each counts its launches under its own symbol. The
+backward is the SIMT pair for both.
 """
 from __future__ import annotations
 
@@ -43,7 +51,25 @@ KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
     "flash_attention_bwd_dkv": [*([_P] * 8), *([_I] * 6), *([_L] * 18),
                                 _I, _I, ctypes.c_float, _P],
 })
+# the Hopper forward: q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, 12 strides,
+# causal, scale, stream
+KERNEL_WGMMA = CudaKernel("flash_attention_wgmma", "flash_attention_wgmma.cu",
+                          {"flash_attention_fwd_wgmma": [
+                              *([_P] * 5), *([_I] * 6), *([_L] * 12), _I,
+                              ctypes.c_float, _P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def forward_route(dtype, head_dim: int) -> str:
+    """Which CUDA forward takes a call, by the name its launches count
+    under in ``ops.KERNELS``: ``"flash_attention_wgmma"`` (the Hopper
+    kernel) for bf16 at a head dim in WGMMA_HEAD_DIMS, else
+    ``"flash_attention"`` (the SIMT kernel; f32 stays on f32 arithmetic: a
+    tf32 product would miss the f32 tolerance)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def check_shapes(q, k, v, causal: bool):
@@ -138,21 +164,55 @@ def _check_kernel_inputs(q, k, v, causal, **more):
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True):
-    """Launch the CUDA forward; same contract as
-    ``flash_attention_fwd_plain``. q/k/v may be strided views as long as
-    their last axis is contiguous. Raises on anything the kernel does not
+    """Launch the CUDA forward that ``forward_route`` picks; same contract
+    as ``flash_attention_fwd_plain``. q/k/v may be strided views as long
+    as their last axis is contiguous (and, on the Hopper route, TMA can
+    read them: ``_check_tma``). Raises on anything the kernel does not
     take."""
     B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal)
+    wgmma = forward_route(q.dtype, D) == "flash_attention_wgmma"
+    if wgmma:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    KERNEL.launch("flash_attention_fwd", q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                  B, Sq, Sk, Hq, Hkv, D, *strides, int(causal),
-                  _DTYPES[q.dtype], float(D ** -0.5))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    if wgmma:
+        strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+        KERNEL_WGMMA.launch("flash_attention_fwd_wgmma", q.device, *ptrs, B,
+                            Sq, Sk, Hq, Hkv, D, *strides, *o.stride()[:3],
+                            int(causal), float(D ** -0.5))
+    else:
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        KERNEL.launch("flash_attention_fwd", q.device, *ptrs, B, Sq, Sk, Hq,
+                      Hkv, D, *strides, int(causal), _DTYPES[q.dtype],
+                      float(D ** -0.5))
     return o, lse
+
+
+def _check_tma(name, t):
+    """TMA reads t: it needs a 16-byte-aligned base and byte strides that
+    are multiples of 16 (a dim of size 1 is never stepped over)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned (address % 16 = "
+                         f"{t.data_ptr() % 16}): TMA cannot read it")
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
+            raise ValueError(f"{name}'s stride {t.stride(dim)} on dim {dim} "
+                             f"is not a multiple of 16 bytes: TMA cannot "
+                             f"read it")
+
+
+def _tma_strides(t):
+    """t's (batch, seq, head) element strides, with a dim of size 1 given
+    one TMA takes (its stride is never used): the tensor's extent, rounded
+    up to 8 elements."""
+    extent = -(-max(s * n for s, n in zip(t.stride(), t.shape)) // 8) * 8
+    return [s if n > 1 else extent for s, n in zip(t.stride()[:3],
+                                                   t.shape[:3])]
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):

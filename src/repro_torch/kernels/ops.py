@@ -28,6 +28,8 @@ KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
            "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
            "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
            "flash_attention": (_flash.KERNEL, "flash_attention_fwd"),
+           "flash_attention_wgmma": (_flash.KERNEL_WGMMA,
+                                     "flash_attention_fwd_wgmma"),
            "flash_attention_bwd_dq": (_flash.KERNEL,
                                       "flash_attention_bwd_dq"),
            "flash_attention_bwd_dkv": (_flash.KERNEL,

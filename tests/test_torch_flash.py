@@ -4,9 +4,17 @@ kernel.
 On the CPU ``ops.flash_attention`` takes the kernel's plain PyTorch
 version, held here against the Pallas ``flash_attention_fwd`` run in
 interpret mode (as tests/test_kernels.py runs it), ``o`` and ``lse``, on
-the same numpy inputs. The CUDA kernel runs only on the card:
-tests/test_torch_gpu.py holds it against the plain version there.
+the same numpy inputs. The CUDA kernels run only on the card:
+tests/test_torch_gpu.py holds them against the plain version there.
+
+The bf16 Hopper kernel (``csrc/flash_attention_wgmma.cu``) is modelled
+here tile by tile, to show on the CPU that its arithmetic (p split into
+hi and lo bf16 halves for the P V product) meets the element-wise bf16
+limit the card's checks hold it to, where p rounded to bf16 alone does
+not.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -17,11 +25,16 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd as flash_pallas)
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fwd_plain)
 
 # tests/test_kernels.py's forward tolerances
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the card's element-wise bf16 limit (tests/test_torch_gpu.py, chip_smoke.py)
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+LSE_TOL = 1e-4
+KEY_TILE = 128        # kBK in csrc/flash_attention_wgmma.cu
 
 
 def _inputs(B, Sq, Sk, Hq, Hkv, D, seed=0):
@@ -84,3 +97,128 @@ def test_the_cuda_wrapper_refuses_a_cpu_tensor():
     with pytest.raises(RuntimeError, match="cpu"):
         flash_attention_cuda(q, k, v, True)
     assert "flash_attention" in ops.launch_counts()
+
+
+def _hopper_model(q, k, v, causal, split_p=True):
+    """The Hopper kernel's arithmetic, tile by tile on the CPU: scores in
+    f32 from the bf16 inputs, scaled to log2 units, masked to -1e30; per
+    key tile of KEY_TILE an online max and sum (l summed from the f32 p)
+    with the accumulator rescaled by exp2(m_old - m_new); P V as P_hi V +
+    P_lo V in f32 (``split_p``), or with p rounded to bf16 alone (the
+    usual flash kernel, the control); o = acc / max(l, 1e-30) in bf16,
+    lse = m ln 2 + log(max(l, 1e-30))."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, Hq // Hkv, D)
+    kf, vf = k.float(), v.float()
+    scale_log2 = torch.tensor(D ** -0.5 * math.log2(math.e))
+    m = torch.full((B, Hkv, Hq // Hkv, Sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*m.shape, D)
+    pos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    for k0 in range(0, Sk, KEY_TILE):
+        kt, vt = kf[:, k0:k0 + KEY_TILE], vf[:, k0:k0 + KEY_TILE]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt) * scale_log2
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[1]) > pos,
+                              -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        hi = p.bfloat16().float()
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", hi,
+                                                   vt)
+        if split_p:
+            lo = (p - hi).bfloat16().float()
+            acc = acc + torch.einsum("bkgqs,bskd->bkgqd", lo, vt)
+    lc = l.clamp_min(1e-30)
+    o = (acc / lc[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return o.to(q.dtype), (m * math.log(2) + torch.log(lc)).reshape(B, Hq,
+                                                                    Sq)
+
+
+def _over_limit(o, o_p):
+    """Largest |o - o_p| over the element-wise bf16 limit (passes at <= 1)."""
+    o_p = o_p.float()
+    return float(((o.float() - o_p).abs()
+                  / (BF16_RTOL * o_p.abs() + BF16_ATOL)).max())
+
+
+def _bf16_inputs(Sq, Sk, seed=0):
+    """Qwen3-14B's head dim and GQA group of 4 (8 q heads over 2 kv)."""
+    return [torch.tensor(a).bfloat16()
+            for a in _inputs(1, Sq, Sk, 8, 2, 128, seed)]
+
+
+# causal and not, Sq == Sk and Sq != Sk (q_off = Sk - Sq), Sk a multiple
+# of the key tile and not
+HOPPER_CASES = [(1024, 1024, True), (1024, 1024, False), (256, 1024, True),
+                (300, 1000, False)]
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", HOPPER_CASES)
+def test_hopper_kernel_model_meets_the_bf16_limit(Sq, Sk, causal):
+    q, k, v = _bf16_inputs(Sq, Sk)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, causal)
+    o, lse = _hopper_model(q, k, v, causal)
+    assert o.dtype == torch.bfloat16 and o.shape == o_p.shape
+    assert float((o.float() - o_p.float()).abs().max()) <= TOL["bfloat16"]
+    assert _over_limit(o, o_p) <= 1
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", HOPPER_CASES)
+def test_hopper_kernel_model_with_p_in_bf16_misses_the_limit(Sq, Sk,
+                                                             causal):
+    # the control: rounding p to bf16 before P V (the usual flash kernel)
+    # computes another function, which the element-wise limit catches
+    q, k, v = _bf16_inputs(Sq, Sk)
+    o_p = flash_attention_fwd_plain(q, k, v, causal)[0]
+    o = _hopper_model(q, k, v, causal, split_p=False)[0]
+    assert _over_limit(o, o_p) > 1
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 48, "simt"), (torch.bfloat16, 80, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 112, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_forward_route_by_dtype_and_head_dim(dtype, head_dim, route):
+    # the route is named by the counter its launches go to
+    name = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
+    assert flash_mod.forward_route(dtype, head_dim) == name[route]
+    assert name[route] in ops.KERNELS
+
+
+def test_tma_checks_refuse_misaligned_views():
+    base = torch.zeros(2 * 64 * 4 * 128 + 8, dtype=torch.bfloat16)
+    q = base[:-8].view(2, 64, 4, 128)
+    flash_mod._check_tma("q", q)                       # aligned: passes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mod._check_tma("q", base[1:-7].view(2, 64, 4, 128))
+    # a head stride of 132 elements (264 bytes) is no multiple of 16 bytes
+    wide = torch.zeros(2, 64, 4, 132, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flash_mod._check_tma("q", wide)
+    # ...but a dim of size 1 is never stepped over, so its stride is free
+    flash_mod._check_tma("q", _odd_size_one_strides())
+
+
+def _odd_size_one_strides():
+    """[1, 64, 1, 128] bf16 whose batch and head strides (3, 5) are no
+    multiples of 8 elements."""
+    return torch.zeros(64 * 128, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 128), (3, 128, 5, 1))
+
+
+def test_tma_strides_fill_size_one_dims():
+    q = _odd_size_one_strides()
+    st = flash_mod._tma_strides(q)
+    assert st[1] == q.stride(1)
+    assert all(s > 0 and s % 8 == 0 for s in st)
+    k = torch.zeros(2, 64, 12, 128)[:, :, 8:10]       # a fused qkv slice
+    assert flash_mod._tma_strides(k) == list(k.stride()[:3])

@@ -339,6 +339,8 @@ def _flash(B, Sq, Sk, Hq, Hkv, D, dev, dtype=torch.float32, seed=0):
     (1, 64, 128, 4, 4, 32),       # Sq != Sk: causal offset q_off = 64
     (2, 100, 300, 4, 2, 16),      # ragged tiles, q_off = 200
     (1, 1024, 1024, 40, 8, 128),  # Qwen3-14B's heads
+    (2, 200, 333, 8, 2, 128),     # Sk no multiple of the 128-key tile
+    (1, 1, 300, 8, 2, 128),       # one query row over 300 keys
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -369,6 +371,73 @@ def test_flash_attention_cuda_reads_strided_views(cuda):
     o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
     assert float((o - o_p).abs().max()) <= FLASH_TOL[torch.float32]
     assert float((lse - lse_p).abs().max()) <= LSE_TOL
+
+
+def test_flash_attention_wgmma_reads_strided_views(cuda):
+    # bf16 at head dim 128 (the Hopper kernel's route): q/k/v as slices of
+    # one fused [B, S, Hq + 2 Hkv, D] projection, read through their
+    # strides by TMA
+    B, S, Hq, Hkv, D = 2, 320, 8, 2, 128
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    assert not q.is_contiguous()
+    assert flash_mod.forward_route(q.dtype, D) == "flash_attention_wgmma"
+    before = ops.launch_counts()["flash_attention_wgmma"]
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    assert ops.launch_counts()["flash_attention_wgmma"] == before + 1
+    assert float((o.float() - o_p.float()).abs().max()) <= \
+        FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=FLASH_BF16_RTOL,
+                               atol=FLASH_BF16_ATOL)
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+
+
+def test_flash_wgmma_refuses_a_misaligned_view(cuda):
+    q, k, v = _flash(1, 64, 64, 4, 2, 128, cuda, torch.bfloat16)
+    # a base 2 bytes past a 16-byte boundary
+    flat = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:q.numel() + 1].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mod.flash_attention_cuda(shifted, k, v, True)
+    # a head stride of 132 elements: 264 bytes, no multiple of 16
+    wide = torch.zeros(1, 64, 4, 132, dtype=torch.bfloat16,
+                       device=cuda)[..., :128].copy_(q)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flash_mod.flash_attention_cuda(wide, k, v, True)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.float32, 128, "flash_attention"),
+])
+def test_flash_forward_launches_count_by_route(cuda, dtype, D, route):
+    assert flash_mod.forward_route(dtype, D) == route
+    q, k, v = _flash(1, 128, 128, 4, 2, D, cuda, dtype)
+    names = ("flash_attention", "flash_attention_wgmma")
+    before = ops.launch_counts()
+    flash_mod.flash_attention_cuda(q, k, v, True)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in names} == \
+        {n: int(n == route) for n in names}
+
+
+def test_flash_bwd_on_the_wgmma_forward_matches_plain(cuda):
+    # the SIMT backward on o and lse from the Hopper forward, at the LM
+    # training shape's heads (40/8 of 128), bf16
+    q, k, v, _, _, do = _flash_bwd_inputs(2, 512, 512, 40, 8, 128, cuda,
+                                          torch.bfloat16, True)
+    before = ops.launch_counts()["flash_attention_wgmma"]
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    assert ops.launch_counts()["flash_attention_wgmma"] == before + 1
+    _, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+    got = flash_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    exp = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    _hold_bwd(got, exp, torch.bfloat16)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
