@@ -9,8 +9,9 @@ Phases, each of which exits non-zero on failure:
 
   1. setup    print the card (``nvidia-smi``), turn TF32 off, build the
               kernel libraries from ``src/repro_torch/kernels/csrc`` with
-              nvcc, one process per source, in parallel; the Hopper flash
-              forward must show no spills in ``ptxas -v`` and HGMMA
+              nvcc, one process per source, in parallel; each Hopper flash
+              kernel (the forward, the backward's dq and dk/dv), at each
+              head dim, must show no spills in ``ptxas -v`` and HGMMA
               (wgmma) in its SASS (``cuobjdump -sass``).
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
@@ -66,9 +67,16 @@ Phases, each of which exits non-zero on failure:
               (s/step, tokens/s, peak memory, model TFLOP/s as the JAX
               cell counts them), finite losses, every leaf's moments
               written and every matrix moved, ``count`` 4, and exactly 16
-              Hopper flash forward (with the remat recompute), 8 dq and 8
-              dk/dv launches per step (the f32 check below: the SIMT
-              forward). Then at depth 2: one step with
+              Hopper flash forward (with the remat recompute), 8 Hopper dq
+              and 8 Hopper dk/dv launches per step (the f32 check below:
+              the SIMT forward and backward). One more bf16 step captures
+              layer 0's attention inputs and the dO the loss sends back
+              to them (a spy on ``ops.flash_attention`` and a hook on its
+              output); the Hopper backward on them, with dO brought to
+              unit RMS by a power of two (the gradients scale exactly in
+              both versions), is held to plain as at the train shape
+              below. Then at
+              depth 2: one step with
               ``accum_steps=2`` (twice the launches), and, in f32 with
               TF32 off at B=1, the loss and every gradient leaf through
               the kernels against ``impl="plain"`` (TOL_LOSS, TOL_GRAD);
@@ -113,9 +121,17 @@ Phases, each of which exits non-zero on failure:
               paths are bf16 at head dim 128, so the SIMT row's
               ``launches`` is 0; the f32 checks' launches, each counted
               from 0, stand under ``check_launches``. The flash
-              backward runs at the train shape in f32 and bf16 on each
-              route's o and lse, its bf16 check beside a control that
-              drops the last key tile.
+              backward at the train shape on each route
+              (``backward_route``), on that dtype's forward o and lse:
+              f32 on the SIMT pair (1e-4 of each gradient's largest);
+              bf16 on the Hopper pair, whose f32 gradients before the
+              wrapper's cast are held within the same 1e-4 of plain's f32
+              ones and whose casts element-wise, beside controls that drop
+              the last key tile and must miss both (the casts' flat
+              difference and plain's own distance from the gradient in
+              f64 are read beside them); each timed beside plain and
+              SDPA's backward in its dtype; its SIMT row's ``launches`` is
+              0 as the forward's.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON; the last line is the ``{"ok": true, ...}``
@@ -153,10 +169,14 @@ TOL_LSE = 1e-4                   # f32 in both versions, sums reordered
 FLASH_ROWS = 512                 # rows of the S=32,768 launch held to plain
 # the flash forward's two routes (kernels/flash_attention.py:forward_route):
 # the SIMT kernel (f32, and bf16 at other head dims) and the Hopper kernel
-# (bf16 at head dim 64 or 128); then the backward's two kernels
+# (bf16 at head dim 64 or 128); then the backward's, by the same rule
+# (backward_route): the SIMT dq and dk/dv kernels, and the Hopper pair
 FLASH_FWD = ("flash_attention", "flash_attention_wgmma")
-FLASH_KERNELS = FLASH_FWD + ("flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv")
+FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
+FLASH_KERNELS = FLASH_FWD + FLASH_BWD
+# the Hopper kernels' libraries, whose ptxas and SASS the setup checks
+HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
 # LM logits, kernel path against decode or plain, relative to the largest
 # |logit|. In bf16 the paths round at other places (the decode's einsums
 # round to bf16, the kernel accumulates in f32), and at depth 40 with
@@ -190,10 +210,18 @@ LM_CHECK_B, LM_CHECK_T, LM_PLAIN_SEQ, FLASH_CHECK_SEQ = 4, 64, 2048, 4096
 # TOL_ADAM_NORM of the f64 norm (~u*sqrt(n)/3 = 1e-6 at n = 2^26)
 LM_TRAIN_TIMED, LM_CHECK_LAYERS = 3, 2
 ADAM_CHECK_STEPS, TOL_ADAM, TOL_ADAM_NORM = 2, 1e-6, 1e-5
-# flash backward vs plain: f32 within the JAX tests' 1e-4, relative to
-# each gradient's largest magnitude at this length; bf16 within their
-# 2e-2 and element-wise as the forward (RTOL/ATOL_FLASH_BF16)
-TOL_FLASH_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash backward vs plain, relative to each gradient's largest magnitude
+# at this length: f32 within the JAX tests' 1e-4. The bf16 route (the
+# Hopper pair) writes f32 gradients, as the TPU kernel writes dk and dv,
+# and the wrapper casts them: the f32 values before the cast are held to
+# the same 1e-4 of plain's f32 gradients before its cast, and the casts
+# element-wise as the forward (RTOL/ATOL_FLASH_BF16). The JAX tests' flat
+# 2e-2 is not held on the casts here: at the train shape dk and dv reach
+# ~12, where one bf16 ulp is 2^-5 or 2^-4, so a flat 2e-2 asks every value
+# above 4 to round as plain's f32 happens to; its reading stays in the
+# row (max_abs_err), beside plain f32's own distance from the gradient in
+# f64 after the cast
+TOL_FLASH_BWD = {"float32": 1e-4}
 RS_P99_CALLS, RS_BULK_CALLS, RS_RETRIEVAL_CALLS, RS_B4R_CALLS = 100, 5, 20, 50
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
 TOL_RS_B4R_CPU = 1e-4
@@ -268,21 +296,140 @@ def flash_fwd_launches(dtype, head_dim: int, n: int) -> dict:
     return {name: n if name == route else 0 for name in FLASH_FWD}
 
 
-def flash_wgmma_library():
-    from repro_torch.kernels.flash_attention import KERNEL_WGMMA
-    return KERNEL_WGMMA.library_path()
+def flash_bwd_launches(dtype, head_dim: int, n: int) -> dict:
+    """``n`` launches of each flash backward kernel (dq, dk/dv) at
+    ``dtype`` and ``head_dim``, by route: all on the pair
+    ``kernels/flash_attention.py:backward_route`` picks, none on the
+    other."""
+    from repro_torch.kernels.flash_attention import backward_route
+    route = backward_route(dtype, head_dim)
+    return {name: n if name in route else 0 for name in FLASH_BWD}
+
+
+def hopper_library(name: str):
+    """The built library's path of the Hopper kernel library ``name``."""
+    from repro_torch.kernels import ops
+    libs = {lib.name: lib for lib, _ in ops.KERNELS.values()}
+    return libs[name].library_path()
+
+
+def wgmma_kernel(symbol: str):
+    """``flash_..._wgmma_kernel<D>`` for a mangled wgmma kernel symbol,
+    else None."""
+    import re
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel)ILi(\d+)E",
+                  symbol)
+    return f"{m[1]}<{m[2]}>" if m else None
 
 
 def sass_hgmma(lib) -> dict:
-    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each
-    instantiation of flash_fwd_wgmma_kernel in the built library."""
+    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each wgmma
+    kernel instantiation in the built library, by kernel<D>."""
     from repro_torch.kernels._build import find_nvcc
     cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    return {fn.split(None, 1)[0]: fn.count("HGMMA")
+    return {wgmma_kernel(fn.split(None, 1)[0]): fn.count("HGMMA")
             for fn in sass.split("Function : ")[1:]
-            if "flash_fwd_wgmma_kernel" in fn.split(None, 1)[0]}
+            if wgmma_kernel(fn.split(None, 1)[0])}
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``ptxas -v``'s spill and register lines of each wgmma kernel
+    instantiation in a build log, by kernel<D>."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = wgmma_kernel(ln)
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip().replace(
+                "ptxas info    : ", ""))
+    return out
+
+
+def bwd_f64(q, k, v, o, lse, do):
+    """Plain's causal flash backward (Sq = Sk) in f64, for batch 0's first
+    kv head and its G q heads, on the same q/k/v/o/lse/dO: the function
+    whose f32 evaluations the kernel and plain are. Returns (dq [S, G, D],
+    dk [S, D], dv [S, D])."""
+    import torch
+    G, D = q.shape[2] // k.shape[2], q.shape[-1]
+    scale = D ** -0.5
+    qd, od, dod = (t[0, :, :G].double().transpose(0, 1) for t in (q, o, do))
+    kd, vd = (t[0, :, 0].double() for t in (k, v))
+    p = qd @ kd.T * scale                                    # [G, S, S]
+    S = p.shape[-1]
+    p.masked_fill_(torch.ones(S, S, dtype=torch.bool, device=q.device)
+                   .triu(1), float("-inf"))
+    p.sub_(lse[0, :G, :, None].double()).exp_()
+    delta = (dod * od).sum(-1, keepdim=True)
+    ds = p * (dod @ vd.T - delta)
+    dq = (ds @ kd * scale).transpose(0, 1)
+    dk = (ds.transpose(1, 2) @ qd).sum(0) * scale
+    dv = (p.transpose(1, 2) @ dod).sum(0)
+    return dq, dk, dv
+
+
+def bwd_hopper_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
+    """The Hopper backward's f32 (dq, dk, dv) ``got`` against plain's f32
+    ``exp`` (both before the cast) on causal bf16 q/k/v/o/lse/dO with Sq =
+    Sk. Held: each f32 gradient within TOL_FLASH_BWD["float32"] of plain's
+    largest magnitude (``_f32_over_limit`` <= 1), and each bf16 cast within
+    the element-wise limit of plain's cast (``_over_limit`` <= 1). The
+    controls, the plain gradients of a kernel that lost the last key tile
+    (dk, dv of that tile zero; dq's last rows without that tile's ds k,
+    which is plain on the last tile alone: row i of it sees keys up to i,
+    as the global row does), must miss both. Read beside them: the casts'
+    largest abs difference (the flat limit's reading), and how far plain's
+    f32 and the kernel's, and their casts, lie from the gradient in f64
+    (``bwd_f64``, one kv head)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import _bwd_plain_f32
+    rel_tol = TOL_FLASH_BWD["float32"]
+    e = {}
+    for gname, a, b, t in zip(("dq", "dk", "dv"), got, exp, (q, k, v)):
+        a16, b16 = a.to(t.dtype), b.to(t.dtype)
+        e[gname] = float((a16.float() - b16.float()).abs().max())
+        e[gname + "_f32_rel"] = float((a - b).abs().max() / b.abs().max())
+        e[gname + "_f32_over_limit"] = e[gname + "_f32_rel"] / rel_tol
+        e[gname + "_over_limit"] = flash_miss(a16, b16)
+    t0 = q.shape[1] - 64
+    last = _bwd_plain_f32(q[:, t0:], k[:, t0:], v[:, t0:], o[:, t0:],
+                          lse[..., t0:], do[:, t0:], True)[0]
+    dq_c = exp[0].clone()
+    dq_c[:, t0:] -= last
+    controls = (dq_c, dropped_tile(exp[1], t0), dropped_tile(exp[2], t0))
+    for gname, c, b, t in zip(("dq", "dk", "dv"), controls, exp, (q, k, v)):
+        e[gname + "_control_f32_over_limit"] = float(
+            (c - b).abs().max() / b.abs().max()) / rel_tol
+        e[gname + "_control_over_limit"] = flash_miss(c.to(t.dtype),
+                                                      b.to(t.dtype))
+        check(e[gname + "_control_f32_over_limit"] > 1
+              and e[gname + "_control_over_limit"] > 1,
+              f"flash_attention_bwd {label} {gname}: a limit misses a "
+              f"dropped key tile: {e}")
+    del last, dq_c, controls
+    G = q.shape[2] // k.shape[2]
+    f64 = bwd_f64(q, k, v, o, lse, do)
+    e["vs_f64"] = {}
+    for gname, x, a, b, t in zip(("dq", "dk", "dv"), f64, got, exp,
+                                 (q, k, v)):
+        a, b = (y[0, :, :G] if gname == "dq" else y[0, :, 0] for y in (a, b))
+        x16 = x.to(t.dtype).double()
+        r = {}
+        for who, y in (("plain", b), ("kernel", a)):
+            r[who + "_f32_rel"] = float((y - x).abs().max() / x.abs().max())
+            y16 = y.to(t.dtype).double()
+            r[who + "_bf16_max_abs"] = float((y16 - x16).abs().max())
+            r[who + "_bf16_mismatch_share"] = float((y16 != x16).float()
+                                                    .mean())
+        e["vs_f64"][gname] = r
+    del f64
+    ok = all(e[n + "_f32_over_limit"] <= 1 and e[n + "_over_limit"] <= 1
+             for n in ("dq", "dk", "dv"))
+    check(ok, f"flash_attention_bwd {label} differs from plain: {e}")
+    return e
 
 
 def latencies_ms(torch, fn, n: int, warmup: int = 3) -> list:
@@ -680,6 +827,8 @@ def lm_train_phase(torch, np, dev):
     from repro_torch import optim
     from repro_torch.configs import lm_family
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        _bwd_cuda_as_written, _bwd_plain_f32, flash_attention_cuda)
     from repro_torch.models import lm
     from repro_torch.optim.adam import leaves
 
@@ -746,10 +895,11 @@ def lm_train_phase(torch, np, dev):
           flush=True)
     check(all(np.isfinite(losses)), f"LM train losses {losses}")
     check(rep["count"] == 1 + LM_TRAIN_TIMED, f"opt count {rep['count']}")
-    # the forward and its remat recompute on the route forward_route picks
-    # (bf16 at head dim 128: the Hopper kernel)
+    # the forward and its remat recompute on the route forward_route picks,
+    # the backward on backward_route's (bf16 at head dim 128: the Hopper
+    # kernels)
     want = {**flash_fwd_launches(bf16, cfg.hd, 2 * L),
-            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L}
+            **flash_bwd_launches(bf16, cfg.hd, L)}
     check(all(c == want for c in per_step),
           f"LM train launches per step {per_step}, expected {want}")
     # every leaf got a gradient and an update of its moments; every matrix
@@ -758,7 +908,60 @@ def lm_train_phase(torch, np, dev):
     check(not m_zero, f"leaves whose first moment is still 0: {m_zero}")
     still = [p for p, t in leaves(params) if t.dim() >= 2 and changed[p] == 0]
     check(not still, f"matrices that did not move: {still}")
+
+    # ---- the Hopper backward on layer 0's own attention inputs in a bf16
+    # step: q, k, v as that layer's projections give them and dO as the
+    # loss sends it back (the output's gradient, by a hook), o and lse
+    # from the Hopper forward on them; held to plain as at the train shape
+    # below (bwd_hopper_errors: f32 before the cast, element-wise after
+    # it, the dropped-key-tile controls)
+    acts = {}
+    real = ops.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        out = real(q, k, v, causal=causal)
+        if not acts and out.requires_grad:         # layer 0's first call
+            acts.update(q=q.detach().clone(), k=k.detach().clone(),
+                        v=v.detach().clone())
+            out.register_hook(
+                lambda g: acts.setdefault("do", g.detach().clone()))
+        return out
+
+    ops.flash_attention = spy
+    try:
+        params, opt, m = step(params, opt, batch)
+    finally:
+        ops.flash_attention = real
     del params, opt, before, batch, step, m
+    resident()
+    q, k, v, do = (acts[n] for n in ("q", "k", "v", "do"))
+    # the gradients are linear in dO, and a power of two scales bf16 and
+    # every f32 product exactly, in both versions: dO is brought to an RMS
+    # in [0.5, 1) so that the element-wise limit's absolute term (1e-4, for
+    # unit-scale gradients) stays below them, as on the random inputs
+    # (layer 0's own dO is ~1e-4, where the absolute term alone would pass
+    # a dropped key tile; the f32 limit, relative, is unmoved by the scale)
+    do_rms = float(do.float().square().mean().sqrt())
+    do_scale = 2.0 ** -torch.frexp(torch.tensor(do_rms)).exponent.item()
+    do = do * do_scale
+    o, lse = flash_attention_cuda(q, k, v, True)
+    # a check's launches, counted from 0 (the kernels line's
+    # check_launches)
+    ops.reset_launch_counts()
+    got = _bwd_cuda_as_written(q, k, v, o, lse, do, True)
+    act_launches = {n: ops.launch_counts()[n] for n in FLASH_KERNELS}
+    exp = _bwd_plain_f32(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    check(act_launches == {**flash_fwd_launches(bf16, cfg.hd, 0),
+                           **flash_bwd_launches(bf16, cfg.hd, 1)},
+          f"layer-0 backward launches {act_launches}")
+    rep["layer0_bwd"] = {
+        "shape": list(q.shape) + [k.shape[2]], "launches": act_launches,
+        "do_rms": do_rms, "do_scale": do_scale,
+        **bwd_hopper_errors(q, k, v, o, lse, do, got, exp, "layer 0")}
+    print("lm-train layer-0 backward: " + json.dumps(rep["layer0_bwd"]),
+          flush=True)
+    del acts, q, k, v, do, o, lse, got, exp
 
     # ---- accumulation over two microbatches of 1 x 4,096: depth 2
     base = resident()
@@ -782,8 +985,7 @@ def lm_train_phase(torch, np, dev):
                     / 1e9}
     print("lm-train accum: " + json.dumps(rep["accum"]), flush=True)
     want = {**flash_fwd_launches(bf16, cfg2.hd, 4 * L2),
-            "flash_attention_bwd_dq": 2 * L2,
-            "flash_attention_bwd_dkv": 2 * L2}
+            **flash_bwd_launches(bf16, cfg2.hd, 2 * L2)}
     check(np.isfinite(rep["accum"]["loss"]), "non-finite accumulated loss")
     check(rep["accum"]["launches"] == want, f"accumulated step launches "
           f"{rep['accum']['launches']}, expected {want}")
@@ -823,10 +1025,10 @@ def lm_train_phase(torch, np, dev):
           f"{lp}")
     check(worst[0][1] <= TOL_GRAD, f"LM gradient leaf {worst[0][0]} "
           f"differs by {worst[0][1]} of its magnitude")
-    # f32: the forward on the SIMT kernel
+    # f32: the forward and the backward on the SIMT kernels
     check(sum(cp.values()) == 0 and ck == {
         **flash_fwd_launches(torch.float32, cfgf.hd, 2 * L2),
-        "flash_attention_bwd_dq": L2, "flash_attention_bwd_dkv": L2},
+        **flash_bwd_launches(torch.float32, cfgf.hd, L2)},
         f"launches kernel {ck}, plain {cp}")
     del res, gp, batch
 
@@ -867,8 +1069,9 @@ def main() -> int:
                                                    bus_attention_cuda,
                                                    bus_attention_plain)
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_cuda, flash_attention_fwd_plain)
+        _bwd_cuda_as_written, _bwd_plain_f32, flash_attention_bwd_cuda,
+        flash_attention_bwd_plain, flash_attention_cuda,
+        flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import (pq_lut_scores_cuda,
                                                 pq_lut_scores_plain)
     from repro_torch.launch.profile import pq_distortion
@@ -893,7 +1096,8 @@ def main() -> int:
     dev = torch.device("cuda")
     # a library already under build/ is loaded as it is, with the .log its
     # build left (the same source and flags, by the file name's hash)
-    report["wgmma_built_this_run"] = not flash_wgmma_library().exists()
+    built_now = {name: not hopper_library(name).exists()
+                 for name in HOPPER_LIBS}
     t0 = time.perf_counter()
     logs = ops.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -901,22 +1105,25 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"built {name}: {regs}", flush=True)
     print(f"kernels built in {report['build_s']:.1f} s", flush=True)
-    # the Hopper flash forward: no spills (ptxas -v), and tensor-core
-    # products in its machine code (wgmma is HGMMA in SASS)
-    ptxas = [ln.strip() for ln in logs["flash_attention_wgmma"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    report["ptxas_wgmma"] = ptxas
-    spills = [ln for ln in ptxas if "spill" in ln
-              and ln != "0 bytes stack frame, 0 bytes spill stores, "
-                        "0 bytes spill loads"]
-    check(any("spill" in ln for ln in ptxas) and not spills,
-          f"flash_attention_wgmma: ptxas reports spills: {ptxas}")
-    report["sass_hgmma"] = sass_hgmma(flash_wgmma_library())
-    print(f"flash_attention_wgmma: ptxas {ptxas}; HGMMA per function "
-          f"{report['sass_hgmma']}", flush=True)
-    check(report["sass_hgmma"] and all(report["sass_hgmma"].values()),
-          f"flash_fwd_wgmma_kernel's SASS has no HGMMA: "
-          f"{report['sass_hgmma']}")
+    # the Hopper flash kernels (forward; backward dq and dk/dv): no spills
+    # (ptxas -v), and tensor-core products in each instantiation's machine
+    # code (wgmma is HGMMA in SASS)
+    report["hopper"] = {}
+    for name in HOPPER_LIBS:
+        ptxas = ptxas_by_kernel(logs[name])
+        lines = [ln for kern in ptxas.values() for ln in kern]
+        spills = [ln for ln in lines if "spill" in ln
+                  and ln != "0 bytes stack frame, 0 bytes spill stores, "
+                            "0 bytes spill loads"]
+        check(sum("spill" in ln for ln in lines) == len(ptxas) > 0
+              and not spills, f"{name}: ptxas reports spills: {ptxas}")
+        hgmma = sass_hgmma(hopper_library(name))
+        report["hopper"][name] = {"ptxas": ptxas, "sass_hgmma": hgmma,
+                                  "ptxas_built_this_run": built_now[name]}
+        print(f"{name}: ptxas {ptxas}; HGMMA per function {hgmma}",
+              flush=True)
+        check(set(hgmma) == set(ptxas) and all(hgmma.values()),
+              f"{name}: a wgmma kernel's SASS has no HGMMA: {hgmma}")
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -1638,8 +1845,7 @@ def main() -> int:
         "tflop_per_s": fwd_flop(1, S) / flash_ms / 1e9,
         "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16",
         "causal": True,
-        "sass_hgmma": report["sass_hgmma"], "ptxas": report["ptxas_wgmma"],
-        "ptxas_built_this_run": report["wgmma_built_this_run"]})
+        **report["hopper"]["flash_attention_wgmma"]})
     flash_row = kernels[-1]
     report["lm"]["flash_ms_per_prefill"] = qcfg.n_layers * flash_ms
     report["lm"]["flash_share_of_prefill"] = (
@@ -1647,14 +1853,15 @@ def main() -> int:
     del q, k, v, o, lse
 
     # the flash backward at the LM training shape (B=2, S=4,096), against
-    # plain on the same saved o/lse, in f32 and bf16. The bf16 control:
-    # the plain gradients of a kernel that lost the last key tile (dk, dv
-    # of that tile zero; dq's last rows without that tile's ds k, which is
-    # plain on the last tile alone: row i of it sees keys up to i, as the
-    # global row does) must miss the element-wise limit
+    # plain on the same saved o/lse, on each route (backward_route): f32 on
+    # the SIMT pair; bf16 on the Hopper pair, its f32 gradients before the
+    # cast and their casts, beside the dropped-key-tile controls
+    # (bwd_hopper_errors). Each route is timed, with the wrapper's cast,
+    # beside plain and SDPA's causal GQA backward in the same dtype
     Bt, St = lm_family.ONE_CARD_TRAIN["batch"], \
         lm_family.LM_SHAPES["train_4k"]["seq"]
-    bwd_err = {}
+    pairs_t = Bt * Hq * St * (St + 1) // 2
+    bwd = {}
     for dtype in (torch.float32, bf16):
         name = str(dtype)[6:]
         q, do = (torch.randn(Bt, St, Hq, Dh, generator=g, device=dev)
@@ -1664,81 +1871,98 @@ def main() -> int:
         # o and lse from the forward's own route: bf16 from the Hopper
         # kernel, f32 from the SIMT one
         o, lse = launch_on(q, k, v)
-        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
-        exp = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+        ops.reset_launch_counts()
+        got = _bwd_cuda_as_written(q, k, v, o, lse, do, True)
+        went = {n: ops.launch_counts()[n] for n in FLASH_BWD}
+        exp = _bwd_plain_f32(q, k, v, o, lse, do, True)
         torch.cuda.synchronize()
-        e = {}
-        for gname, a, b in zip(("dq", "dk", "dv"), got, exp):
-            e[gname] = float((a.float() - b.float()).abs().max())
-            e[gname + "_rel"] = e[gname] / float(b.float().abs().max())
-            if dtype == bf16:
-                e[gname + "_over_limit"] = flash_miss(a, b)
+        check(went == flash_bwd_launches(dtype, Dh, 1),
+              f"flash backward on {dtype} went {went}")
         if dtype == bf16:
-            t0_ = St - 64
-            last = flash_attention_bwd_plain(
-                q[:, t0_:], k[:, t0_:], v[:, t0_:], o[:, t0_:],
-                lse[..., t0_:], do[:, t0_:], True)[0]
-            dq_c = exp[0].float()
-            dq_c[:, t0_:] -= last.float()
-            controls = (dq_c, dropped_tile(exp[1], t0_),
-                        dropped_tile(exp[2], t0_))
-            for gname, c, b in zip(("dq", "dk", "dv"), controls, exp):
-                e[gname + "_control_over_limit"] = flash_miss(c, b)
-                check(e[gname + "_control_over_limit"] > 1,
-                      f"flash_attention_bwd {gname}: the bf16 limit misses "
-                      f"a dropped key tile: {e}")
-            ok = all(e[n] <= TOL_FLASH_BWD[name]
-                     and e[n + "_over_limit"] <= 1 for n in ("dq", "dk",
-                                                              "dv"))
-            del last, dq_c, controls
+            e = bwd_hopper_errors(q, k, v, o, lse, do, got, exp, name)
         else:
-            ok = all(e[n + "_rel"] <= TOL_FLASH_BWD[name]
-                     for n in ("dq", "dk", "dv"))
-        bwd_err[name] = e
-        check(ok, f"flash_attention_bwd {name} differs from plain: {e}")
+            e = {}
+            for gname, a, b in zip(("dq", "dk", "dv"), got, exp):
+                e[gname] = float((a - b).abs().max())
+                e[gname + "_rel"] = e[gname] / float(b.abs().max())
+            check(all(e[n + "_rel"] <= TOL_FLASH_BWD[name]
+                      for n in ("dq", "dk", "dv")),
+                  f"flash_attention_bwd {name} differs from plain: {e}")
         del got, exp
-    bwd_ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
-        q, k, v, o, lse, do, True), iters=5, warmup=1)
-    bwd_plain_ms = time_ms(torch, lambda: flash_attention_bwd_plain(
-        q, k, v, o, lse, do, True), iters=2, warmup=1)
-    # yardstick: the backward alone of SDPA's causal GQA attention on the
-    # same data ([B, H, S, D] copies made outside the timing)
-    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    dos = do.transpose(1, 2).contiguous()
-    o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
-    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=5, warmup=2)
-    pairs_t = Bt * Hq * St * (St + 1) // 2
-    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse, do) + nbytes(q, k, v),
-                          10 * Dh * pairs_t, BF16_FLOP_PER_S)
+        # yardstick: the backward alone of SDPA's causal GQA attention on
+        # the same data ([B, H, S, D] copies made outside the timing)
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        r = {"errors": e,
+             "ms": time_ms(torch, lambda: flash_attention_bwd_cuda(
+                 q, k, v, o, lse, do, True), iters=5, warmup=1),
+             "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
+                 q, k, v, o, lse, do, True), iters=2, warmup=1),
+             "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                 o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=5,
+                 warmup=2)}
+        # the function's five products, 10 D FLOP a visible pair, at the
+        # dtype's rate: bf16 on the tensor cores, f32 outside them
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            nbytes(q, k, v, o, lse, do) + nbytes(q, k, v), 10 * Dh * pairs_t,
+            BF16_FLOP_PER_S if dtype == bf16 else F32_FLOP_PER_S)
+        r["tflop_per_s"] = 10 * Dh * pairs_t / r["ms"] / 1e9
+        bwd[name] = r
+        del qs, ks, vs, dos, o_sdpa
+        if dtype != bf16:
+            del q, k, v, o, lse, do
+
+    def by_path(sym):
+        return {"lm_train": lm_train_launches[sym],
+                "prefill": prefill_launches[sym], "serve": launches[sym],
+                "train": train_launches[sym]}
+
+    shape = {"shape": [Bt, St, St, Hq, Hkv, Dh], "causal": True}
+    lt = report["lm_train"]
+    kernels.append({
+        "name": "flash_attention_bwd_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:281",
+        "launches": lm_train_launches["flash_attention_bwd_dq_wgmma"]
+        + lm_train_launches["flash_attention_bwd_dkv_wgmma"],
+        # the layer-0 check's launches, counted from 0, are apart
+        "check_launches": {"lm_train_layer0": {
+            n: lt["layer0_bwd"]["launches"][n]
+            for n in ("flash_attention_bwd_dq_wgmma",
+                      "flash_attention_bwd_dkv_wgmma")}},
+        "launches_by_path": {
+            "dq": by_path("flash_attention_bwd_dq_wgmma"),
+            "dkv": by_path("flash_attention_bwd_dkv_wgmma")},
+        "max_abs_err": max(bwd["bfloat16"]["errors"][n]
+                           for n in ("dq", "dk", "dv")),
+        "layer0_errors": {n: x for n, x in lt["layer0_bwd"].items()
+                          if n not in ("launches", "shape")},
+        **bwd["bfloat16"], **shape, "dtype": "bfloat16",
+        **report["hopper"]["flash_attention_bwd_wgmma"]})
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:281",
+        # the main paths run bf16 at head dim 128, the Hopper pair's route,
+        # so this is 0; the f32 gradient check's launches, counted from 0,
+        # are apart under check_launches
         "launches": lm_train_launches["flash_attention_bwd_dq"]
         + lm_train_launches["flash_attention_bwd_dkv"],
-        "launches_by_path": {
-            "lm_train": {"dq": lm_train_launches["flash_attention_bwd_dq"],
-                         "dkv": lm_train_launches["flash_attention_bwd_dkv"]},
-            "prefill": prefill_launches["flash_attention_bwd_dq"]
-            + prefill_launches["flash_attention_bwd_dkv"],
-            "serve": launches["flash_attention_bwd_dq"]
-            + launches["flash_attention_bwd_dkv"],
-            "train": train_launches["flash_attention_bwd_dq"]
-            + train_launches["flash_attention_bwd_dkv"]},
-        "max_abs_err": max(bwd_err["bfloat16"][n] for n in ("dq", "dk",
-                                                            "dv")),
-        "errors": bwd_err,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_bwd_ms,
-        "tflop_per_s": 10 * Dh * pairs_t / bwd_ms / 1e9,
-        "shape": [Bt, St, St, Hq, Hkv, Dh], "dtype": "bfloat16",
-        "causal": True})
-    layers_t = report["lm_train"]["layers"]
-    report["lm_train"]["flash_bwd_ms_per_step"] = layers_t * bwd_ms
-    report["lm_train"]["flash_bwd_share_of_step"] = (
-        layers_t * bwd_ms / 1e3 / report["lm_train"]["s_per_step"])
+        "check_launches": {"lm_train_float32_depth2": {
+            n: lt["plain"]["launches_kernel"][n]
+            for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}},
+        "launches_by_path": {"dq": by_path("flash_attention_bwd_dq"),
+                             "dkv": by_path("flash_attention_bwd_dkv")},
+        "max_abs_err": max(bwd["float32"]["errors"][n]
+                           for n in ("dq", "dk", "dv")),
+        **bwd["float32"], **shape, "dtype": "float32"})
+    bwd_ms = bwd["bfloat16"]["ms"]
+    layers_t = lt["layers"]
+    lt["flash_bwd_ms_per_step"] = layers_t * bwd_ms
+    lt["flash_bwd_share_of_step"] = (layers_t * bwd_ms / 1e3
+                                     / lt["s_per_step"])
     # the Hopper forward at the train shape, on the bf16 q/k/v above; a
     # step launches it twice a layer (forward and remat recompute)
     tr = {"ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v, True),
@@ -1749,10 +1973,10 @@ def main() -> int:
         nbytes(q, k, v, o, lse), fwd_flop(Bt, St), BF16_FLOP_PER_S)
     tr["tflop_per_s"] = fwd_flop(Bt, St) / tr["ms"] / 1e9
     flash_row["train_shape"] = tr
-    report["lm_train"]["flash_fwd_ms_per_step"] = 2 * layers_t * tr["ms"]
-    report["lm_train"]["flash_fwd_share_of_step"] = (
-        2 * layers_t * tr["ms"] / 1e3 / report["lm_train"]["s_per_step"])
-    del q, k, v, o, lse, do, qs, ks, vs, dos, o_sdpa
+    lt["flash_fwd_ms_per_step"] = 2 * layers_t * tr["ms"]
+    lt["flash_fwd_share_of_step"] = (2 * layers_t * tr["ms"] / 1e3
+                                     / lt["s_per_step"])
+    del q, k, v, o, lse, do
 
     # the EmbeddingBag row, timed in the recsys phase at serve_bulk's shape
     rs = report["recsys"]

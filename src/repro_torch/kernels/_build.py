@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file exports plain C functions. It is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/kernels/`` and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds, not minutes). The library's file name carries a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.
+hash of the source, of the ``csrc/`` headers it includes with quotes
+(``hopper.cuh``) and of the flags, so an edited source or header rebuilds
+and an unchanged one is loaded as it is.
 
 Nothing here runs when the module is imported: a kernel is built on its
 first launch (or by ``build_all``, which starts one ``nvcc`` per source
@@ -19,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +31,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
 
 
 def find_nvcc() -> str:
@@ -73,7 +76,10 @@ class CudaKernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> pathlib.Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        src = self.source.read_bytes()
+        h = hashlib.sha256(src)
+        for header in sorted(set(_INCLUDE.findall(src))):
+            h.update((CSRC / header.decode()).read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

@@ -79,8 +79,10 @@
 // products, 10 * D FLOP a pair (s recomputed, since no design can store
 // p): 8.59e11 FLOP, 0.869 ms at 989 TFLOP/s, against 0.12 ms for its
 // ~0.40 GB. These kernels run seven products (q k^T and dO v^T in both)
-// on the CUDA cores in f32, so their ceiling is the 67 TFLOP/s f32 rate;
-// wgmma on bf16 tiles is the next step, as for the forward.
+// on the CUDA cores in f32, so their ceiling is the 67 TFLOP/s f32 rate.
+// So bf16 at head dim 64 or 128 goes to flash_attention_bwd_wgmma.cu
+// (wgmma on bf16 tiles fed by TMA) instead; this pair takes f32 and bf16
+// at the other head dims (kernels/flash_attention.py:backward_route).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

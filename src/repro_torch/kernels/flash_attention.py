@@ -17,6 +17,9 @@ rather than storing them: ``delta = rowsum(dO * O)`` (f32), ``ds = p *
 (dO v^T - delta)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``,
 ``dv = p^T dO``. dq comes back in q's dtype; dk and dv are summed over
 each kv head's group of q heads in f32 and come back in k's and v's.
+The checks hold a bf16 kernel's f32 gradients before that cast, as the
+TPU kernel writes dk and dv, against plain's: ``_bwd_plain_f32`` and
+``_bwd_cuda_as_written`` return them.
 
 Two CUDA forwards, chosen by ``forward_route`` from the dtype and head
 dim before any launch: bf16 at a head dim in ``WGMMA_HEAD_DIMS`` goes to
@@ -24,7 +27,10 @@ the Hopper kernel (``csrc/flash_attention_wgmma.cu``: TMA and wgmma,
 which reads q/k/v through TMA and so needs 16-byte-aligned bases and
 strides), everything else to the SIMT kernel (``csrc/flash_attention.cu``,
 f32 arithmetic). Each counts its launches under its own symbol. The
-backward is the SIMT pair for both.
+backward has the same two routes, chosen by ``backward_route``: a dq and a
+dk/dv kernel each, Hopper (``csrc/flash_attention_bwd_wgmma.cu``, which
+also reads dO through TMA and writes f32 gradients, cast here) or SIMT
+(``csrc/flash_attention.cu``, which writes the inputs' dtype).
 """
 from __future__ import annotations
 
@@ -57,6 +63,17 @@ KERNEL_WGMMA = CudaKernel("flash_attention_wgmma", "flash_attention_wgmma.cu",
                           {"flash_attention_fwd_wgmma": [
                               *([_P] * 5), *([_I] * 6), *([_L] * 12), _I,
                               ctypes.c_float, _P]})
+# the Hopper backward: q, k, v, dO, lse, delta, then dq (B, Sq, Sk, Hq,
+# Hkv, D, 15 strides) or dk, dv (the same, 18 strides); causal, scale,
+# stream. dq, dk and dv are f32
+KERNEL_BWD_WGMMA = CudaKernel(
+    "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu", {
+        "flash_attention_bwd_dq_wgmma": [*([_P] * 7), *([_I] * 6),
+                                         *([_L] * 15), _I, ctypes.c_float,
+                                         _P],
+        "flash_attention_bwd_dkv_wgmma": [*([_P] * 8), *([_I] * 6),
+                                          *([_L] * 18), _I, ctypes.c_float,
+                                          _P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_HEAD_DIMS = (64, 128)
 
@@ -70,6 +87,18 @@ def forward_route(dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "flash_attention_wgmma"
     return "flash_attention"
+
+
+def backward_route(dtype, head_dim: int) -> tuple:
+    """Which CUDA backward takes a call: the names its dq and dk/dv
+    launches count under in ``ops.KERNELS`` (each also its C symbol).
+    The rule is ``forward_route``'s: the Hopper pair
+    (``"flash_attention_bwd_dq_wgmma"``, ``"flash_attention_bwd_dkv_wgmma"``)
+    for bf16 at a head dim in WGMMA_HEAD_DIMS, else the SIMT pair
+    (``"flash_attention_bwd_dq"``, ``"flash_attention_bwd_dkv"``)."""
+    if forward_route(dtype, head_dim) == "flash_attention_wgmma":
+        return "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma"
+    return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"
 
 
 def check_shapes(q, k, v, causal: bool):
@@ -111,9 +140,16 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = True):
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention_fwd_plain``'s output for the
     cotangent ``do`` [B, Sq, Hq, D], from the saved o and lse ([B, Hq,
-    Sq], f32): p is recomputed from lse, as the kernels do, all in f32.
-    An explicit function (not autograd over the forward), so the tests
-    hold the function the CUDA kernels implement."""
+    Sq], f32): p is recomputed from lse, as the kernels do, all in f32,
+    then cast to q's, k's and v's dtypes. An explicit function (not
+    autograd over the forward), so the tests hold the function the CUDA
+    kernels implement."""
+    dq, dk, dv = _bwd_plain_f32(q, k, v, o, lse, do, causal)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain_f32(q, k, v, o, lse, do, causal: bool = True):
+    """``flash_attention_bwd_plain``'s f32 (dq, dk, dv) before the cast."""
     B, Sq, Sk, Hq, Hkv, D = check_shapes(q, k, v, causal)
     G = Hq // Hkv
     scale = D ** -0.5
@@ -135,8 +171,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
     # the sums over g fold each kv head's group of q heads, in f32
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
-    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    return dq.reshape(B, Sq, Hq, D), dk, dv
 
 
 def _check_kernel_inputs(q, k, v, causal, **more):
@@ -216,33 +251,55 @@ def _tma_strides(t):
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the CUDA backward (the dq kernel, then the dk/dv kernel);
-    same contract as ``flash_attention_bwd_plain``. q/k/v/o/dO may be
-    strided views with a contiguous last axis; lse is [B, Hq, Sq] f32.
-    delta = rowsum(dO * O) is one f32 torch expression here, as the JAX
-    package computes it outside its kernels. Raises on anything the
-    kernels do not take."""
+    """Launch the CUDA backward that ``backward_route`` picks (its dq
+    kernel, then its dk/dv kernel); same contract as
+    ``flash_attention_bwd_plain``. q/k/v/o/dO may be strided views with a
+    contiguous last axis (on the Hopper route, TMA must be able to read
+    q, k, v and dO: ``_check_tma``); lse is [B, Hq, Sq] f32. delta =
+    rowsum(dO * O) is one f32 torch expression here, as the JAX package
+    computes it outside its kernels. Raises on anything the kernels do not
+    take."""
+    dq, dk, dv = _bwd_cuda_as_written(q, k, v, o, lse, do, causal)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_cuda_as_written(q, k, v, o, lse, do, causal: bool = True):
+    """``flash_attention_bwd_cuda``'s (dq, dk, dv) before its cast, as the
+    route's kernels write them: f32 from the Hopper pair, the inputs'
+    dtype from the SIMT pair."""
     B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal, o=o,
                                                  do=do)
     if (lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq)
             or lse.device != q.device):
         raise ValueError(f"lse must be [B, Hq, Sq] f32 on {q.device}; got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    dq_sym, dkv_sym = backward_route(q.dtype, D)
+    wgmma = dq_sym.endswith("_wgmma")
+    if wgmma:
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _check_tma(name, t)
     lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
-    dk = torch.empty(B, Sk, Hkv, D, dtype=k.dtype, device=q.device)
-    dv = torch.empty(B, Sk, Hkv, D, dtype=v.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
-    dims = (B, Sq, Sk, Hq, Hkv, D)
-    tail = (int(causal), _DTYPES[q.dtype], float(D ** -0.5))
-    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    KERNEL.launch("flash_attention_bwd_dq", q.device, *ptrs, dq.data_ptr(),
-                  *dims, *[s for t in (q, k, v, do, dq)
-                           for s in t.stride()[:3]], *tail)
-    KERNEL.launch("flash_attention_bwd_dkv", q.device, *ptrs, dk.data_ptr(),
-                  dv.data_ptr(), *dims,
-                  *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
-                  *tail)
+    out = torch.float32 if wgmma else q.dtype
+    dq = torch.empty(B, Sq, Hq, D, dtype=out, device=q.device)
+    dk = torch.empty(B, Sk, Hkv, D, dtype=out, device=q.device)
+    dv = torch.empty(B, Sk, Hkv, D, dtype=out, device=q.device)
+    if dq.numel():
+        dims = (B, Sq, Sk, Hq, Hkv, D)
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+        if wgmma:
+            lib, tail = KERNEL_BWD_WGMMA, (int(causal), float(D ** -0.5))
+            strides = [s for t in (q, k, v, do) for s in _tma_strides(t)]
+        else:
+            lib = KERNEL
+            tail = (int(causal), _DTYPES[q.dtype], float(D ** -0.5))
+            strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+        lib.launch(dq_sym, q.device, *ptrs, dq.data_ptr(), *dims, *strides,
+                   *dq.stride()[:3], *tail)
+        lib.launch(dkv_sym, q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
+                   *dims, *strides, *dk.stride()[:3], *dv.stride()[:3],
+                   *tail)
+    else:
+        dk.zero_()
+        dv.zero_()
     return dq, dk, dv

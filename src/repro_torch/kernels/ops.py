@@ -34,6 +34,10 @@ KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
                                       "flash_attention_bwd_dq"),
            "flash_attention_bwd_dkv": (_flash.KERNEL,
                                        "flash_attention_bwd_dkv"),
+           "flash_attention_bwd_dq_wgmma": (
+               _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dq_wgmma"),
+           "flash_attention_bwd_dkv_wgmma": (
+               _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dkv_wgmma"),
            "embedding_bag": (_ebag.KERNEL, "embedding_bag")}
 
 FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it

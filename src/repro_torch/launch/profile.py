@@ -39,7 +39,9 @@ one train step of Qwen3-14B at full width and 8 of its 40 layers (bf16
 parameters, f32 moments, seeded random weights, B=2 at train_4k's
 S=4,096: ``chip_smoke.py``'s lm-train shape) through ``make_fn(cfg,
 "train")``, after one warm step: device time by kernel name and the
-device's busy share, printed and written to ``--out`` (default
+device's busy share, with each flash kernel that ran (forward and
+backward, Hopper and SIMT) named apart (calls, device ms, share of the
+step), printed and written to ``--out`` (default
 ``chiprun_out/profile_lm_train.json``).
 
 With ``--recsys`` it instead profiles the recsys family's serving path:
@@ -81,8 +83,19 @@ from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
 
+# the flash kernels by the names their CUDA functions carry in a profile
+# (each a template instance, so its name holds <D>): forward and backward,
+# Hopper and SIMT routes
+FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
 def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
-    """Device time by kernel name from a profile, and the busy share."""
+    """Device time by kernel name from a profile, and the busy share;
+    each flash kernel that ran (FLASH_NAMES) also apart, with its calls,
+    device ms and share of the wall time, whether or not it is among the
+    ``top``."""
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
@@ -93,10 +106,19 @@ def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
         rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
-            "busy_share": busy_us / 1e6 / wall_s if wall_s else 0.0,
-            "kernels": [{"name": k[:90], "calls": n, "device_ms": us / 1e3}
-                        for us, n, k in rows[:top]]}
+    out = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+           "busy_share": busy_us / 1e6 / wall_s if wall_s else 0.0,
+           "kernels": [{"name": k[:90], "calls": n, "device_ms": us / 1e3}
+                       for us, n, k in rows[:top]]}
+    out["named"] = {}
+    for part in FLASH_NAMES:
+        hit = [(us, n) for us, n, k in rows if f"{part}<" in k]
+        if hit:
+            ms = sum(us for us, _ in hit) / 1e3
+            out["named"][part] = {
+                "calls": sum(n for _, n in hit), "device_ms": ms,
+                "share_of_wall": ms / 1e3 / wall_s if wall_s else 0.0}
+    return out
 
 
 def _profiled(fn, top: int = 16) -> dict:
@@ -203,6 +225,9 @@ def _print_table(name: str, r: dict):
     for kern in r["kernels"]:
         print(f"   {kern['device_ms']:9.3f} ms  x{kern['calls']:<5} "
               f"{kern['name']}")
+    for part, kern in r["named"].items():
+        print(f"   {part}: {kern['device_ms']:.3f} ms x{kern['calls']}, "
+              f"{100 * kern['share_of_wall']:.1f}% of the wall time")
 
 
 def _cells_of(snap, n_rows: int):

@@ -7,11 +7,15 @@ interpret mode (as tests/test_kernels.py runs it), ``o`` and ``lse``, on
 the same numpy inputs. The CUDA kernels run only on the card:
 tests/test_torch_gpu.py holds them against the plain version there.
 
-The bf16 Hopper kernel (``csrc/flash_attention_wgmma.cu``) is modelled
-here tile by tile, to show on the CPU that its arithmetic (p split into
-hi and lo bf16 halves for the P V product) meets the element-wise bf16
-limit the card's checks hold it to, where p rounded to bf16 alone does
-not.
+The bf16 Hopper kernels are modelled here tile by tile, to show on the
+CPU that their arithmetic meets the limits the card's checks hold them
+to. The forward (``csrc/flash_attention_wgmma.cu``, p split into hi and
+lo bf16 halves for the P V product) meets the element-wise bf16 limit,
+where p rounded to bf16 alone does not. The backward
+(``csrc/flash_attention_bwd_wgmma.cu``, p and ds split for the dv, dq and
+dk products) writes f32 gradients: they are within 1e-4 of each plain f32
+gradient's largest magnitude and their bf16 casts meet the element-wise
+limit, where p and ds rounded to bf16 alone miss one of the two.
 """
 import math
 
@@ -27,14 +31,21 @@ from repro.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_fwd_plain)
+    flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_cuda,
+    flash_attention_fwd_plain)
 
 # tests/test_kernels.py's forward tolerances
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # the card's element-wise bf16 limit (tests/test_torch_gpu.py, chip_smoke.py)
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 LSE_TOL = 1e-4
-KEY_TILE = 128        # kBK in csrc/flash_attention_wgmma.cu
+# the f32 backward's limit, of each gradient's largest magnitude
+# (tests/test_kernels.py's f32 gradient tolerance; chip_smoke.py's
+# TOL_FLASH_BWD["float32"])
+BWD_F32_REL = 1e-4
+KEY_TILE = 128        # kBK in csrc/flash_attention_wgmma.cu, kKeysDq in
+                      # csrc/flash_attention_bwd_wgmma.cu
+LOG2E = math.log2(math.e)
 
 
 def _inputs(B, Sq, Sk, Hq, Hkv, D, seed=0):
@@ -222,3 +233,141 @@ def test_tma_strides_fill_size_one_dims():
     assert all(s > 0 and s % 8 == 0 for s in st)
     k = torch.zeros(2, 64, 12, 128)[:, :, 8:10]       # a fused qkv slice
     assert flash_mod._tma_strides(k) == list(k.stride()[:3])
+
+
+def _hopper_bwd_model(q, k, v, o, lse, do, causal, split=True):
+    """The Hopper backward's arithmetic, tile by tile on the CPU, in f32
+    as its kernels write it: per key tile of KEY_TILE, scores in f32 from
+    the bf16 inputs, p = exp2(s * scale log2(e) - lse log2(e)) with masked
+    positions at 0, dP = dO v^T in f32, ds = p (dP - delta); then that
+    tile's dq = ds k, dk = ds^T q and dv = p^T dO (summed over each kv
+    head's group), each product with p or ds as hi + lo bf16 (``split``)
+    or with p and ds rounded to bf16 alone (the control), added to f32
+    running sums; dq and dk times scale. The dk/dv kernel's 128-row q
+    tiles only order its f32 sums, so the model takes all rows at once."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    dog = do.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    delta = (dog * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]          # [B, Hkv, G, Sq, 1]
+    lse2 = lse.reshape(B, Hkv, G, Sq, 1) * LOG2E
+    scale = D ** -0.5
+    scale_log2 = torch.tensor(scale * LOG2E)
+    pos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    dq = torch.zeros(B, Hkv, G, Sq, D)
+    dk, dv = torch.zeros(B, Sk, Hkv, D), torch.zeros(B, Sk, Hkv, D)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    for k0 in range(0, Sk, KEY_TILE):
+        kt, vt = kf[:, k0:k0 + KEY_TILE], vf[:, k0:k0 + KEY_TILE]
+        keys = slice(k0, k0 + kt.shape[1])
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[1]) > pos,
+                              -1e30)
+        p = torch.exp2(s * scale_log2 - lse2)
+        ds = p * (torch.einsum("bqkgd,bskd->bkgqs", dog, vt) - delta)
+        dq += sum(torch.einsum("bkgqs,bskd->bkgqd", x, kt) for x in parts(ds))
+        dk[:, keys] += sum(torch.einsum("bkgqs,bqkgd->bskd", x, qg)
+                           for x in parts(ds))
+        dv[:, keys] += sum(torch.einsum("bkgqs,bqkgd->bskd", x, dog)
+                           for x in parts(p))
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return dq, dk * scale, dv
+
+
+def _bf16_bwd_case(Sq, Sk, causal, seed=0):
+    """q, k, v (``_bf16_inputs``), the plain forward's o and lse, and a
+    bf16 cotangent dO, from numpy."""
+    q, k, v = _bf16_inputs(Sq, Sk, seed)
+    o, lse = flash_attention_fwd_plain(q, k, v, causal)
+    do = torch.tensor(np.random.default_rng(seed + 1).normal(
+        size=q.shape).astype(np.float32)).bfloat16()
+    return q, k, v, o, lse, do
+
+
+def _f32_rel(a, b):
+    """Largest |a - b| over b's largest magnitude, both f32 (passes at <=
+    BWD_F32_REL)."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", HOPPER_CASES)
+def test_hopper_bwd_model_meets_the_f32_and_bf16_limits(Sq, Sk, causal):
+    args = _bf16_bwd_case(Sq, Sk, causal)
+    exp = flash_mod._bwd_plain_f32(*args, causal)
+    got = _hopper_bwd_model(*args, causal)
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, exp, args):
+        assert a.dtype == b.dtype == torch.float32, name
+        assert a.shape == b.shape, name
+        assert _f32_rel(a, b) <= BWD_F32_REL, name
+        # the bf16 gradients the wrapper returns, against plain's
+        assert _over_limit(a.to(t.dtype), b.to(t.dtype)) <= 1, name
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", HOPPER_CASES)
+def test_hopper_bwd_model_with_p_and_ds_in_bf16_misses_a_limit(Sq, Sk,
+                                                               causal):
+    # the control: p and ds rounded to bf16 before their products compute
+    # another function, which the f32 or the element-wise limit catches on
+    # at least one gradient
+    args = _bf16_bwd_case(Sq, Sk, causal)
+    exp = flash_mod._bwd_plain_f32(*args, causal)
+    got = _hopper_bwd_model(*args, causal, split=False)
+    assert any(_f32_rel(a, b) > BWD_F32_REL
+               or _over_limit(a.bfloat16(), b.bfloat16()) > 1
+               for a, b in zip(got, exp))
+
+
+def test_plain_backward_returns_f32_before_its_cast():
+    args = _bf16_bwd_case(256, 256, True)
+    cast = flash_attention_bwd_plain(*args, True)
+    f32 = flash_mod._bwd_plain_f32(*args, True)
+    for a, b in zip(cast, f32):
+        assert a.dtype == torch.bfloat16 and b.dtype == torch.float32
+        assert torch.equal(a, b.bfloat16())
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 48, "simt"), (torch.bfloat16, 80, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 112, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_backward_route_by_dtype_and_head_dim(dtype, head_dim, route):
+    # the route is named by the counters its dq and dk/dv launches go to
+    names = {"wgmma": ("flash_attention_bwd_dq_wgmma",
+                       "flash_attention_bwd_dkv_wgmma"),
+             "simt": ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    assert flash_mod.backward_route(dtype, head_dim) == names[route]
+    assert all(name in ops.KERNELS for name in names[route])
+
+
+def test_tma_checks_refuse_a_misaligned_do():
+    base = torch.zeros(64 * 4 * 128 + 8, dtype=torch.bfloat16)
+    flash_mod._check_tma("do", base[:-8].view(1, 64, 4, 128))
+    with pytest.raises(ValueError, match="do is not 16-byte aligned"):
+        flash_mod._check_tma("do", base[1:-7].view(1, 64, 4, 128))
+    # dO as a slice of a wider tensor: a head stride of 136 elements (272
+    # bytes) passes, one of 132 (264 bytes) does not
+    flash_mod._check_tma("do", torch.zeros(1, 64, 4, 136,
+                                           dtype=torch.bfloat16)[..., :128])
+    with pytest.raises(ValueError, match="do's stride 132"):
+        flash_mod._check_tma("do", torch.zeros(1, 64, 4, 132,
+                                               dtype=torch.bfloat16)[..., :128])
+
+
+@pytest.mark.parametrize("fn", [flash_attention_bwd_cuda,
+                                flash_mod._bwd_cuda_as_written],
+                         ids=["cast", "as_written"])
+def test_the_cuda_backward_refuses_a_cpu_tensor(fn):
+    args = _bf16_bwd_case(64, 64, True)
+    with pytest.raises(RuntimeError, match="cpu"):
+        fn(*args, True)

@@ -23,6 +23,10 @@ pytestmark = pytest.mark.gpu
 
 BUS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the Hopper backward writes f32 gradients, held before the wrapper's cast
+# within 1e-4 of each plain f32 gradient's largest magnitude (the f32
+# limit above), beside the element-wise bf16 limit on the casts
+BWD_F32_REL = 1e-4
 PQ_TOL = 1e-5
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # JAX tests' own
 # bf16 also element-wise: both versions round an f32 result to bf16, so
@@ -425,8 +429,8 @@ def test_flash_forward_launches_count_by_route(cuda, dtype, D, route):
 
 
 def test_flash_bwd_on_the_wgmma_forward_matches_plain(cuda):
-    # the SIMT backward on o and lse from the Hopper forward, at the LM
-    # training shape's heads (40/8 of 128), bf16
+    # the backward (backward_route: the Hopper pair) on o and lse from the
+    # Hopper forward, at the LM training shape's heads (40/8 of 128), bf16
     q, k, v, _, _, do = _flash_bwd_inputs(2, 512, 512, 40, 8, 128, cuda,
                                           torch.bfloat16, True)
     before = ops.launch_counts()["flash_attention_wgmma"]
@@ -488,10 +492,95 @@ def _hold_bwd(got, exp, dtype):
 def test_flash_attention_bwd_cuda_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D,
                                                 causal, dtype):
     args = _flash_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, cuda, dtype, causal)
+    route = flash_mod.backward_route(dtype, D)
+    before = ops.launch_counts()
     got = flash_mod.flash_attention_bwd_cuda(*args, causal)
+    after = ops.launch_counts()
     exp = flash_mod.flash_attention_bwd_plain(*args, causal)
     torch.cuda.synchronize()
+    assert all(after[n] == before[n] + 1 for n in route), route
     _hold_bwd(got, exp, dtype)
+
+
+def _over_limit(a, b):
+    """Largest |a - b| over the element-wise bf16 limit (passes at <= 1)."""
+    b = b.float()
+    return float(((a.float() - b).abs()
+                  / (FLASH_BF16_RTOL * b.abs() + FLASH_BF16_ATOL)).max())
+
+
+def _f32_rel(a, b):
+    """Largest |a - b| over b's largest magnitude (passes at <=
+    BWD_F32_REL)."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _without_last_key_tile(q, k, v, o, lse, do, causal, exp, width=64):
+    """Plain's f32 gradients ``exp`` as a kernel that lost the last
+    ``width`` keys would give them: dk and dv zero there, dq without those
+    keys' ds k (plain's formula on them alone, with the same lse and
+    delta)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G, t0 = Hq // Hkv, max(Sk - width, 0)
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    dog = do.float().reshape(B, Sq, Hkv, G, D)
+    kt, vt = k[:, t0:].float(), v[:, t0:].float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kt) * D ** -0.5
+    if causal:
+        pos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        s = s.masked_fill(torch.arange(t0, Sk, device=q.device) > pos, -1e30)
+    p = (s - lse.reshape(B, Hkv, G, Sq, 1)).exp()
+    delta = (dog * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    ds = p * (torch.einsum("bqkgd,bskd->bkgqs", dog, vt)
+              - delta.permute(0, 2, 3, 1)[..., None])
+    dq_last = torch.einsum("bkgqs,bskd->bqkgd", ds, kt) * D ** -0.5
+    dk, dv = exp[1].clone(), exp[2].clone()
+    dk[:, t0:] = 0
+    dv[:, t0:] = 0
+    return exp[0] - dq_last.reshape(B, Sq, Hq, D), dk, dv
+
+
+def _hold_hopper_bwd(args, causal):
+    """The Hopper pair on ``args`` (q, k, v, o, lse, dO; bf16) against
+    plain: each f32 gradient before the cast within BWD_F32_REL of plain's
+    f32 largest, each bf16 cast within the element-wise limit of plain's
+    cast, and a kernel that lost the last key tile missing both limits.
+    Returns the f32 gradients."""
+    got = flash_mod._bwd_cuda_as_written(*args, causal)
+    exp = flash_mod._bwd_plain_f32(*args, causal)
+    controls = _without_last_key_tile(*args, causal, exp)
+    torch.cuda.synchronize()
+    for name, a, b, c, t in zip(("dq", "dk", "dv"), got, exp, controls,
+                                args):
+        assert a.dtype == b.dtype == torch.float32, name
+        assert a.shape == b.shape, name
+        assert _f32_rel(a, b) <= BWD_F32_REL, name
+        assert _over_limit(a.to(t.dtype), b.to(t.dtype)) <= 1, name
+        assert _f32_rel(c, b) > BWD_F32_REL, name
+        assert _over_limit(c.to(t.dtype), b.to(t.dtype)) > 1, name
+    return got
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 256, 256, 8, 2, 64),      # GQA 4:1
+    (2, 100, 300, 4, 2, 64),      # ragged tiles, q_off = 200
+    (2, 200, 333, 8, 2, 128),     # Sk no multiple of the key tiles
+    (1, 1, 300, 8, 2, 128),       # one query row over 300 keys
+    (1, 1024, 1024, 40, 8, 128),  # Qwen3-14B's heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_wgmma_matches_plain(cuda, B, Sq, Sk, Hq, Hkv,
+                                                 D, causal):
+    args = _flash_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, cuda, torch.bfloat16,
+                             causal)
+    route = flash_mod.backward_route(torch.bfloat16, D)
+    assert route == ("flash_attention_bwd_dq_wgmma",
+                     "flash_attention_bwd_dkv_wgmma")
+    before = ops.launch_counts()
+    _hold_hopper_bwd(args, causal)
+    after = ops.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in route), route
 
 
 def test_flash_attention_bwd_cuda_reads_strided_views(cuda):
@@ -529,6 +618,100 @@ def test_flash_attention_grads_on_cuda_go_through_both_kernels(
         assert after[name] == before[name] + 1, name
     _hold_bwd((q.grad, k.grad, v.grad), exp, torch.float32)
 
+
+
+def test_flash_attention_bwd_wgmma_reads_strided_views(cuda):
+    # q/k/v as slices of one fused bf16 projection and dO a slice of a
+    # wider tensor, read through their strides by TMA
+    B, S, Hq, Hkv, D = 2, 320, 8, 2, 128
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    do = torch.randn(B, S, 2 * Hq, D, device=cuda).to(torch.bfloat16)[:, :,
+                                                                      :Hq]
+    assert not (q.is_contiguous() or do.is_contiguous())
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    before = ops.launch_counts()["flash_attention_bwd_dq_wgmma"]
+    _hold_hopper_bwd((q, k, v, o, lse, do), True)
+    assert ops.launch_counts()["flash_attention_bwd_dq_wgmma"] == before + 1
+
+
+def test_flash_bwd_wgmma_refuses_a_misaligned_view(cuda):
+    q, k, v, o, lse, do = _flash_bwd_inputs(1, 64, 64, 4, 2, 128, cuda,
+                                            torch.bfloat16, True)
+    bwd = flash_mod.flash_attention_bwd_cuda
+    before = ops.launch_counts()
+    # a dO base 2 bytes past a 16-byte boundary
+    flat = torch.empty(do.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:do.numel() + 1].view(do.shape).copy_(do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bwd(q, k, v, o, lse, shifted, True)
+    # a head stride of 132 elements: 264 bytes, no multiple of 16
+    wide = torch.zeros(1, 64, 4, 132, dtype=torch.bfloat16,
+                       device=cuda)[..., :128].copy_(do)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        bwd(q, k, v, o, lse, wide, True)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        bwd(wide, k, v, o, lse, do, True)
+    # refused before any launch, on either route: nothing falls back
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 128)])
+def test_flash_backward_launches_count_by_route(cuda, dtype, D):
+    route = flash_mod.backward_route(dtype, D)
+    args = _flash_bwd_inputs(1, 128, 128, 4, 2, D, cuda, dtype, True)
+    names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
+    before = ops.launch_counts()
+    flash_mod.flash_attention_bwd_cuda(*args, True)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in names} == \
+        {n: int(n in route) for n in names}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_wgmma_is_bitwise_deterministic(cuda, causal):
+    # each gradient has one owner and fixed sums: two runs agree bit for
+    # bit, in f32 before the cast
+    args = _flash_bwd_inputs(2, 640, 640, 40, 8, 128, cuda, torch.bfloat16,
+                             causal)
+    first = flash_mod._bwd_cuda_as_written(*args, causal)
+    second = flash_mod._bwd_cuda_as_written(*args, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert a.dtype == torch.float32 and torch.equal(a, b), name
+
+
+def test_flash_attention_grads_on_cuda_go_through_the_hopper_kernels(
+        cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    q, k, v, _, _, do = _flash_bwd_inputs(2, 256, 256, 8, 2, 128, cuda,
+                                          torch.bfloat16, True)
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    exp = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    got32 = flash_mod._bwd_cuda_as_written(q, k, v, o, lse, do, True)
+    monkeypatch.setattr(flash_mod, "flash_attention_fwd_plain", refuse)
+    monkeypatch.setattr(flash_mod, "flash_attention_bwd_plain", refuse)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    names = ("flash_attention_wgmma", "flash_attention_bwd_dq_wgmma",
+             "flash_attention_bwd_dkv_wgmma", "flash_attention",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v)
+    out.backward(do)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in names} == \
+        {n: int("wgmma" in n) for n in names}
+    # autograd hands back the wrapper's casts of the f32 gradients
+    for name, g, a, e in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad),
+                             got32, exp):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, a.bfloat16()), \
+            name
+        assert _over_limit(g, e) <= 1, name
 
 def test_flash_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, o, lse, do = _flash_bwd_inputs(1, 64, 64, 4, 2, 32, cuda,

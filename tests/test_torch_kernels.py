@@ -166,6 +166,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                    "flash_attention_wgmma": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
+                                   "flash_attention_bwd_dq_wgmma": 0,
+                                   "flash_attention_bwd_dkv_wgmma": 0,
                                    "embedding_bag": 0}
 
 
