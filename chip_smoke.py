@@ -12,7 +12,11 @@ Phases, each of which exits non-zero on failure:
               nvcc, one process per source, in parallel; each Hopper flash
               kernel (the forward, the backward's dq and dk/dv), at each
               head dim, must show no spills in ``ptxas -v`` and HGMMA
-              (wgmma) in its SASS (``cuobjdump -sass``).
+              (wgmma) in its SASS (``cuobjdump -sass``); each bus
+              attention kernel (forward and backward, every dtype, head
+              dim and count of 8-key tiles) no spills and its products
+              on the tensor cores, HMMA.1688.F32.TF32 (mma.sync m16n8k8
+              in tf32) in its SASS.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -108,6 +112,16 @@ Phases, each of which exits non-zero on failure:
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
+              the forward held and timed at the serve chunk, M=256, and
+              at the train step's shape, M=4096, the backward at the
+              latter, and both held (not timed) at every bucket S of the
+              fit's batcher, M=64; each launched twice on the same
+              inputs, which must agree bit for bit, beside a control
+              that must miss its limit: plain with the bus columns' v
+              zeroed; every one of these launches checked to be on the
+              tensor-core pair; the SIMT pair, the route for shapes the
+              tensor-core kernels do not take, held and timed the same
+              way at S=64, its ``launches`` 0 on the main paths,
               for flash its causal forward and, for the flash backward,
               its causal GQA backward on the same data, for the
               EmbeddingBag ``F.embedding_bag``). The flash forward on
@@ -175,8 +189,17 @@ FLASH_FWD = ("flash_attention", "flash_attention_wgmma")
 FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
              "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
 FLASH_KERNELS = FLASH_FWD + FLASH_BWD
-# the Hopper kernels' libraries, whose ptxas and SASS the setup checks
+# the Hopper kernels' libraries, whose ptxas and SASS the setup checks:
+# the flash kernels' (wgmma) and the bus attention kernels' (mma.sync in
+# tf32: 2 kernels x 3 dtypes x 4 head dims x 4 counts of 8-key tiles)
 HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
+BUS_LIB, BUS_INSTANTIATIONS, BUS_MMA = "bus_attention", 96, \
+    "HMMA.1688.F32.TF32"
+# the bus kernels at each of the fit's buckets: news a check (the bucket's
+# own compiled kernel is held to plain; the timed rows stay at S=32); and
+# the segment length at which the SIMT pair is held and timed (PROD's
+# widths, a segment longer than the tensor-core kernels take)
+BUS_BUCKET_M, BUS_SIMT_S = 64, 64
 # LM logits, kernel path against decode or plain, relative to the largest
 # |logit|. In bf16 the paths round at other places (the decode's einsums
 # round to bf16, the kernel accumulates in f32), and at depth 40 with
@@ -322,29 +345,51 @@ def wgmma_kernel(symbol: str):
     return f"{m[1]}<{m[2]}>" if m else None
 
 
-def sass_hgmma(lib) -> dict:
-    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each wgmma
-    kernel instantiation in the built library, by kernel<D>."""
+def bus_kernel(symbol: str):
+    """``bus_{fwd,bwd}_kernel<dtype,D,NT>`` for a mangled bus attention
+    kernel symbol, else None."""
+    import re
+    m = re.search(r"(bus_(?:fwd|bwd)_kernel)I(f|13__nv_bfloat16|6__half)"
+                  r"Li(\d+)ELi(\d+)E", symbol)
+    dtypes = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+    return f"{m[1]}<{dtypes[m[2]]},{m[3]},{m[4]}>" if m else None
+
+
+def sass_count(lib, namer=wgmma_kernel, instr: str = "HGMMA") -> dict:
+    """``instr`` instructions in the SASS (``cuobjdump -sass``) of each
+    kernel instantiation ``namer`` names in the built library (by default
+    HGMMA in each wgmma kernel<D>)."""
     from repro_torch.kernels._build import find_nvcc
     cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    return {wgmma_kernel(fn.split(None, 1)[0]): fn.count("HGMMA")
+    return {namer(fn.split(None, 1)[0]): fn.count(instr)
             for fn in sass.split("Function : ")[1:]
-            if wgmma_kernel(fn.split(None, 1)[0])}
+            if namer(fn.split(None, 1)[0])}
 
 
-def ptxas_by_kernel(log: str) -> dict:
-    """``ptxas -v``'s spill and register lines of each wgmma kernel
-    instantiation in a build log, by kernel<D>."""
+def ptxas_by_kernel(log: str, namer=wgmma_kernel) -> dict:
+    """``ptxas -v``'s spill and register lines of each kernel
+    instantiation ``namer`` names in a build log (by default each wgmma
+    kernel<D>)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = wgmma_kernel(ln)
+            name = namer(ln)
         elif name and ("spill" in ln or "registers" in ln):
             out.setdefault(name, []).append(ln.strip().replace(
                 "ptxas info    : ", ""))
     return out
+
+
+def check_no_spills(name: str, ptxas: dict):
+    """Every instantiation in ``ptxas`` reports 0 bytes of spills."""
+    lines = [ln for kern in ptxas.values() for ln in kern]
+    spills = [ln for ln in lines if "spill" in ln
+              and ln != "0 bytes stack frame, 0 bytes spill stores, "
+                        "0 bytes spill loads"]
+    check(sum("spill" in ln for ln in lines) == len(ptxas) > 0
+          and not spills, f"{name}: ptxas reports spills: {ptxas}")
 
 
 def bwd_f64(q, k, v, o, lse, do):
@@ -430,6 +475,154 @@ def bwd_hopper_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
              for n in ("dq", "dk", "dv"))
     check(ok, f"flash_attention_bwd {label} differs from plain: {e}")
     return e
+
+
+def bus_zeroed(v, S: int):
+    """v with the bus columns' values zeroed (keys S..Sk): the control the
+    bus checks must catch (a kernel that lost the bus keys)."""
+    v = v.clone()
+    v[:, :, S:] = 0
+    return v
+
+
+def bus_inputs(torch, g, M: int, K: int, S: int, H: int, D: int, dev):
+    """q, k, v, kv_mask and do for M news at segment length S (Sk = S + K),
+    f32 from ``g``; a quarter of the keys masked, key 0 kept, and segment
+    2 of every 7th news all masked."""
+    Sk = S + K
+    q = torch.randn(M, K, S, H, D, generator=g, device=dev)
+    k = torch.randn(M, K, Sk, H, D, generator=g, device=dev)
+    v = torch.randn(M, K, Sk, H, D, generator=g, device=dev)
+    do = torch.randn(M, K, S, H, D, generator=g, device=dev)
+    kv_mask = torch.rand(M, K, Sk, generator=g, device=dev) < 0.75
+    kv_mask[:, :, 0] = True
+    kv_mask[::7, 2] = False                  # all-masked segments
+    return q, k, v, kv_mask, do
+
+
+def bus_fwd_checks(torch, q, k, v, kv_mask) -> dict:
+    """The bus forward held to plain within TOL_BUS, two launches bit for
+    bit, and the zeroed-bus-v control over the limit."""
+    from repro_torch.kernels.bus_attention import (bus_attention_cuda,
+                                                   bus_attention_plain)
+    M, K, S = q.shape[:3]
+    at = f"M={M}, S={S}"
+    out = bus_attention_cuda(q, k, v, kv_mask)
+    err = float((out - bus_attention_plain(q, k, v, kv_mask)).abs().max())
+    same = torch.equal(out, bus_attention_cuda(q, k, v, kv_mask))
+    ctl = float((out - bus_attention_plain(q, k, bus_zeroed(v, S),
+                                           kv_mask)).abs().max())
+    check(err <= TOL_BUS, f"bus_attention at {at} differs from plain by "
+          f"{err}")
+    check(same, f"two bus_attention launches at {at} differ")
+    check(ctl > TOL_BUS, f"the zeroed-bus-v control passes the forward's "
+          f"limit at {at} ({ctl} <= {TOL_BUS})")
+    return {"max_abs_err": err, "bitwise_repeat": same,
+            "zeroed_bus_v_control_err": ctl}
+
+
+def bus_bwd_checks(torch, q, k, v, kv_mask, do) -> dict:
+    """The bus backward held to plain within TOL_BWD, dv nonzero on the
+    all-masked segments, two launches bit for bit, and the zeroed-bus-v
+    control over the limit."""
+    from repro_torch.kernels.bus_attention import (bus_attention_bwd_cuda,
+                                                   bus_attention_bwd_plain)
+    M, K, S = q.shape[:3]
+    at = f"M={M}, S={S}"
+    got = bus_attention_bwd_cuda(q, k, v, kv_mask, do)
+    ref = bus_attention_bwd_plain(q, k, v, kv_mask, do)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    del ref
+    check(err <= TOL_BWD, f"bus_attention_bwd at {at} differs from plain by "
+          f"{err}")
+    check(float(got[2][::7, 2].abs().max()) > 0,
+          f"dv is zero on an all-masked segment at {at}")
+    again = bus_attention_bwd_cuda(q, k, v, kv_mask, do)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    ctl = max(float((a - b).abs().max()) for a, b in zip(
+        got, bus_attention_bwd_plain(q, k, bus_zeroed(v, S), kv_mask, do)))
+    check(same, f"two bus_attention_bwd launches at {at} differ")
+    check(ctl > TOL_BWD, f"the zeroed-bus-v control passes the backward's "
+          f"limit at {at} ({ctl} <= {TOL_BWD})")
+    return {"max_abs_err": err, "bitwise_repeat": same,
+            "zeroed_bus_v_control_err": ctl}
+
+
+def on_route(ops, name: str, fn):
+    """``fn()``'s result, after checking that its bus launches all went to
+    kernel ``name`` (one of ``bus_attention.ROUTES``) and the others got
+    none."""
+    from repro_torch.kernels.bus_attention import ROUTES
+    before = ops.launch_counts()
+    res = fn()
+    after = ops.launch_counts()
+    moved = {n: after[n] - before[n] for n in ROUTES}
+    check(moved[name] > 0 and not any(c for n, c in moved.items()
+                                      if n != name),
+          f"bus launches went {moved}, expected all on {name}")
+    return res
+
+
+def bus_sdpa_inputs(torch, q, k, v, kv_mask, grad: bool = False):
+    """q/k/v as SDPA's [M*K, H, S|Sk, D] and the mask as an additive -1e30
+    bias: the same attention for the library call."""
+    M, K, S, H, D = q.shape
+    Sk = k.shape[2]
+    qs, ks, vs = (t.permute(0, 1, 3, 2, 4).reshape(M * K, H, -1, D)
+                  .contiguous().requires_grad_(grad) for t in (q, k, v))
+    add = torch.zeros(M * K, 1, 1, Sk, device=q.device).masked_fill(
+        ~kv_mask.reshape(M * K, 1, 1, Sk), -1e30)
+    return qs, ks, vs, add
+
+
+def bus_fwd_row(torch, q, k, v, kv_mask, iters: int = 20) -> dict:
+    """The bus forward on q/k/v/mask (``bus_fwd_checks``); its time beside
+    plain's, its bound and one SDPA call (additive -1e30 mask)."""
+    from repro_torch.kernels.bus_attention import (bus_attention_cuda,
+                                                   bus_attention_plain)
+    M, K, S, H, D = q.shape
+    Sk = k.shape[2]
+    row = bus_fwd_checks(torch, q, k, v, kv_mask)
+    qs, ks, vs, add = bus_sdpa_inputs(torch, q, k, v, kv_mask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b_ms, b_by = bound_ms(nbytes(q, k, v, kv_mask, q),
+                          2 * 2 * M * K * H * S * Sk * D)
+    return {**row,
+            "ms": time_ms(torch, lambda: bus_attention_cuda(q, k, v,
+                                                            kv_mask), iters),
+            "plain_ms": time_ms(torch, lambda: bus_attention_plain(
+                q, k, v, kv_mask), iters),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                      attn_mask=add), iters),
+            "shape": [M, K, S, Sk, H, D], "dtype": str(q.dtype)[6:]}
+
+
+def bus_bwd_row(torch, q, k, v, kv_mask, do, iters: int = 10) -> dict:
+    """The bus backward on q/k/v/mask/do (``bus_bwd_checks``); its time
+    beside plain's, its bound and SDPA's backward alone on the same data
+    (additive -1e30 mask)."""
+    from repro_torch.kernels.bus_attention import (bus_attention_bwd_cuda,
+                                                   bus_attention_bwd_plain)
+    M, K, S, H, D = q.shape
+    Sk = k.shape[2]
+    row = bus_bwd_checks(torch, q, k, v, kv_mask, do)
+    qs, ks, vs, add = bus_sdpa_inputs(torch, q, k, v, kv_mask, grad=True)
+    dos = do.permute(0, 1, 3, 2, 4).reshape(M * K, H, S, D).contiguous()
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=add)
+    b_ms, b_by = bound_ms(nbytes(q, k, v, kv_mask, do) + nbytes(q, k, v),
+                          5 * 2 * M * K * H * S * Sk * D)
+    return {**row,
+            "ms": time_ms(torch, lambda: bus_attention_bwd_cuda(
+                q, k, v, kv_mask, do), iters),
+            "plain_ms": time_ms(torch, lambda: bus_attention_bwd_plain(
+                q, k, v, kv_mask, do), max(iters // 2, 1)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters),
+            "shape": [M, K, S, Sk, H, D], "dtype": str(q.dtype)[6:]}
 
 
 def latencies_ms(torch, fn, n: int, warmup: int = 3) -> list:
@@ -1064,10 +1257,7 @@ def main() -> int:
     from repro_torch import core, data, serving, training
     from repro_torch.configs import PROD, lm_family
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bus_attention import (bus_attention_bwd_cuda,
-                                                   bus_attention_bwd_plain,
-                                                   bus_attention_cuda,
-                                                   bus_attention_plain)
+    from repro_torch.kernels.bus_attention import bus_route
     from repro_torch.kernels.flash_attention import (
         _bwd_cuda_as_written, _bwd_plain_f32, flash_attention_bwd_cuda,
         flash_attention_bwd_plain, flash_attention_cuda,
@@ -1097,7 +1287,7 @@ def main() -> int:
     # a library already under build/ is loaded as it is, with the .log its
     # build left (the same source and flags, by the file name's hash)
     built_now = {name: not hopper_library(name).exists()
-                 for name in HOPPER_LIBS}
+                 for name in HOPPER_LIBS + (BUS_LIB,)}
     t0 = time.perf_counter()
     logs = ops.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -1111,19 +1301,26 @@ def main() -> int:
     report["hopper"] = {}
     for name in HOPPER_LIBS:
         ptxas = ptxas_by_kernel(logs[name])
-        lines = [ln for kern in ptxas.values() for ln in kern]
-        spills = [ln for ln in lines if "spill" in ln
-                  and ln != "0 bytes stack frame, 0 bytes spill stores, "
-                            "0 bytes spill loads"]
-        check(sum("spill" in ln for ln in lines) == len(ptxas) > 0
-              and not spills, f"{name}: ptxas reports spills: {ptxas}")
-        hgmma = sass_hgmma(hopper_library(name))
+        check_no_spills(name, ptxas)
+        hgmma = sass_count(hopper_library(name))
         report["hopper"][name] = {"ptxas": ptxas, "sass_hgmma": hgmma,
                                   "ptxas_built_this_run": built_now[name]}
         print(f"{name}: ptxas {ptxas}; HGMMA per function {hgmma}",
               flush=True)
         check(set(hgmma) == set(ptxas) and all(hgmma.values()),
               f"{name}: a wgmma kernel's SASS has no HGMMA: {hgmma}")
+    # the bus attention kernels: no spills, and the products on the
+    # tensor cores (mma.sync m16n8k8 tf32 is HMMA.1688.F32.TF32 in SASS)
+    ptxas = ptxas_by_kernel(logs[BUS_LIB], bus_kernel)
+    check_no_spills(BUS_LIB, ptxas)
+    hmma = sass_count(hopper_library(BUS_LIB), bus_kernel, BUS_MMA)
+    report["hopper"][BUS_LIB] = {"ptxas": ptxas, "sass_hmma_tf32": hmma,
+                                 "ptxas_built_this_run": built_now[BUS_LIB]}
+    print(f"{BUS_LIB}: ptxas {ptxas}; {BUS_MMA} per function {hmma}",
+          flush=True)
+    check(set(hmma) == set(ptxas) and len(hmma) == BUS_INSTANTIATIONS
+          and all(hmma.values()),
+          f"{BUS_LIB}: a kernel's SASS has no {BUS_MMA}: {hmma}")
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -1174,6 +1371,8 @@ def main() -> int:
     check(launches["bus_attention"] == cfg.plm.n_layers * chunks,
           f"bus_attention launched {launches['bus_attention']} times, "
           f"expected {cfg.plm.n_layers * chunks}")
+    check(launches["bus_attention_simt"] == 0,
+          "the encode sent a bus launch to the SIMT kernel")
     check(launches["pq_lut_scores"] > 0, "pq_lut_scores never launched")
     check(0.0 < recall <= 1.0, f"recall@10 {recall}")
 
@@ -1284,6 +1483,9 @@ def main() -> int:
     check(train_launches["bus_attention_bwd"] == L * TRAIN_STEPS,
           f"bus_attention_bwd launched {train_launches['bus_attention_bwd']}"
           f" times, expected {L * TRAIN_STEPS}")
+    check(train_launches["bus_attention_simt"] == 0
+          and train_launches["bus_attention_bwd_simt"] == 0,
+          "training sent a bus launch to the SIMT kernels")
 
     # steady state: synchronised steps on one top-bucket batch
     top = max(lcfg.buckets)
@@ -1567,29 +1769,15 @@ def main() -> int:
     # ---------------------------------------------------------- kernels
     kernels = []
     g = torch.Generator(device=dev).manual_seed(1)
-    M, K, S, H, D = 256, cfg.plm.n_segments, cfg.plm.seg_len, \
-        cfg.plm.n_heads, cfg.plm.d_model // cfg.plm.n_heads
-    Sk = S + K
-    q = torch.randn(M, K, S, H, D, generator=g, device=dev)
-    k = torch.randn(M, K, Sk, H, D, generator=g, device=dev)
-    v = torch.randn(M, K, Sk, H, D, generator=g, device=dev)
-    kv_mask = torch.rand(M, K, Sk, generator=g, device=dev) < 0.75
-    kv_mask[:, :, 0] = True
-    kv_mask[::7, 2] = False                  # all-masked segments
-    out = bus_attention_cuda(q, k, v, kv_mask)
-    ref = bus_attention_plain(q, k, v, kv_mask)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    check(err <= TOL_BUS, f"bus_attention differs from plain by {err}")
-    # yardstick: one SDPA call on the same data, additive -1e30 mask
-    qs = q.permute(0, 1, 3, 2, 4).reshape(M * K, H, S, D).contiguous()
-    ks = k.permute(0, 1, 3, 2, 4).reshape(M * K, H, Sk, D).contiguous()
-    vs = v.permute(0, 1, 3, 2, 4).reshape(M * K, H, Sk, D).contiguous()
-    add = torch.zeros(M * K, 1, 1, Sk, device=dev).masked_fill(
-        ~kv_mask.reshape(M * K, 1, 1, Sk), -1e30)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    b_ms, b_by = bound_ms(nbytes(q, k, v, kv_mask, out),
-                          2 * 2 * M * K * H * S * Sk * D)
+    K, S, H, D = cfg.plm.n_segments, cfg.plm.seg_len, cfg.plm.n_heads, \
+        cfg.plm.d_model // cfg.plm.n_heads
+    tc_fwd, tc_bwd = bus_route(S, S + K, D)
+    check((tc_fwd, tc_bwd) == ("bus_attention", "bus_attention_bwd"),
+          f"the PROD bus shape is routed to {tc_fwd}, {tc_bwd}")
+    # the forward at the serve chunk (M=256 news)
+    q, k, v, kv_mask, _ = bus_inputs(torch, g, 256, K, S, H, D, dev)
+    fwd_row = on_route(ops, tc_fwd,
+                       lambda: bus_fwd_row(torch, q, k, v, kv_mask))
     kernels.append({
         "name": "bus_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
@@ -1598,40 +1786,12 @@ def main() -> int:
         + train_launches["bus_attention"],
         "launches_by_path": {"serve": launches["bus_attention"],
                              "train": train_launches["bus_attention"]},
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: bus_attention_cuda(q, k, v, kv_mask)),
-        "plain_ms": time_ms(torch,
-                            lambda: bus_attention_plain(q, k, v, kv_mask)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=add)),
-        "shape": [M, K, S, Sk, H, D], "dtype": "float32"})
+        **fwd_row})
+    del q, k, v, kv_mask
 
     # the backward at the training step's shape: E=4096 news, S=32
-    Mb = cfg.cache.encode_budget
-    qb = torch.randn(Mb, K, S, H, D, generator=g, device=dev)
-    kb = torch.randn(Mb, K, Sk, H, D, generator=g, device=dev)
-    vb = torch.randn(Mb, K, Sk, H, D, generator=g, device=dev)
-    dob = torch.randn(Mb, K, S, H, D, generator=g, device=dev)
-    mb = torch.rand(Mb, K, Sk, generator=g, device=dev) < 0.75
-    mb[:, :, 0] = True
-    mb[::7, 2] = False                       # all-masked segments
-    got = bus_attention_bwd_cuda(qb, kb, vb, mb, dob)
-    ref = bus_attention_bwd_plain(qb, kb, vb, mb, dob)
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-    check(err <= TOL_BWD, f"bus_attention_bwd differs from plain by {err}")
-    check(float(got[2][::7, 2].abs().max()) > 0,
-          "dv is zero on an all-masked segment")
-    del got, ref
-    # yardstick: the backward alone of SDPA on the same data (-1e30 mask)
-    qs, ks, vs = (t.permute(0, 1, 3, 2, 4).reshape(Mb * K, H, -1, D)
-                  .contiguous().requires_grad_() for t in (qb, kb, vb))
-    dos = dob.permute(0, 1, 3, 2, 4).reshape(Mb * K, H, S, D).contiguous()
-    addb = torch.zeros(Mb * K, 1, 1, Sk, device=dev).masked_fill(
-        ~mb.reshape(Mb * K, 1, 1, Sk), -1e30)
-    o_sdpa = sdpa(qs, ks, vs, attn_mask=addb)
-    b_ms, b_by = bound_ms(nbytes(qb, kb, vb, mb, dob) + nbytes(qb, kb, vb),
-                          5 * 2 * Mb * K * H * S * Sk * D)
+    qb, kb, vb, mb, dob = bus_inputs(torch, g, cfg.cache.encode_budget, K,
+                                     S, H, D, dev)
     kernels.append({
         "name": "bus_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
@@ -1639,27 +1799,61 @@ def main() -> int:
         "launches": train_launches["bus_attention_bwd"],
         "launches_by_path": {"serve": launches["bus_attention_bwd"],
                              "train": train_launches["bus_attention_bwd"]},
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: bus_attention_bwd_cuda(qb, kb, vb, mb,
-                                                            dob), iters=10),
-        "plain_ms": time_ms(torch, lambda: bus_attention_bwd_plain(
-            qb, kb, vb, mb, dob), iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-            o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=10),
-        "shape": [Mb, K, S, Sk, H, D], "dtype": "float32"})
-    # the bus kernels' share of a timed train step (24 forward launches
-    # with remat, 12 backward) at the step's shape
-    fwd_ms = time_ms(torch, lambda: bus_attention_cuda(qb, kb, vb, mb),
-                     iters=10)
+        **on_route(ops, tc_bwd, lambda: bus_bwd_row(torch, qb, kb, vb, mb,
+                                                    dob))})
+    # the forward at the step's shape (a step launches it 24 times with
+    # remat), held and timed as at the serve chunk
+    kernels[-2]["train_shape"] = on_route(
+        ops, tc_fwd, lambda: bus_fwd_row(torch, qb, kb, vb, mb, iters=10))
+    fwd_ms = kernels[-2]["train_shape"]["ms"]
     report["train"]["bus_kernels_ms_per_step"] = (
         2 * L * fwd_ms + L * kernels[-1]["ms"])
     report["train"]["bus_fwd_ms_at_step_shape"] = fwd_ms
     report["train"]["bus_kernels_share_of_step"] = (
         report["train"]["bus_kernels_ms_per_step"] / 1e3
         / report["train"]["s_per_step"])
-    del qb, kb, vb, dob, qs, ks, vs, dos, o_sdpa
+    del qb, kb, vb, dob, mb
 
+    # every bucket the trainer's fit draws (S in lcfg.buckets, each its own
+    # compiled count of key tiles and row blocks), forward and backward at
+    # the production widths, held as at S=32
+    for Sq in lcfg.buckets:
+        check(bus_route(Sq, Sq + K, D) == (tc_fwd, tc_bwd),
+              f"bucket S={Sq} is not routed to the tensor-core kernels")
+        qq, kq, vq, mq, doq = bus_inputs(torch, g, BUS_BUCKET_M, K, Sq, H,
+                                         D, dev)
+        for row, name, fn in (
+                (kernels[-2], tc_fwd,
+                 lambda: bus_fwd_checks(torch, qq, kq, vq, mq)),
+                (kernels[-1], tc_bwd,
+                 lambda: bus_bwd_checks(torch, qq, kq, vq, mq, doq))):
+            row.setdefault("buckets", {})[str(Sq)] = {
+                **on_route(ops, name, fn),
+                "shape": [BUS_BUCKET_M, K, Sq, Sq + K, H, D]}
+        del qq, kq, vq, mq, doq
+
+    # the SIMT pair: the route for the shapes the tensor-core kernels do
+    # not take (no main path sends one: their launches above are 0), held
+    # and timed at the production widths with a longer segment
+    simt_fwd, simt_bwd = bus_route(BUS_SIMT_S, BUS_SIMT_S + K, D)
+    qs_, ks_, vs_, ms_, dos_ = bus_inputs(torch, g, 256, K, BUS_SIMT_S, H,
+                                          D, dev)
+    for name, sym, replaces, fn in (
+            (simt_fwd, "bus_attention", ":92",
+             lambda: bus_fwd_row(torch, qs_, ks_, vs_, ms_)),
+            (simt_bwd, "bus_attention_bwd", ":115",
+             lambda: bus_bwd_row(torch, qs_, ks_, vs_, ms_, dos_))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bus_attention_simt.cu",
+            "replaces": f"src/repro/kernels/bus_attention.py{replaces}",
+            "launches": launches[name] + train_launches[name],
+            "launches_by_path": {"serve": launches[name],
+                                 "train": train_launches[name]},
+            **on_route(ops, name, fn)})
+    del qs_, ks_, vs_, ms_, dos_
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     # the PQ scan on the main path's own inputs: the query batch's LUT and
     # codes gathered off the built snapshot above (N = nprobe * cap)
     n_sub, n_codes = snap.pq_centers.shape[:2]

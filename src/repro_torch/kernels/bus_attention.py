@@ -8,6 +8,14 @@ softmax is max-subtracted in f32, so a segment whose keys are all masked
 averages v uniformly over its Sk keys. The backward recomputes the
 softmax from q/k/v with the forward's arithmetic; the mask gets no
 gradient.
+
+Two CUDA routes, chosen by ``bus_route`` from the shape: the tensor-core
+kernels (``csrc/bus_attention.cu``, products in 3xTF32) take head dims in
+``KERNEL_HEAD_DIMS``, S <= 32 queries and Sk <= 40 keys a segment (every
+bucket of the SpeedyFeed configs: S in {8, 16, 24, 32}, Sk = S + 3) with
+q/k/v/do on 16-byte-aligned bases; the SIMT kernels
+(``csrc/bus_attention_simt.cu``) take any other shape whose tile fits in
+a block's shared memory. Anything else raises.
 """
 from __future__ import annotations
 
@@ -21,13 +29,23 @@ NEG_INF = -1e30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+             _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _P]
 KERNEL = CudaKernel("bus_attention", "bus_attention.cu", {
-    "bus_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.c_float, _P],
-    "bus_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, ctypes.c_float, _P],
-})
+    "bus_attention_fwd": _FWD_ARGS, "bus_attention_bwd": _BWD_ARGS})
+KERNEL_SIMT = CudaKernel("bus_attention_simt", "bus_attention_simt.cu", {
+    "bus_attention_fwd_simt": _FWD_ARGS, "bus_attention_bwd_simt": _BWD_ARGS})
+# kernel name, as ops.KERNELS counts its launches -> (library, C symbol)
+ROUTES = {"bus_attention": (KERNEL, "bus_attention_fwd"),
+          "bus_attention_bwd": (KERNEL, "bus_attention_bwd"),
+          "bus_attention_simt": (KERNEL_SIMT, "bus_attention_fwd_simt"),
+          "bus_attention_bwd_simt": (KERNEL_SIMT, "bus_attention_bwd_simt")}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_MAX_S, KERNEL_MAX_SK = 32, 40
+SMEM_BYTES = 232448            # shared memory a block can have on an H100
 
 
 def bus_attention_plain(q, k, v, kv_mask):
@@ -59,6 +77,29 @@ def bus_attention_bwd_plain(q, k, v, kv_mask, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bus_route(S: int, Sk: int, D: int) -> tuple:
+    """Which CUDA kernels take a segment of S queries over Sk keys at head
+    dim D: the names their forward and backward launches count under in
+    ``ops.KERNELS`` (``ROUTES``). The tensor-core pair
+    (``"bus_attention"``, ``"bus_attention_bwd"``) for one or two m16 row
+    blocks of queries, at most five 8-key tiles and a head dim it is
+    built for; else the SIMT pair (``"bus_attention_simt"``,
+    ``"bus_attention_bwd_simt"``)."""
+    if D in KERNEL_HEAD_DIMS and 1 <= S <= KERNEL_MAX_S \
+            and 1 <= Sk <= KERNEL_MAX_SK:
+        return "bus_attention", "bus_attention_bwd"
+    return "bus_attention_simt", "bus_attention_bwd_simt"
+
+
+def simt_smem_bytes(S: int, Sk: int, D: int, backward: bool) -> int:
+    """Shared memory a SIMT block needs for one tile: q (and do), k and v
+    (k, and in the backward v, padded by a column) and the [S, Sk]
+    probabilities (and ds) in f32, plus the mask bytes."""
+    n = 2 if backward else 1
+    pad = D + 1 if backward else D
+    return 4 * (n * S * D + Sk * (D + 1) + Sk * pad + n * S * Sk) + Sk
+
+
 def _check(q, k, v, kv_mask, *more):
     """Validate what the kernels take; returns (M, K, S, Sk, H, D)."""
     check_device(q)
@@ -83,38 +124,55 @@ def _check(q, k, v, kv_mask, *more):
     return M, K, S, Sk, H, D
 
 
+def _route(name, S, Sk, D, backward, tensors):
+    """The library and C symbol of the route's kernel ``name`` (from
+    ``bus_route``), after what that kernel needs of its inputs: 16-byte
+    aligned bases on the tensor-core route, a tile that fits in shared
+    memory on the SIMT one."""
+    if name.endswith("_simt"):
+        smem = simt_smem_bytes(S, Sk, D, backward)
+        if smem > SMEM_BYTES:
+            raise ValueError(f"bus attention: a SIMT tile at S={S}, Sk={Sk}, "
+                             f"D={D} needs {smem} bytes of shared memory")
+    else:
+        for tname, t in tensors:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{tname} is not 16-byte aligned (the "
+                                 f"tensor-core kernels copy rows 16 bytes "
+                                 f"at a time)")
+    return ROUTES[name]
+
+
 def bus_attention_cuda(q, k, v, kv_mask):
-    """Launch the CUDA forward; same contract as ``bus_attention_plain``.
-    Raises on anything the kernel does not take."""
+    """Launch the CUDA forward that ``bus_route`` picks; same contract as
+    ``bus_attention_plain``. Raises on anything the kernel does not take."""
     M, K, S, Sk, H, D = _check(q, k, v, kv_mask)
-    smem = 4 * (S * D + Sk * (D + 1) + Sk * D + S * Sk) + Sk
-    if smem > 232448:
-        raise ValueError(f"tile needs {smem} bytes of shared memory")
+    lib, sym = _route(bus_route(S, Sk, D)[0], S, Sk, D, False,
+                      (("q", q), ("k", k), ("v", v)))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    KERNEL.launch("bus_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), kv_mask.data_ptr(), o.data_ptr(), M, K, S, Sk,
-                  H, D, _DTYPES[q.dtype], float(D ** -0.5))
+    lib.launch(sym, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               kv_mask.data_ptr(), o.data_ptr(), M, K, S, Sk, H, D,
+               _DTYPES[q.dtype], float(D ** -0.5))
     return o
 
 
 def bus_attention_bwd_cuda(q, k, v, kv_mask, do):
-    """Launch the CUDA backward; same contract as
+    """Launch the CUDA backward that ``bus_route`` picks; same contract as
     ``bus_attention_bwd_plain``. Raises on anything the kernel does not
     take."""
     M, K, S, Sk, H, D = _check(q, k, v, kv_mask, ("do", do))
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must be {q.dtype} {tuple(q.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
-    smem = 4 * (2 * S * D + 2 * Sk * (D + 1) + 2 * S * Sk) + Sk
-    if smem > 232448:
-        raise ValueError(f"tile needs {smem} bytes of shared memory")
+    lib, sym = _route(bus_route(S, Sk, D)[1], S, Sk, D, True,
+                      (("q", q), ("k", k), ("v", v), ("do", do)))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    KERNEL.launch("bus_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), kv_mask.data_ptr(), do.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), M, K, S, Sk,
-                  H, D, _DTYPES[q.dtype], float(D ** -0.5))
+    lib.launch(sym, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               kv_mask.data_ptr(), do.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), M, K, S, Sk, H, D,
+               _DTYPES[q.dtype], float(D ** -0.5))
     return dq, dk, dv

@@ -24,8 +24,7 @@ from . import pq_scoring as _pq
 from ._build import build
 
 # kernel name -> (library, C symbol whose launches it counts)
-KERNELS = {"bus_attention": (_bus.KERNEL, "bus_attention_fwd"),
-           "bus_attention_bwd": (_bus.KERNEL, "bus_attention_bwd"),
+KERNELS = {**_bus.ROUTES,
            "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
            "flash_attention": (_flash.KERNEL, "flash_attention_fwd"),
            "flash_attention_wgmma": (_flash.KERNEL_WGMMA,

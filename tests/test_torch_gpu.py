@@ -22,7 +22,7 @@ from repro_torch.kernels import pq_scoring as pq_mod  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 BUS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 # the Hopper backward writes f32 gradients, held before the wrapper's cast
 # within 1e-4 of each plain f32 gradient's largest magnitude (the f32
 # limit above), beside the element-wise bf16 limit on the casts
@@ -107,6 +107,115 @@ def test_bus_attention_bwd_cuda_matches_plain(cuda, shape, dtype):
         assert float((a.float() - b.float()).abs().max()) <= BWD_TOL[dtype]
     dv = got[2].float()
     assert float(dv[::3, shape[1] - 1].abs().max()) > 0     # uniform p
+
+
+@pytest.mark.parametrize("S", [8, 16, 24, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bus_kernels_at_every_bucket_match_plain(cuda, S, dtype):
+    # the DynamicBatcher's buckets at the production head dim, each on the
+    # tensor-core kernels (one launch of each), an all-masked segment in
+    q, k, v, mask = _bus(33, 3, S, 12, 64, cuda, dtype, seed=S)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(S + 1), device=cuda).to(dtype)
+    before = ops.launch_counts()
+    o = bus_mod.bus_attention_cuda(q, k, v, mask)
+    got = bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["bus_attention"] == before["bus_attention"] + 1
+    assert after["bus_attention_bwd"] == before["bus_attention_bwd"] + 1
+    exp = bus_mod.bus_attention_plain(q, k, v, mask)
+    assert o.dtype == dtype
+    assert float((o.float() - exp.float()).abs().max()) <= BUS_TOL[dtype]
+    for a, b in zip(got, bus_mod.bus_attention_bwd_plain(q, k, v, mask, do)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= BWD_TOL[dtype]
+    assert float(got[2][::3, 2].float().abs().max()) > 0    # uniform p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bus_kernels_are_bitwise_deterministic(cuda, dtype):
+    # no atomics: each tile owns its outputs, so two launches agree
+    q, k, v, mask = _bus(64, 3, 32, 12, 64, cuda, dtype)
+    do = torch.randn_like(q)
+    assert torch.equal(bus_mod.bus_attention_cuda(q, k, v, mask),
+                       bus_mod.bus_attention_cuda(q, k, v, mask))
+    for a, b in zip(bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do),
+                    bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [8, 32])
+def test_bus_checks_catch_zeroed_bus_columns(cuda, S):
+    # the control: plain with the bus columns' v zeroed (a kernel that lost
+    # the bus keys' values) misses both limits against the kernels
+    q, k, v, mask = _bus(64, 3, S, 12, 64, cuda)
+    do = torch.randn_like(q)
+    v0 = v.clone()
+    v0[:, :, S:] = 0
+    o = bus_mod.bus_attention_cuda(q, k, v, mask)
+    assert float((o - bus_mod.bus_attention_plain(q, k, v0, mask))
+                 .abs().max()) > BUS_TOL[torch.float32]
+    got = bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)
+    ctl = bus_mod.bus_attention_bwd_plain(q, k, v0, mask, do)
+    assert max(float((a - b).abs().max()) for a, b in zip(got, ctl)) \
+        > BWD_TOL[torch.float32]
+
+
+def test_bus_wrappers_refuse_what_the_tensor_core_kernels_do_not_take(
+        cuda):
+    # a head dim or S the tensor-core kernels do not take goes to the SIMT
+    # pair; a misaligned base on the tensor-core route, or a SIMT tile
+    # too large for shared memory, raises
+    for shape in ((2, 3, 8, 2, 48), (2, 3, 40, 2, 64)):     # D=48, S=40
+        q, k, v, mask = _bus(*shape, cuda)
+        before = ops.launch_counts()
+        bus_mod.bus_attention_cuda(q, k, v, mask)
+        bus_mod.bus_attention_bwd_cuda(q, k, v, mask, q)
+        after = ops.launch_counts()
+        assert after["bus_attention_simt"] == before["bus_attention_simt"] + 1
+        assert after["bus_attention_bwd_simt"] == \
+            before["bus_attention_bwd_simt"] + 1
+        assert after["bus_attention"] == before["bus_attention"]
+    q, k, v, mask = _bus(2, 3, 8, 2, 64, cuda)
+    q1 = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    q1.copy_(q)                                          # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bus_mod.bus_attention_cuda(q1, k, v, mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bus_mod.bus_attention_bwd_cuda(q, k, v, mask, q1)
+    q, k, v, mask = _bus(1, 3, 128, 1, 64, cuda)         # S = 128
+    bus_mod.bus_attention_cuda(q, k, v, mask)            # 168 KB: fits
+    with pytest.raises(ValueError, match="shared memory"):
+        bus_mod.bus_attention_bwd_cuda(q, k, v, mask, q)
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 8, 4, 48), (3, 3, 40, 4, 64),
+                                   (4, 9, 32, 4, 64), (2, 3, 64, 2, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bus_simt_route_matches_plain(cuda, shape, dtype):
+    # shapes outside the tensor-core kernels' (D=48, S=40, Sk=41, D=96)
+    # run on the SIMT pair, one launch each, an all-masked segment in
+    S, D = shape[2], shape[4]
+    assert bus_mod.bus_route(S, S + shape[1], D) == (
+        "bus_attention_simt", "bus_attention_bwd_simt")
+    q, k, v, mask = _bus(*shape, cuda, dtype)
+    do = torch.randn_like(q)
+    before = ops.launch_counts()
+    o = bus_mod.bus_attention_cuda(q, k, v, mask)
+    got = bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["bus_attention_simt"] == before["bus_attention_simt"] + 1
+    assert after["bus_attention_bwd_simt"] == \
+        before["bus_attention_bwd_simt"] + 1
+    exp = bus_mod.bus_attention_plain(q, k, v, mask)
+    assert float((o.float() - exp.float()).abs().max()) <= BUS_TOL[dtype]
+    for a, b in zip(got, bus_mod.bus_attention_bwd_plain(q, k, v, mask, do)):
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).abs().max()) <= BWD_TOL[dtype]
 
 
 def test_bus_attention_grad_on_cuda_goes_through_both_kernels(cuda,

@@ -161,6 +161,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                        embedding_bag_plain(table, idx))
     assert ops.launch_counts() == {"bus_attention": 0,
                                    "bus_attention_bwd": 0,
+                                   "bus_attention_simt": 0,
+                                   "bus_attention_bwd_simt": 0,
                                    "pq_lut_scores": 0,
                                    "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
