@@ -16,7 +16,12 @@ Phases, each of which exits non-zero on failure:
               attention kernel (forward and backward, every dtype, head
               dim and count of 8-key tiles) no spills and its products
               on the tensor cores, HMMA.1688.F32.TF32 (mma.sync m16n8k8
-              in tf32) in its SASS.
+              in tf32) in its SASS; the 3xTF32 flash forward (its split
+              and main kernels, D=64 and 128) no spills and tf32 wgmma
+              (HGMMA ... F32.TF32) in each main kernel; the PQ scan's
+              seven kernels no spills, and 16-byte code loads and float4
+              stores (LDG.E.128, STG.E.128) in the tiled kernel's wide
+              instantiations.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -62,7 +67,7 @@ Phases, each of which exits non-zero on failure:
               kernel vs plain on the same input, within TOL_ATTN_BF16),
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit; bf16 goes through the
-              Hopper flash forward, f32 through the SIMT one.
+              Hopper flash forward, f32 through the 3xTF32 one.
   8. lm-train the LM family's training path: Qwen3-14B at full width, 8
               of its 40 layers, bf16 parameters and f32 Adam moments
               (seeded), B=2 at train_4k's S=4,096 (labels the tokens
@@ -73,7 +78,7 @@ Phases, each of which exits non-zero on failure:
               written and every matrix moved, ``count`` 4, and exactly 16
               Hopper flash forward (with the remat recompute), 8 Hopper dq
               and 8 Hopper dk/dv launches per step (the f32 check below:
-              the SIMT forward and backward). One more bf16 step captures
+              the 3xTF32 forward and the SIMT backward). One more bf16 step captures
               layer 0's attention inputs and the dO the loss sends back
               to them (a spy on ``ops.flash_attention`` and a hook on its
               output); the Hopper backward on them, with dO brought to
@@ -124,17 +129,32 @@ Phases, each of which exits non-zero on failure:
               way at S=64, its ``launches`` 0 on the main paths,
               for flash its causal forward and, for the flash backward,
               its causal GQA backward on the same data, for the
-              EmbeddingBag ``F.embedding_bag``). The flash forward on
-              both routes: the SIMT kernel in f32 at S=4,096, the Hopper
-              kernel in bf16 at S=4,096 (Sq = Sk and Sq = S/4), at the
-              prefill shape (the launch held to plain on its first, a
-              middle and its last FLASH_ROWS rows) and timed at the train
-              shape; its bf16 checks are element-wise, each beside a
-              control that must fail them. Every flash forward launch is
-              expected on the route ``forward_route`` picks. The main
-              paths are bf16 at head dim 128, so the SIMT row's
-              ``launches`` is 0; the f32 checks' launches, each counted
-              from 0, stand under ``check_launches``. The flash
+              EmbeddingBag ``F.embedding_bag``). The PQ scan's two
+              kernels (``pq_route``: the tiled one takes the serve path,
+              the general one the other shapes) at the serve path's own
+              inputs (the query batch's LUT and codes off the snapshot,
+              and shared codes) and at two deployment shapes over PROD's
+              1,204,224 news, seeded: IVF (nlist 64, nprobe 16, cap
+              32,768: N = 524,288) and flat (codes shared by 16 queries);
+              at each, both kernels held to plain within TOL_PQ on the
+              codes and on a copy with codes past K (NaN and -inf slots
+              exact), each launched twice (bit for bit), and timed in
+              turns (general, tiled, tiled, general), beside plain, the
+              byte bound and, flat, ``F.embedding_bag`` over offset codes.
+              The flash forward on its three routes: the 3xTF32 kernel in
+              f32 at S=4,096, timed in turns against the SIMT kernel named
+              on the same call; the SIMT kernel on its own route, f32 at
+              head dim 96 (timed) and bf16 at 80; the Hopper kernel in
+              bf16 at S=4,096 (Sq = Sk and Sq = S/4), at the prefill shape
+              (the launch held to plain on its first, a middle and its
+              last FLASH_ROWS rows) and timed at the train shape; the bf16
+              checks are element-wise, each beside a control that must
+              fail them. Every flash forward launch is expected on the
+              route ``forward_route`` picks. The main paths are bf16 at
+              head dim 128, so the 3xTF32 and SIMT rows' ``launches`` are
+              0; the f32 LM and train checks' 3xTF32 launches and the SIMT
+              checks' own, each counted from 0, stand under
+              ``check_launches``. The flash
               backward at the train shape on each route
               (``backward_route``), on that dtype's forward o and lse:
               f32 on the SIMT pair (1e-4 of each gradient's largest);
@@ -181,11 +201,13 @@ TOL_FLASH = {"float32": 2e-4, "bfloat16": 2e-2}   # the JAX tests' own
 RTOL_FLASH_BF16, ATOL_FLASH_BF16 = 2.0 ** -7, 1e-4
 TOL_LSE = 1e-4                   # f32 in both versions, sums reordered
 FLASH_ROWS = 512                 # rows of the S=32,768 launch held to plain
-# the flash forward's two routes (kernels/flash_attention.py:forward_route):
-# the SIMT kernel (f32, and bf16 at other head dims) and the Hopper kernel
-# (bf16 at head dim 64 or 128); then the backward's, by the same rule
-# (backward_route): the SIMT dq and dk/dv kernels, and the Hopper pair
-FLASH_FWD = ("flash_attention", "flash_attention_wgmma")
+# the flash forward's three routes (kernels/flash_attention.py:
+# forward_route): the SIMT kernel (head dims other than 64 and 128), the
+# Hopper kernel (bf16 at 64 or 128) and the 3xTF32 kernel (f32 at 64 or
+# 128); then the backward's (backward_route): the SIMT dq and dk/dv
+# kernels (f32, and bf16 at other head dims), and the Hopper pair
+FLASH_FWD = ("flash_attention", "flash_attention_wgmma",
+             "flash_attention_tf32")
 FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
              "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
 FLASH_KERNELS = FLASH_FWD + FLASH_BWD
@@ -193,6 +215,17 @@ FLASH_KERNELS = FLASH_FWD + FLASH_BWD
 # the flash kernels' (wgmma) and the bus attention kernels' (mma.sync in
 # tf32: 2 kernels x 3 dtypes x 4 head dims x 4 counts of 8-key tiles)
 HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
+# the 3xTF32 flash forward's library (its main kernel's products are tf32
+# wgmma, HGMMA...F32.TF32 in SASS) and the PQ scan's (the tiled kernel's
+# 16-byte code loads and float4 stores, LDG.E.128 and STG.E.128)
+TF32_LIB, TF32_MMA = "flash_attention_tf32", "F32.TF32"
+PQ_LIB, PQ_SASS = "pq_scoring", ("LDG.E.128", "STG.E.128", "LDS")
+# TF32 on the tensor cores, dense; 3xTF32 takes three products an f32 one
+TF32_FLOP_PER_S = 495e12
+# the SIMT forward's own checks, at shapes still on its route: f32 at head
+# dim 96 (timed) and bf16 at head dim 80
+SIMT_CHECKS = (("float32_d96", "float32", 96), ("bfloat16_d80", "bfloat16",
+                                                80))
 BUS_LIB, BUS_INSTANTIATIONS, BUS_MMA = "bus_attention", 96, \
     "HMMA.1688.F32.TF32"
 # the bus kernels at each of the fit's buckets: news a check (the bucket's
@@ -382,6 +415,27 @@ def ptxas_by_kernel(log: str, namer=wgmma_kernel) -> dict:
     return out
 
 
+def tf32_kernel(symbol: str):
+    """``flash_fwd_tf32_kernel<D>`` or ``split_kv_kernel<D>`` for a mangled
+    3xTF32 forward symbol, else None."""
+    import re
+    m = re.search(r"(flash_fwd_tf32_kernel|split_kv_kernel)ILi(\d+)E",
+                  symbol)
+    return f"{m[1]}<{m[2]}>" if m else None
+
+
+def pq_kernel(symbol: str):
+    """``pq_tiled_kernel<M/8,W>`` or ``pq_lut_scores_kernel<codes,vec8>``
+    for a mangled PQ scan symbol, else None."""
+    import re
+    m = re.search(r"pq_tiled_kernelILi(\d)ELi(\d)E", symbol)
+    if m:
+        return f"pq_tiled_kernel<{m[1]},{m[2]}>"
+    m = re.search(r"pq_lut_scores_kernelI(h|i)Lb(\d)E", symbol)
+    return (f"pq_lut_scores_kernel<{'uint8' if m[1] == 'h' else 'int32'},"
+            f"{m[2]}>" if m else None)
+
+
 def check_no_spills(name: str, ptxas: dict):
     """Every instantiation in ``ptxas`` reports 0 bytes of spills."""
     lines = [ln for kern in ptxas.values() for ln in kern]
@@ -549,19 +603,87 @@ def bus_bwd_checks(torch, q, k, v, kv_mask, do) -> dict:
             "zeroed_bus_v_control_err": ctl}
 
 
-def on_route(ops, name: str, fn):
-    """``fn()``'s result, after checking that its bus launches all went to
-    kernel ``name`` (one of ``bus_attention.ROUTES``) and the others got
-    none."""
-    from repro_torch.kernels.bus_attention import ROUTES
+def on_route(ops, name: str, fn, routes=None):
+    """``fn()``'s result, after checking that its launches among
+    ``routes`` (by default the bus kernels', ``bus_attention.ROUTES``) all
+    went to kernel ``name`` and the others got none."""
+    if routes is None:
+        from repro_torch.kernels.bus_attention import ROUTES as routes
     before = ops.launch_counts()
     res = fn()
     after = ops.launch_counts()
-    moved = {n: after[n] - before[n] for n in ROUTES}
+    moved = {n: after[n] - before[n] for n in routes}
     check(moved[name] > 0 and not any(c for n, c in moved.items()
                                       if n != name),
-          f"bus launches went {moved}, expected all on {name}")
+          f"launches went {moved}, expected all on {name}")
     return res
+
+
+def pq_shape_row(torch, ops, lut, codes, valid, iters: int,
+                 plain_iters: int) -> dict:
+    """The PQ scan at one shape, on both kernels: each held to plain on
+    the codes and on a copy with a few codes pushed past K (TOL_PQ; NaN
+    and -inf slots exact) and launched twice (bit for bit), on the route
+    named; then timed in turns (general, tiled, tiled, general), beside
+    plain, the byte bound and, for a flat scan (codes shared, no
+    validity), ``F.embedding_bag`` over the codes offset by m K into the
+    [M K, B] table (offsets built outside the timing)."""
+    from repro_torch.kernels.pq_scoring import (ROUTES, pq_lut_scores_cuda,
+                                                pq_lut_scores_plain)
+    B, M, K = lut.shape
+    past = codes.clone()
+    past[..., ::997, M // 2] = K if K < 256 else 0
+    row = {"shape": [B, M, K, codes.shape[1]], "Bc": codes.shape[0],
+           "Bv": None if valid is None else valid.shape[0]}
+    for c, label in ((codes, ""), (past, "_codes_past_k")):
+        ref = pq_lut_scores_plain(lut, c, valid)
+        for route in ROUTES:
+            out, again = (on_route(ops, route, lambda: pq_lut_scores_cuda(
+                lut, c, valid, route=route), ROUTES) for _ in range(2))
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            check(torch.equal(out.isnan(), ref.isnan())
+                  and torch.equal(out == float("-inf"), ref == float("-inf"))
+                  and torch.equal(torch.isfinite(out), fin),
+                  f"{route}: NaN/-inf slots differ from plain {row['shape']}")
+            check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+                  f"{route}: two launches differ {row['shape']}")
+            err = float((out[fin] - ref[fin]).abs().max())
+            check(err <= TOL_PQ, f"{route} differs from plain by {err}")
+            row[f"{route}_err{label}"] = err
+            row[f"{route}_nan_slots{label}"] = int(out.isnan().sum())
+        del ref, out, again
+    if K < 256:
+        check(row["pq_lut_scores_nan_slots_codes_past_k"] > 0,
+              f"codes past K={K} scored no NaN {row['shape']}")
+    row["turns_ms"] = [(route, time_ms(torch, lambda: pq_lut_scores_cuda(
+        lut, codes, valid, route=route), iters=iters))
+        for route in ("pq_lut_scores_general", "pq_lut_scores",
+                      "pq_lut_scores", "pq_lut_scores_general")]
+    row["ms"] = sum(ms for r, ms in row["turns_ms"]
+                    if r == "pq_lut_scores") / 2
+    row["general_ms"] = sum(ms for r, ms in row["turns_ms"]
+                            if r == "pq_lut_scores_general") / 2
+    row["plain_ms"] = time_ms(torch, lambda: pq_lut_scores_plain(
+        lut, codes, valid), iters=plain_iters, warmup=1)
+    out_bytes = 4 * B * codes.shape[1]
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(lut, codes) + out_bytes
+        + (nbytes(valid) if valid is not None else 0), B * codes.shape[1] * M)
+    row["library_ms"] = None
+    if codes.shape[0] == 1 and valid is None:
+        idx = (codes[0].long() + K * torch.arange(M, device=codes.device))
+        table = lut.reshape(B, M * K).t().contiguous()
+        bag = torch.nn.functional.embedding_bag(idx, table, mode="sum")
+        ref = pq_lut_scores_plain(lut, codes)
+        row["library_err"] = float((bag.t() - ref).abs().max())
+        check(row["library_err"] <= TOL_PQ,
+              f"embedding_bag yardstick differs by {row['library_err']}")
+        row["library_ms"] = time_ms(torch, lambda: torch.nn.functional
+                                    .embedding_bag(idx, table, mode="sum"),
+                                    iters=iters)
+        del idx, table, bag, ref
+    return row
 
 
 def bus_sdpa_inputs(torch, q, k, v, kv_mask, grad: bool = False):
@@ -1262,11 +1384,11 @@ def main() -> int:
         _bwd_cuda_as_written, _bwd_plain_f32, flash_attention_bwd_cuda,
         flash_attention_bwd_plain, flash_attention_cuda,
         flash_attention_fwd_plain)
-    from repro_torch.kernels.pq_scoring import (pq_lut_scores_cuda,
-                                                pq_lut_scores_plain)
+    from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
     from repro_torch.launch.profile import pq_distortion
     from repro_torch.launch.serve import (Recommender, _pad_histories,
-                                          measure_recall, micro_batch_loop)
+                                          measure_recall, micro_batch_loop,
+                                          pq_scan_inputs)
     from repro_torch.launch.train import first_batch_of_bucket, make_loader
     from repro_torch.models import lm
     from repro_torch.nn import attention, embed, rmsnorm
@@ -1287,7 +1409,7 @@ def main() -> int:
     # a library already under build/ is loaded as it is, with the .log its
     # build left (the same source and flags, by the file name's hash)
     built_now = {name: not hopper_library(name).exists()
-                 for name in HOPPER_LIBS + (BUS_LIB,)}
+                 for name in HOPPER_LIBS + (BUS_LIB, TF32_LIB, PQ_LIB)}
     t0 = time.perf_counter()
     logs = ops.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -1321,6 +1443,36 @@ def main() -> int:
     check(set(hmma) == set(ptxas) and len(hmma) == BUS_INSTANTIATIONS
           and all(hmma.values()),
           f"{BUS_LIB}: a kernel's SASS has no {BUS_MMA}: {hmma}")
+    # the 3xTF32 flash forward (the split and the main kernel, D=64 and
+    # 128): no spills, and tf32 wgmma in each main kernel's SASS
+    ptxas = ptxas_by_kernel(logs[TF32_LIB], tf32_kernel)
+    check_no_spills(TF32_LIB, ptxas)
+    tf = sass_count(hopper_library(TF32_LIB), tf32_kernel, TF32_MMA)
+    hg = sass_count(hopper_library(TF32_LIB), tf32_kernel, "HGMMA")
+    report["hopper"][TF32_LIB] = {"ptxas": ptxas, "sass_tf32_mma": tf,
+                                  "sass_hgmma": hg,
+                                  "ptxas_built_this_run": built_now[TF32_LIB]}
+    print(f"{TF32_LIB}: ptxas {ptxas}; {TF32_MMA} per function {tf}; "
+          f"HGMMA {hg}", flush=True)
+    check(set(tf) == set(ptxas) and len(tf) == 4 and tf == hg
+          and all(n for name, n in tf.items() if name.startswith("flash")),
+          f"{TF32_LIB}: a main kernel's SASS has no tf32 wgmma "
+          f"({TF32_MMA} {tf}, HGMMA {hg})")
+    # the PQ scan (the tiled kernel's four instantiations, the general
+    # kernel's three): no spills; the tiled kernel's 16-byte code loads
+    # and float4 stores at W = 4
+    ptxas = ptxas_by_kernel(logs[PQ_LIB], pq_kernel)
+    check_no_spills(PQ_LIB, ptxas)
+    pq_sass = {ins: sass_count(hopper_library(PQ_LIB), pq_kernel, ins)
+               for ins in PQ_SASS}
+    report["hopper"][PQ_LIB] = {"ptxas": ptxas, "sass": pq_sass,
+                                "ptxas_built_this_run": built_now[PQ_LIB]}
+    print(f"{PQ_LIB}: ptxas {ptxas}; SASS {pq_sass}", flush=True)
+    wide = [n for n in ptxas if n.startswith("pq_tiled") and n.endswith(",4>")]
+    check(len(ptxas) == 7 and len(wide) == 2
+          and all(pq_sass["LDG.E.128"][n] and pq_sass["STG.E.128"][n]
+                  for n in wide),
+          f"{PQ_LIB}: the tiled kernel's wide loads and stores: {pq_sass}")
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -1374,6 +1526,8 @@ def main() -> int:
     check(launches["bus_attention_simt"] == 0,
           "the encode sent a bus launch to the SIMT kernel")
     check(launches["pq_lut_scores"] > 0, "pq_lut_scores never launched")
+    check(launches["pq_lut_scores_general"] == 0,
+          "the serve path sent a scan to the general PQ kernel")
     check(0.0 < recall <= 1.0, f"recall@10 {recall}")
 
     # ------------------------------------------------------------ index
@@ -1854,54 +2008,70 @@ def main() -> int:
     del qs_, ks_, vs_, ms_, dos_
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    # the PQ scan on the main path's own inputs: the query batch's LUT and
-    # codes gathered off the built snapshot above (N = nprobe * cap)
+    # the PQ scan (kernels/pq_scoring.py:pq_route), both kernels at each
+    # shape (pq_shape_row): the main path's own inputs (the query batch's
+    # LUT and codes gathered off the built snapshot above, N = nprobe *
+    # cap, and the same LUT against codes shared by the batch) and the
+    # deployment shapes over PROD's corpus of 1,204,224 news, seeded
+    # (launch.serve.pq_scan_inputs): IVF (nlist 64, nprobe 16, cap 32,768:
+    # N = 524,288) and flat (codes [1, 1,204,224, 8] for 16 queries)
     n_sub, n_codes = snap.pq_centers.shape[:2]
-    N = codes.shape[1]
-    shared = torch.randint(0, n_codes, (1, N, n_sub), generator=g,
-                           device=dev).to(torch.uint8)
-    errs = []
-    for c in (codes, shared):
-        out = pq_lut_scores_cuda(lut, c, valid)
-        ref = pq_lut_scores_plain(lut, c, valid)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(ref)
-        check(bool((torch.isfinite(out) == fin).all()),
-              "pq_lut_scores -inf slots differ from plain")
-        errs.append(float((out[fin] - ref[fin]).abs().max()))
-    err = max(errs)
-    check(err <= TOL_PQ, f"pq_lut_scores differs from plain by {err}")
-    b_ms, b_by = bound_ms(nbytes(lut, codes, valid, out), BATCH * N * n_sub)
-    kernels.append({
-        "name": "pq_lut_scores", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pq_scoring.cu",
-        "replaces": "src/repro/kernels/pq_scoring.py:99",
-        "launches": launches["pq_lut_scores"]
-        + train_launches["pq_lut_scores"],
-        "launches_by_path": {"serve": launches["pq_lut_scores"],
-                             "train": train_launches["pq_lut_scores"]},
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: pq_lut_scores_cuda(lut, codes, valid),
-                      iters=100),
-        "plain_ms": time_ms(torch,
-                            lambda: pq_lut_scores_plain(lut, codes, valid),
-                            iters=100),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": [BATCH, n_sub, n_codes, N], "dtype": "float32/uint8"})
+    shared = torch.randint(0, n_codes, (1, codes.shape[1], n_sub),
+                           generator=g, device=dev).to(torch.uint8)
+    pq = {"main": pq_shape_row(torch, ops, lut, codes, valid, 100, 20),
+          "main_shared_codes": pq_shape_row(torch, ops, lut, shared, valid,
+                                            100, 20)}
+    for label, nprobe in (("deploy_ivf", 16), ("deploy_flat", None)):
+        x = pq_scan_inputs(cfg.cache.n_news, batch=BATCH, n_subvec=n_sub,
+                           n_codes=n_codes, nprobe=nprobe, gen=g, device=dev)
+        pq[label] = {**{k: x[k] for k in ("nlist", "cap", "N") if k in x},
+                     **pq_shape_row(torch, ops, x["lut"], x["codes"],
+                                    x["valid"], 50, 3)}
+        del x
+    print("pq: " + json.dumps(pq), flush=True)
+    pq_launches = {n: {"serve": launches[n], "train": train_launches[n]}
+                   for n in ("pq_lut_scores", "pq_lut_scores_general")}
+    main = pq["main"]
+    for name, ms_key, err_key in (
+            ("pq_lut_scores", "ms", "pq_lut_scores_err"),
+            ("pq_lut_scores_general", "general_ms",
+             "pq_lut_scores_general_err")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pq_scoring.cu",
+            "replaces": "src/repro/kernels/pq_scoring.py:99",
+            "launches": sum(pq_launches[name].values()),
+            "launches_by_path": pq_launches[name],
+            "max_abs_err": max(r[k] for r in pq.values() for k in r
+                               if k.startswith(err_key)),
+            "ms": main[ms_key], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"], "dtype": "float32/uint8",
+            "shapes": {label: {k: v for k, v in r.items()
+                               if not k.endswith("_err")}
+                       for label, r in pq.items()},
+            **({"ptxas": report["hopper"][PQ_LIB]["ptxas"],
+                "sass": report["hopper"][PQ_LIB]["sass"]}
+               if name == "pq_lut_scores" else {})})
 
-    # flash attention at Qwen3-14B's heads, on both routes of the forward
-    # (kernels/flash_attention.py:forward_route): the Hopper kernel for
-    # bf16, the SIMT kernel for f32. Each against plain at S=4,096 (f32 on
-    # SIMT, bf16 on Hopper, and a bf16 Sq = S/4 causal shape); the Hopper
-    # kernel timed at the prefill shape, S=32,768, whose launch is also held
-    # to plain by row windows (an unsliced plain call there would need 172
-    # GB of scores; plain's time is taken at S=4,096), and, below, at the
-    # train shape; the SIMT kernel timed at S=4,096 in f32
+    # flash attention at Qwen3-14B's heads, on the three routes of the
+    # forward (kernels/flash_attention.py:forward_route): the Hopper kernel
+    # for bf16 and the 3xTF32 kernel for f32 at head dim 128, the SIMT
+    # kernel at other head dims. Each against plain at S=4,096 (f32 on
+    # 3xTF32, bf16 on Hopper, and a bf16 Sq = S/4 causal shape; the SIMT
+    # kernel in f32 at head dim 96 and bf16 at 80); the Hopper kernel timed
+    # at the prefill shape, S=32,768, whose launch is also held to plain by
+    # row windows (an unsliced plain call there would need 172 GB of
+    # scores; plain's time is taken at S=4,096), and, below, at the train
+    # shape; the 3xTF32 kernel timed at S=4,096 in f32, in turns against
+    # the SIMT kernel named on the same call; the SIMT kernel also timed
+    # at head dim 96
     Hq, Hkv, Dh = qcfg.n_heads, qcfg.n_kv, qcfg.hd
     G = Hq // Hkv
 
-    def qkv(B, Sq, Sk, dtype):
-        return tuple(torch.randn(B, n, h, Dh, generator=g, device=dev)
+    def qkv(B, Sq, Sk, dtype, D=Dh):
+        return tuple(torch.randn(B, n, h, D, generator=g, device=dev)
                      .to(dtype) for n, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
 
     def hold(label, o, lse, q, k, v, dtype):
@@ -1948,8 +2118,8 @@ def main() -> int:
         return time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
                        **kw)
 
-    def fwd_flop(B, Sq):
-        return 4 * Dh * Hq * B * Sq * (Sq + 1) // 2   # 4 D a visible pair
+    def fwd_flop(B, Sq, D=Dh):
+        return 4 * D * Hq * B * Sq * (Sq + 1) // 2    # 4 D a visible pair
 
     flash_err = {}
     for label, Sq, dtype in (("float32", FLASH_CHECK_SEQ, torch.float32),
@@ -1960,7 +2130,46 @@ def main() -> int:
         o, lse = launch_on(q, k, v)
         hold(label, o, lse, q, k, v, dtype)
         if label == "float32":
-            # the SIMT route's row: f32 at S=4,096, bound at the f32 rate
+            # the 3xTF32 row: f32 at S=4,096, in turns against the SIMT
+            # kernel named on the same inputs (the route f32 took before);
+            # the bound is three TF32 products a pair on the tensor cores
+            # (the f32 rate of the CUDA cores beside it)
+            turns = [(r, time_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, True, route=r), iters=n, warmup=1))
+                for r, n in (("flash_attention", 3),
+                             ("flash_attention_tf32", 20),
+                             ("flash_attention_tf32", 20),
+                             ("flash_attention", 3))]
+            tf32 = {
+                "ms": (turns[1][1] + turns[2][1]) / 2,
+                "simt_ms": (turns[0][1] + turns[3][1]) / 2,
+                "turns_ms": turns,
+                "plain_ms": time_ms(
+                    torch, lambda: flash_attention_fwd_plain(q, k, v, True),
+                    iters=3, warmup=1),
+                "library_ms": sdpa_fwd_ms(q, k, v, iters=10, warmup=2)}
+            tf32["bound_ms"], tf32["bound_by"] = bound_ms(
+                nbytes(q, k, v, o, lse), 3 * fwd_flop(1, Sq),
+                TF32_FLOP_PER_S)
+            tf32["bound_f32_cuda_cores_ms"] = bound_ms(
+                nbytes(q, k, v, o, lse), fwd_flop(1, Sq))[0]
+            tf32["tflop_per_s"] = fwd_flop(1, Sq) / tf32["ms"] / 1e9
+        if label == "bfloat16":
+            plain_ms = time_ms(
+                torch, lambda: flash_attention_fwd_plain(q, k, v, True),
+                iters=3, warmup=1)
+        del o, lse
+    # the SIMT forward at shapes still on its route, counted from 0: f32 at
+    # head dim 96 (timed, bound at the f32 rate) and bf16 at head dim 80
+    simt_err = {}
+    ops.reset_launch_counts()
+    for label, dt, D in SIMT_CHECKS:
+        q, k, v = qkv(1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, getattr(torch, dt),
+                      D)
+        o, lse = launch_on(q, k, v)
+        hold(label, o, lse, q, k, v, getattr(torch, dt))
+        simt_err[label] = flash_err.pop(label)
+        if dt == "float32":
             simt = {
                 "ms": time_ms(torch, lambda: flash_attention_cuda(q, k, v,
                                                                   True),
@@ -1968,15 +2177,15 @@ def main() -> int:
                 "plain_ms": time_ms(
                     torch, lambda: flash_attention_fwd_plain(q, k, v, True),
                     iters=3, warmup=1),
-                "library_ms": sdpa_fwd_ms(q, k, v, iters=3, warmup=1)}
+                "library_ms": sdpa_fwd_ms(q, k, v, iters=3, warmup=1),
+                "shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, D],
+                "dtype": dt}
             simt["bound_ms"], simt["bound_by"] = bound_ms(
-                nbytes(q, k, v, o, lse), fwd_flop(1, Sq))
-            simt["tflop_per_s"] = fwd_flop(1, Sq) / simt["ms"] / 1e9
-        if label == "bfloat16":
-            plain_ms = time_ms(
-                torch, lambda: flash_attention_fwd_plain(q, k, v, True),
-                iters=3, warmup=1)
-        del o, lse
+                nbytes(q, k, v, o, lse), fwd_flop(1, FLASH_CHECK_SEQ, D))
+            simt["tflop_per_s"] = (fwd_flop(1, FLASH_CHECK_SEQ, D)
+                                   / simt["ms"] / 1e9)
+        del q, k, v, o, lse
+    simt_check_launches = ops.launch_counts()["flash_attention"]
     S, R = LM_PREFILL_SEQ, FLASH_ROWS
     q, k, v = qkv(1, S, S, bf16)
     o, lse = launch_on(q, k, v)
@@ -1992,31 +2201,46 @@ def main() -> int:
     sdpa_ms = sdpa_fwd_ms(q, k, v, iters=5, warmup=2)
     b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), fwd_flop(1, S),
                           BF16_FLOP_PER_S)
+    def fwd_launches(sym):
+        return {"prefill": prefill_launches[sym],
+                "decode": lm_rep["decode"]["flash_launches"][sym],
+                "lm_train": lm_train_launches[sym],
+                "serve": launches[sym], "train": train_launches[sym]}
+
     kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "name": "flash_attention_tf32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
         "replaces": "src/repro/kernels/flash_attention.py:146",
         # the main paths run bf16 at head dim 128, the Hopper kernel's
         # route, so this is 0; the f32 checks' launches, each counted from
         # 0, are apart under check_launches
-        "launches": prefill_launches["flash_attention"]
-        + lm_train_launches["flash_attention"],
+        "launches": prefill_launches["flash_attention_tf32"]
+        + lm_train_launches["flash_attention_tf32"],
         "check_launches": {
-            "lm_check_float32":
-            lm_rep["check"]["float32"]["flash_launches"]["flash_attention"],
+            "lm_check_float32": lm_rep["check"]["float32"]["flash_launches"]
+            ["flash_attention_tf32"],
             "lm_train_float32_depth2": report["lm_train"]["plain"]
-            ["launches_kernel"]["flash_attention"]},
-        "launches_by_path": {
-            "prefill": prefill_launches["flash_attention"],
-            "decode": lm_rep["decode"]["flash_launches"]["flash_attention"],
-            "lm_train": lm_train_launches["flash_attention"],
-            "serve": launches["flash_attention"],
-            "train": train_launches["flash_attention"]},
+            ["launches_kernel"]["flash_attention_tf32"]},
+        "launches_by_path": fwd_launches("flash_attention_tf32"),
         "max_abs_err": flash_err["float32"]["o"],
         "errors": {"float32": flash_err["float32"]},
-        **simt,
+        **tf32,
         "shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, Dh],
-        "dtype": "float32", "causal": True})
+        "dtype": "float32", "causal": True,
+        **report["hopper"][TF32_LIB]})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:146",
+        # no main path and no LM check reaches the SIMT forward (every
+        # config's head dim is 128); its own checks' launches, counted
+        # from 0, are apart under check_launches
+        "launches": prefill_launches["flash_attention"]
+        + lm_train_launches["flash_attention"],
+        "check_launches": {"simt_checks": simt_check_launches},
+        "launches_by_path": fwd_launches("flash_attention"),
+        "max_abs_err": max(e["o"] for e in simt_err.values()),
+        "errors": simt_err, **simt, "causal": True})
     kernels.append({
         "name": "flash_attention_wgmma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",

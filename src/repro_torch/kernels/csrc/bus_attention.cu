@@ -94,7 +94,11 @@
 
 #include <type_traits>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using tf32x3::split;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxS = 32;           // query rows: two m16 row blocks
@@ -271,26 +275,7 @@ __device__ __forceinline__ int mask_offset(const uint8_t* mask, long long mk,
 }
 
 // -------------------------------------------------------- tensor-core math
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo: hi = tf32(x), and lo = x - hi as it is, which the tensor
-// core reads as tf32 by dropping its low 13 bits (rounding lo as well
-// would cost three more instructions and changes nothing the checks can
-// see). An exact operand (from bf16 or fp16) has lo = 0.
-template <bool kExact>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if (kExact) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = tf32(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
-}
+// (tf32 and split, the 3xTF32 operand split, are in tf32_mma.cuh)
 
 struct FragA { uint32_t hi[4], lo[4]; };    // m16 x k8, row
 struct FragB { uint32_t hi[2], lo[2]; };    // k8 x n8, col

@@ -40,10 +40,12 @@
 // This kernel runs the products on the CUDA cores in f32 (register tiles
 // of 4 x 4 scores and 4 x D/16 outputs per thread: 2 to 2.7 FMAs per
 // shared-memory load), so its ceiling is the 67 TFLOP/s f32 rate, 15x short
-// of the bound. So bf16 at head dim 64 or 128 goes to
-// flash_attention_wgmma.cu (wgmma on bf16 tiles fed by TMA) instead; this
-// kernel takes f32 (a tf32 product would miss the f32 tolerance) and bf16
-// at the other head dims (kernels/flash_attention.py:forward_route).
+// of the bound. So at head dim 64 or 128 bf16 goes to
+// flash_attention_wgmma.cu (wgmma on bf16 tiles fed by TMA) and f32 to
+// flash_attention_tf32.cu (wgmma in 3xTF32: one tf32 product would miss
+// the f32 tolerance, three split products keep f32 accuracy) instead; this
+// kernel takes both dtypes at the other head dims
+// (kernels/flash_attention.py:forward_route).
 //
 // Backward (FlashAttention-2): replaces the Pallas TPU kernels of
 // flash_attention_bwd in the same file (_bwd_dq_kernel and
@@ -81,8 +83,9 @@
 // ~0.40 GB. These kernels run seven products (q k^T and dO v^T in both)
 // on the CUDA cores in f32, so their ceiling is the 67 TFLOP/s f32 rate.
 // So bf16 at head dim 64 or 128 goes to flash_attention_bwd_wgmma.cu
-// (wgmma on bf16 tiles fed by TMA) instead; this pair takes f32 and bf16
-// at the other head dims (kernels/flash_attention.py:backward_route).
+// (wgmma on bf16 tiles fed by TMA) instead; this pair takes f32 at every
+// head dim (on the lse of whichever forward ran) and bf16 at the others
+// (kernels/flash_attention.py:backward_route).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -21,16 +21,21 @@ The checks hold a bf16 kernel's f32 gradients before that cast, as the
 TPU kernel writes dk and dv, against plain's: ``_bwd_plain_f32`` and
 ``_bwd_cuda_as_written`` return them.
 
-Two CUDA forwards, chosen by ``forward_route`` from the dtype and head
-dim before any launch: bf16 at a head dim in ``WGMMA_HEAD_DIMS`` goes to
-the Hopper kernel (``csrc/flash_attention_wgmma.cu``: TMA and wgmma,
-which reads q/k/v through TMA and so needs 16-byte-aligned bases and
-strides), everything else to the SIMT kernel (``csrc/flash_attention.cu``,
-f32 arithmetic). Each counts its launches under its own symbol. The
-backward has the same two routes, chosen by ``backward_route``: a dq and a
-dk/dv kernel each, Hopper (``csrc/flash_attention_bwd_wgmma.cu``, which
-also reads dO through TMA and writes f32 gradients, cast here) or SIMT
-(``csrc/flash_attention.cu``, which writes the inputs' dtype).
+Three CUDA forwards, chosen by ``forward_route`` from the dtype and head
+dim before any launch, each counting its launches under its own symbol:
+at a head dim in ``TENSOR_CORE_HEAD_DIMS`` (64, 128), bf16 goes to the
+Hopper kernel (``csrc/flash_attention_wgmma.cu``: TMA and wgmma, which
+reads q/k/v through TMA and so needs 16-byte-aligned bases and strides)
+and f32 to the 3xTF32 kernel (``csrc/flash_attention_tf32.cu``: wgmma
+on f32 operands split into tf32 hi + lo, k and v split first into a
+scratch the wrapper allocates, ``tf32_planes_bytes``); every other head
+dim goes to the SIMT kernel (``csrc/flash_attention.cu``, f32 arithmetic
+on the CUDA cores). The backward has two routes, chosen by
+``backward_route``: a dq and a dk/dv kernel each, Hopper
+(``csrc/flash_attention_bwd_wgmma.cu``, bf16 at those head dims; it also
+reads dO through TMA and writes f32 gradients, cast here) or SIMT
+(``csrc/flash_attention.cu``, which writes the inputs' dtype; f32 at
+every head dim, on the lse any forward wrote).
 """
 from __future__ import annotations
 
@@ -63,6 +68,13 @@ KERNEL_WGMMA = CudaKernel("flash_attention_wgmma", "flash_attention_wgmma.cu",
                           {"flash_attention_fwd_wgmma": [
                               *([_P] * 5), *([_I] * 6), *([_L] * 12), _I,
                               ctypes.c_float, _P]})
+# the 3xTF32 forward: q, k, v, o, lse, the k/v planes' scratch and its
+# bytes, B, Sq, Sk, Hq, Hkv, D, 12 strides, causal, scale, stream
+KERNEL_TF32 = CudaKernel("flash_attention_tf32", "flash_attention_tf32.cu",
+                         {"flash_attention_fwd_tf32": [
+                             *([_P] * 6), _L, *([_I] * 6), *([_L] * 12), _I,
+                             ctypes.c_float, _P]})
+TF32_KEY_TILE = 32     # kBK in csrc/flash_attention_tf32.cu
 # the Hopper backward: q, k, v, dO, lse, delta, then dq (B, Sq, Sk, Hq,
 # Hkv, D, 15 strides) or dk, dv (the same, 18 strides); causal, scale,
 # stream. dq, dk and dv are f32
@@ -75,28 +87,37 @@ KERNEL_BWD_WGMMA = CudaKernel(
                                           *([_L] * 18), _I, ctypes.c_float,
                                           _P]})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WGMMA_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+# the forward's routes, by the names their launches count under
+FORWARD_ROUTES = ("flash_attention", "flash_attention_wgmma",
+                  "flash_attention_tf32")
 
 
 def forward_route(dtype, head_dim: int) -> str:
     """Which CUDA forward takes a call, by the name its launches count
-    under in ``ops.KERNELS``: ``"flash_attention_wgmma"`` (the Hopper
-    kernel) for bf16 at a head dim in WGMMA_HEAD_DIMS, else
-    ``"flash_attention"`` (the SIMT kernel; f32 stays on f32 arithmetic: a
-    tf32 product would miss the f32 tolerance)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "flash_attention_wgmma"
+    under in ``ops.KERNELS``: at a head dim in TENSOR_CORE_HEAD_DIMS,
+    ``"flash_attention_wgmma"`` (wgmma on bf16 tiles) for bf16 and
+    ``"flash_attention_tf32"`` (wgmma in 3xTF32, f32 accuracy on the
+    tensor cores) for f32; ``"flash_attention"`` (the SIMT kernel) at
+    every other head dim."""
+    if head_dim in TENSOR_CORE_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "flash_attention_wgmma"
+        if dtype == torch.float32:
+            return "flash_attention_tf32"
     return "flash_attention"
 
 
 def backward_route(dtype, head_dim: int) -> tuple:
     """Which CUDA backward takes a call: the names its dq and dk/dv
-    launches count under in ``ops.KERNELS`` (each also its C symbol).
-    The rule is ``forward_route``'s: the Hopper pair
-    (``"flash_attention_bwd_dq_wgmma"``, ``"flash_attention_bwd_dkv_wgmma"``)
-    for bf16 at a head dim in WGMMA_HEAD_DIMS, else the SIMT pair
-    (``"flash_attention_bwd_dq"``, ``"flash_attention_bwd_dkv"``)."""
-    if forward_route(dtype, head_dim) == "flash_attention_wgmma":
+    launches count under in ``ops.KERNELS`` (each also its C symbol). The
+    Hopper pair (``"flash_attention_bwd_dq_wgmma"``,
+    ``"flash_attention_bwd_dkv_wgmma"``) for bf16 at a head dim in
+    TENSOR_CORE_HEAD_DIMS; the SIMT pair (``"flash_attention_bwd_dq"``,
+    ``"flash_attention_bwd_dkv"``) for f32 at every head dim and for bf16
+    at the others. Its own rule, not the forward's: f32 runs the 3xTF32
+    forward at 64 and 128 but the SIMT backward, on that forward's lse."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
         return "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma"
     return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"
 
@@ -198,15 +219,24 @@ def _check_kernel_inputs(q, k, v, causal, **more):
     return shapes
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True):
+def flash_attention_cuda(q, k, v, causal: bool = True, *,
+                         route: str | None = None):
     """Launch the CUDA forward that ``forward_route`` picks; same contract
     as ``flash_attention_fwd_plain``. q/k/v may be strided views as long
-    as their last axis is contiguous (and, on the Hopper route, TMA can
-    read them: ``_check_tma``). Raises on anything the kernel does not
-    take."""
+    as their last axis is contiguous (and, on the Hopper route, their
+    bases and strides are 16-byte aligned: ``_check_tma``).
+    ``route`` names a forward instead (to time one against another on the
+    same inputs); it raises if that kernel does not take the call, as
+    the picked route does for anything its kernel does not take."""
     B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal)
-    wgmma = forward_route(q.dtype, D) == "flash_attention_wgmma"
-    if wgmma:
+    picked = forward_route(q.dtype, D)
+    if route is None:
+        route = picked
+    elif route not in FORWARD_ROUTES:
+        raise ValueError(f"unknown flash forward route {route!r}")
+    elif route != "flash_attention" and route != picked:
+        raise ValueError(f"{route} does not take {q.dtype} at head dim {D}")
+    if route == "flash_attention_wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_tma(name, t)
     o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
@@ -215,17 +245,32 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
         return o, lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
-    if wgmma:
+    if route == "flash_attention_wgmma":
         strides = [s for t in (q, k, v) for s in _tma_strides(t)]
         KERNEL_WGMMA.launch("flash_attention_fwd_wgmma", q.device, *ptrs, B,
                             Sq, Sk, Hq, Hkv, D, *strides, *o.stride()[:3],
                             int(causal), float(D ** -0.5))
     else:
         strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-        KERNEL.launch("flash_attention_fwd", q.device, *ptrs, B, Sq, Sk, Hq,
-                      Hkv, D, *strides, int(causal), _DTYPES[q.dtype],
-                      float(D ** -0.5))
+        if route == "flash_attention_tf32":
+            planes = torch.empty(tf32_planes_bytes(B, Sk, Hkv, D),
+                                 dtype=torch.uint8, device=q.device)
+            KERNEL_TF32.launch("flash_attention_fwd_tf32", q.device, *ptrs,
+                               planes.data_ptr(), planes.numel(), B, Sq, Sk,
+                               Hq, Hkv, D, *strides, int(causal),
+                               float(D ** -0.5))
+        else:
+            KERNEL.launch("flash_attention_fwd", q.device, *ptrs, B, Sq, Sk,
+                          Hq, Hkv, D, *strides, int(causal),
+                          _DTYPES[q.dtype], float(D ** -0.5))
     return o, lse
+
+
+def tf32_planes_bytes(B: int, Sk: int, Hkv: int, D: int) -> int:
+    """Scratch the 3xTF32 forward splits k and v into: per (b, kv head,
+    tile of TF32_KEY_TILE keys), K and V^T as tf32 hi and lo planes."""
+    tiles = -(-Sk // TF32_KEY_TILE)
+    return B * Hkv * tiles * 4 * TF32_KEY_TILE * D * 4
 
 
 def _check_tma(name, t):

@@ -25,10 +25,12 @@ from ._build import build
 
 # kernel name -> (library, C symbol whose launches it counts)
 KERNELS = {**_bus.ROUTES,
-           "pq_lut_scores": (_pq.KERNEL, "pq_lut_scores"),
+           **{name: (_pq.KERNEL, name) for name in _pq.ROUTES},
            "flash_attention": (_flash.KERNEL, "flash_attention_fwd"),
            "flash_attention_wgmma": (_flash.KERNEL_WGMMA,
                                      "flash_attention_fwd_wgmma"),
+           "flash_attention_tf32": (_flash.KERNEL_TF32,
+                                    "flash_attention_fwd_tf32"),
            "flash_attention_bwd_dq": (_flash.KERNEL,
                                       "flash_attention_bwd_dq"),
            "flash_attention_bwd_dkv": (_flash.KERNEL,
@@ -118,7 +120,8 @@ def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
     """lut: [B, M, K]; codes: [Bc, N, M]; valid: [Bv, N] -> [B, N] f32.
     ``block_n`` and ``variant`` are kept for parity with the TPU wrapper
     (candidate block, one-hot vs gather scoring); on the card both
-    variants are this one kernel, whose block size is its own."""
+    variants are the kernel ``pq_scoring.pq_route`` picks by shape, whose
+    tiles are its own."""
     del block_n
     if variant not in ("auto", "onehot", "gather"):
         raise ValueError(f"unknown pq scan variant: {variant!r}")

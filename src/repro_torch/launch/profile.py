@@ -85,9 +85,10 @@ from repro_torch.serving.pq import PQCodebook, pq_decode
 
 # the flash kernels by the names their CUDA functions carry in a profile
 # (each a template instance, so its name holds <D>): forward and backward,
-# Hopper and SIMT routes
+# Hopper, 3xTF32 (the k/v split and the main kernel) and SIMT routes
 FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-               "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
+               "flash_bwd_dkv_wgmma_kernel", "split_kv_kernel",
+               "flash_fwd_tf32_kernel", "flash_fwd_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 

@@ -32,6 +32,57 @@ from repro_torch import core, serving
 from repro_torch.device import check_device
 
 
+def ivf_nlist(n_rows: int) -> int:
+    """Coarse cells the launcher builds over a corpus of ``n_rows``."""
+    return max(4, min(64, n_rows // 32))
+
+
+def ivf_scan_shape(n_rows: int, nprobe: int) -> dict:
+    """The IVF-PQ scan's shape for a corpus of ``n_rows`` spread evenly
+    over the launcher's lists: ``nlist``, each list's length, the
+    power-of-two capacity bucket that holds it (``cap``), the lists a
+    query probes and ``N = probes * cap``, the candidate slots a query's
+    LUT scan scores."""
+    nlist = ivf_nlist(n_rows)
+    per_list = -(-n_rows // nlist)
+    cap = serving.index._next_cap(per_list)
+    probes = min(nprobe, nlist)
+    return {"nlist": nlist, "per_list": per_list, "cap": cap,
+            "probes": probes, "N": probes * cap}
+
+
+def pq_scan_inputs(n_rows: int, *, batch: int, n_subvec: int,
+                   n_codes: int, nprobe: int | None, gen: torch.Generator,
+                   device) -> dict:
+    """Seeded inputs of one query batch's LUT scan over a corpus of
+    ``n_rows`` (no encoder needed): f32 LUTs [batch, M, K] and uint8
+    codes drawn uniformly. With ``nprobe``, the IVF-PQ scan at
+    ``ivf_scan_shape``: codes [batch, N, M], list lengths within 5% of
+    the even share (at most ``cap``), each query probing ``probes``
+    distinct lists, and slot validity [batch, N] from the probed lists'
+    lengths. Without it, the flat scan: codes [1, n_rows,
+    M] shared by the batch, no validity."""
+    lut = torch.randn(batch, n_subvec, n_codes, generator=gen,
+                      device=device)
+    if nprobe is None:
+        codes = torch.randint(0, n_codes, (1, n_rows, n_subvec),
+                              generator=gen, device=device,
+                              dtype=torch.uint8)
+        return {"lut": lut, "codes": codes, "valid": None}
+    shape = ivf_scan_shape(n_rows, nprobe)
+    cap, probes = shape["cap"], shape["probes"]
+    jitter = 1 + 0.05 * (2 * torch.rand(shape["nlist"], generator=gen,
+                                        device=device) - 1)
+    lens = (shape["per_list"] * jitter).long().clamp(1, cap)
+    probed = torch.rand(batch, shape["nlist"], generator=gen,
+                        device=device).argsort(dim=1)[:, :probes]
+    slot = torch.arange(cap, device=device)
+    valid = (slot[None, None] < lens[probed][..., None]).reshape(batch, -1)
+    codes = torch.randint(0, n_codes, (batch, shape["N"], n_subvec),
+                          generator=gen, device=device, dtype=torch.uint8)
+    return {"lut": lut, "codes": codes, "valid": valid, **shape}
+
+
 @dataclasses.dataclass
 class ServeStats:
     n_requests: int
@@ -110,7 +161,7 @@ class Recommender:
         """``build_index`` over corpus embeddings [N, d] already encoded
         (by ``_encode_corpus``)."""
         n = emb.shape[0]
-        nlist = max(4, min(64, n // 32))
+        nlist = ivf_nlist(n)
         builder = serving.IndexBuilder(
             self.index_kind, emb.shape[1],
             ivf=serving.IVFConfig(nlist=nlist,

@@ -196,11 +196,13 @@ def test_hopper_kernel_model_with_p_in_bf16_misses_the_limit(Sq, Sk,
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.bfloat16, 48, "simt"), (torch.bfloat16, 80, "simt"),
     (torch.bfloat16, 96, "simt"), (torch.bfloat16, 112, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
+    (torch.float32, 96, "simt"),
 ])
 def test_forward_route_by_dtype_and_head_dim(dtype, head_dim, route):
     # the route is named by the counter its launches go to
-    name = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention"}
+    name = {"wgmma": "flash_attention_wgmma", "simt": "flash_attention",
+            "tf32": "flash_attention_tf32"}
     assert flash_mod.forward_route(dtype, head_dim) == name[route]
     assert name[route] in ops.KERNELS
 

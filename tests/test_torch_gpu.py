@@ -333,6 +333,93 @@ def test_pq_lut_scores_cuda_out_of_range_codes_match_plain(cuda, code_dtype,
     torch.testing.assert_close(got, exp, rtol=0, atol=PQ_TOL, equal_nan=True)
 
 
+def _hold_pq(got, exp):
+    """-inf and NaN slots exactly where plain has them, the rest within
+    PQ_TOL."""
+    assert torch.equal(got.isnan(), exp.isnan())
+    assert torch.equal(got == float("-inf"), exp == float("-inf"))
+    fin = torch.isfinite(exp)
+    assert torch.equal(torch.isfinite(got), fin)
+    if bool(fin.any()):
+        assert float((got[fin] - exp[fin]).abs().max()) <= PQ_TOL
+
+
+@pytest.mark.parametrize("B,M,K,N,Bc,Bv", [
+    (16, 8, 32, 16384, 16, 16),   # the serve path's IVF scan
+    (64, 8, 32, 20003, 64, 64),   # N % 4 != 0 (scalar width)
+    (64, 8, 32, 20004, 64, 1),    # float4 stores, shared validity
+    (16, 8, 32, 600004, 1, None), # flat, 16 queries a group
+    (16, 8, 32, 5003, 16, 16),    # ragged tail, N % 4 != 0
+    (16, 8, 32, 5004, 1, None),   # flat: one code tile for all 16 queries
+    (16, 8, 32, 5004, 1, 16),     # shared codes, per-query validity
+    (16, 8, 32, 5004, 16, 1),     # per-query codes, shared validity
+    (40, 8, 256, 3001, 1, 1),     # K=256: 8 KB tables
+    (3, 16, 64, 2052, 3, 3),      # M=16
+    (1, 8, 32, 100, 1, 1),
+])
+def test_pq_tiled_scan_matches_plain(cuda, B, M, K, N, Bc, Bv):
+    lut, codes, valid = _pq(B, M, K, N, Bc, Bv, torch.uint8, cuda)
+    assert pq_mod.pq_route(M, K, codes.dtype, codes.data_ptr()) == \
+        "pq_lut_scores"
+    before = ops.launch_counts()
+    got = pq_mod.pq_lut_scores_cuda(lut, codes, valid)
+    again = pq_mod.pq_lut_scores_cuda(lut, codes, valid)
+    after = ops.launch_counts()
+    exp = pq_mod.pq_lut_scores_plain(lut, codes, valid)
+    torch.cuda.synchronize()
+    assert after["pq_lut_scores"] - before["pq_lut_scores"] == 2
+    assert after["pq_lut_scores_general"] == before["pq_lut_scores_general"]
+    _hold_pq(got, exp)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("K,hi", [(32, 40), (16, 256), (256, 256)])
+def test_pq_tiled_scan_out_of_range_codes_score_nan(cuda, K, hi):
+    """uint8 codes at and past K score NaN on the tiled scan, at the slots
+    plain puts them (none can be past K=256)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lut = torch.randn(16, 8, K, generator=g, device=cuda)
+    codes = torch.randint(0, K, (16, 4096, 8), generator=g,
+                          device=cuda).to(torch.uint8)
+    codes[:, ::97, 5] = hi - 1
+    valid = torch.rand(16, 4096, generator=g, device=cuda) < 0.7
+    got = pq_mod.pq_lut_scores_cuda(lut, codes, valid)
+    exp = pq_mod.pq_lut_scores_plain(lut, codes, valid)
+    torch.cuda.synchronize()
+    assert bool(exp.isnan().any()) == (hi > K)
+    _hold_pq(got, exp)
+
+
+def test_pq_routes_count_apart_and_refuse(cuda):
+    # the general scan takes int32 codes, M off the tiled list, K not a
+    # power of two and a codes base off 16 bytes; the tiled one refuses
+    # them when named, and nothing launches then
+    lut, codes, valid = _pq(4, 8, 32, 1000, 4, 4, torch.uint8, cuda)
+    flat = torch.zeros(codes.numel() + 16, dtype=torch.uint8, device=cuda)
+    shifted = flat[8:8 + codes.numel()].view(codes.shape).copy_(codes)
+    lut24, codes24, _ = _pq(4, 24, 32, 1000, 4, 4, torch.uint8, cuda)
+    lut20, codes20, _ = _pq(4, 8, 20, 1000, 4, 4, torch.uint8, cuda)
+    cases = [(lut, codes.int()), (lut, shifted), (lut24, codes24),
+             (lut20, codes20)]
+    for lt, cd in cases:
+        assert pq_mod.pq_route(lt.shape[1], lt.shape[2], cd.dtype,
+                               cd.data_ptr()) == "pq_lut_scores_general"
+        before = ops.launch_counts()
+        got = ops.pq_lut_scores(lt, cd, valid)
+        after = ops.launch_counts()
+        assert after["pq_lut_scores_general"] == \
+            before["pq_lut_scores_general"] + 1
+        assert after["pq_lut_scores"] == before["pq_lut_scores"]
+        _hold_pq(got, pq_mod.pq_lut_scores_plain(lt, cd, valid))
+        with pytest.raises(ValueError, match="tiled scan does not take"):
+            pq_mod.pq_lut_scores_cuda(lt, cd, valid, route="pq_lut_scores")
+        assert ops.launch_counts() == after
+    # the general scan named on a tiled shape runs it (a timing yardstick)
+    got = pq_mod.pq_lut_scores_cuda(lut, codes, valid,
+                                    route="pq_lut_scores_general")
+    _hold_pq(got, pq_mod.pq_lut_scores_plain(lut, codes, valid))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v, mask = _bus(2, 3, 8, 2, 16, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -524,17 +611,93 @@ def test_flash_wgmma_refuses_a_misaligned_view(cuda):
     (torch.bfloat16, 128, "flash_attention_wgmma"),
     (torch.bfloat16, 64, "flash_attention_wgmma"),
     (torch.bfloat16, 32, "flash_attention"),
-    (torch.float32, 128, "flash_attention"),
+    (torch.float32, 128, "flash_attention_tf32"),
+    (torch.float32, 64, "flash_attention_tf32"),
+    (torch.float32, 96, "flash_attention"),
 ])
 def test_flash_forward_launches_count_by_route(cuda, dtype, D, route):
     assert flash_mod.forward_route(dtype, D) == route
     q, k, v = _flash(1, 128, 128, 4, 2, D, cuda, dtype)
-    names = ("flash_attention", "flash_attention_wgmma")
+    names = flash_mod.FORWARD_ROUTES
     before = ops.launch_counts()
     flash_mod.flash_attention_cuda(q, k, v, True)
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in names} == \
         {n: int(n == route) for n in names}
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+    (1, 4096, 4096, 40, 8, 128, True),    # the f32 LM check's heads
+    (2, 200, 333, 8, 2, 128, True),       # ragged q and key tiles
+    (2, 200, 333, 8, 2, 128, False),
+    (1, 64, 4096, 4, 4, 64, True),        # q_off = 4032
+    (2, 300, 300, 6, 2, 64, False),
+    (1, 1, 77, 8, 8, 64, True),           # one query row
+])
+def test_flash_tf32_matches_plain_and_repeats(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                              causal):
+    q, k, v = _flash(B, Sq, Sk, Hq, Hkv, D, cuda)
+    before = ops.launch_counts()["flash_attention_tf32"]
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, causal)
+    o2, lse2 = flash_mod.flash_attention_cuda(q, k, v, causal)
+    assert ops.launch_counts()["flash_attention_tf32"] == before + 2
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert float((o - o_p).abs().max()) <= FLASH_TOL[torch.float32]
+    assert float((lse - lse_p).abs().max()) <= LSE_TOL
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_tf32_reads_strided_and_misaligned_views(cuda):
+    # q/k/v as slices of one fused projection, and k and v at bases 4
+    # bytes off 16 with a head stride of 130: the split reads them element
+    # by element, so any view with a contiguous last axis is taken
+    B, S, Hq, Hkv, D = 2, 320, 8, 2, 128
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    flat = torch.empty(k.numel() + 4, device=cuda)
+    shifted = flat[1:k.numel() + 1].view(k.shape).copy_(k)
+    wide = torch.zeros(B, S, Hkv, 130, device=cuda)[..., :128].copy_(v)
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    for kk, vv in ((k, v), (shifted, wide)):
+        before = ops.launch_counts()["flash_attention_tf32"]
+        o, lse = flash_mod.flash_attention_cuda(q, kk, vv, True)
+        assert ops.launch_counts()["flash_attention_tf32"] == before + 1
+        assert float((o - o_p).abs().max()) <= FLASH_TOL[torch.float32]
+        assert float((lse - lse_p).abs().max()) <= LSE_TOL
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="does not take"):
+        flash_mod.flash_attention_cuda(q.bfloat16(), k.bfloat16(),
+                                       v.bfloat16(), True,
+                                       route="flash_attention_tf32")
+    with pytest.raises(ValueError, match="does not take"):
+        flash_mod.flash_attention_cuda(q[..., :96], k[..., :96],
+                                       v[..., :96], True,
+                                       route="flash_attention_tf32")
+    assert ops.launch_counts() == before
+
+
+def test_flash_simt_named_on_the_tf32_route_matches_plain(cuda):
+    # the SIMT forward on an f32 call the 3xTF32 kernel takes (the timing
+    # yardstick chip_smoke.py uses), and the f32 backward on the new
+    # forward's lse
+    q, k, v, _, _, do = _flash_bwd_inputs(1, 512, 512, 8, 2, 128, cuda,
+                                          torch.float32, True)
+    before = ops.launch_counts()
+    o_s, lse_s = flash_mod.flash_attention_cuda(q, k, v, True,
+                                                route="flash_attention")
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_tf32"] == \
+        before["flash_attention_tf32"] + 1
+    o_p, lse_p = flash_mod.flash_attention_fwd_plain(q, k, v, True)
+    for a, b in ((o_s, o_p), (o, o_p), (lse_s, lse_p), (lse, lse_p)):
+        assert float((a - b).abs().max()) <= FLASH_TOL[torch.float32]
+    got = flash_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    exp = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    _hold_bwd(got, exp, torch.float32)
 
 
 def test_flash_bwd_on_the_wgmma_forward_matches_plain(cuda):

@@ -164,8 +164,10 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                    "bus_attention_simt": 0,
                                    "bus_attention_bwd_simt": 0,
                                    "pq_lut_scores": 0,
+                                   "pq_lut_scores_general": 0,
                                    "flash_attention": 0,
                                    "flash_attention_wgmma": 0,
+                                   "flash_attention_tf32": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
                                    "flash_attention_bwd_dq_wgmma": 0,
