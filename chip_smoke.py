@@ -21,7 +21,9 @@ Phases, each of which exits non-zero on failure:
               (HGMMA ... F32.TF32) in each main kernel; the PQ scan's
               seven kernels no spills, and 16-byte code loads and float4
               stores (LDG.E.128, STG.E.128) in the tiled kernel's wide
-              instantiations.
+              instantiations; the EmbeddingBag's 13 kernels (the
+              forward; the backward's keys, chunk and combine passes) no
+              spills.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -113,7 +115,33 @@ Phases, each of which exits non-zero on failure:
               launches, its first rows against the same serve on the CPU;
               its serve_bulk would need a 3.1 TB score matrix and is left
               out. Each config's tables are freed before the next.
-  10. kernels each kernel against its plain version at the main paths'
+  10. recsys-train the recsys family's training path at full width, f32,
+              seeded random weights, ``recsys_synth`` batches at
+              train_batch's B=65,536: first the EmbeddingBag backward
+              kernel against its plain version in f64 (within
+              TOL_EBAG_BWD of the largest |g|; a bf16 dout within one
+              bf16 ulp plus that), each launched twice (bit for bit) and
+              with untouched rows 0: at DLRM-RM2's train shape ([65,536,
+              26, 1], d 64, V 32,710,656), all slots on one row, negative
+              and out-of-range indices, bf16, and the Wide&Deep wide
+              table (d 1, nnz 2); timed there beside plain, the byte
+              bound, ``index_add_`` into zeros and ``F.embedding_bag``'s
+              backward. Then DLRM-RM2, Wide&Deep, DCN-v2 and BERT4Rec
+              through ``make_fn(cfg, "train")`` with ``adam_init``'s
+              state: for each CTR config one step's gradients through
+              the kernels against ``impl="plain"`` (each leaf within
+              TOL_RS_TRAIN_GRAD of its largest magnitude); 1 warm-up and
+              RS_TRAIN_TIMED synchronised steps (BERT4Rec's step takes
+              the batch as B4R_ONE_CARD_ACCUM = 16 microbatches of
+              4,096: ``optim.make_train_step`` over ``bert4rec.loss``
+              with RS_OPT and that ``accum_steps``), with the counts
+              set to 0 just before and read just after: s/step,
+              samples/s, peak memory above what was resident (under 80
+              GB in all), finite losses, every leaf moved, Adam's count,
+              and exactly 1, 2, 1, 0 launches of ``embedding_bag`` and
+              of ``embedding_bag_bwd`` a step. Each config is freed
+              before the next.
+  11. kernels each kernel against its plain version at the main paths'
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
@@ -220,6 +248,7 @@ HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
 # 16-byte code loads and float4 stores, LDG.E.128 and STG.E.128)
 TF32_LIB, TF32_MMA = "flash_attention_tf32", "F32.TF32"
 PQ_LIB, PQ_SASS = "pq_scoring", ("LDG.E.128", "STG.E.128", "LDS")
+EBAG_LIB = "embedding_bag"      # the EmbeddingBag forward and backward
 # TF32 on the tensor cores, dense; 3xTF32 takes three products an f32 one
 TF32_FLOP_PER_S = 495e12
 # the SIMT forward's own checks, at shapes still on its route: f32 at head
@@ -279,6 +308,13 @@ ADAM_CHECK_STEPS, TOL_ADAM, TOL_ADAM_NORM = 2, 1e-6, 1e-5
 # f64 after the cast
 TOL_FLASH_BWD = {"float32": 1e-4}
 RS_P99_CALLS, RS_BULK_CALLS, RS_RETRIEVAL_CALLS, RS_B4R_CALLS = 100, 5, 20, 50
+# recsys training: timed steps after one warm-up; one step's gradients,
+# the kernels against impl="plain", within TOL_RS_TRAIN_GRAD of each
+# leaf's largest magnitude (f32 sums of a row's slots in another order);
+# the EmbeddingBag backward against plain's in f64 within TOL_EBAG_BWD of
+# the largest |g| (f32), or one bf16 ulp (EBAG_BF16_RTOL) plus that
+RS_TRAIN_TIMED, TOL_RS_TRAIN_GRAD = 3, 1e-5
+TOL_EBAG_BWD, EBAG_BF16_RTOL = 1e-5, 2.0 ** -7
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
 TOL_RS_B4R_CPU = 1e-4
 RS_B4R_CPU_ROWS = 4
@@ -1365,6 +1401,298 @@ def lm_train_phase(torch, np, dev):
     return rep, launches
 
 
+def ebag_kernel(symbol: str):
+    """``embedding_bag_kernel<dtype,VEC>`` or ``ebag_bwd_*_kernel<...>``
+    for a mangled EmbeddingBag symbol, else None."""
+    import re
+    m = re.search(r"(embedding_bag_kernel|ebag_bwd_chunk_kernel|"
+                  r"ebag_bwd_combine_kernel)I(f|13__nv_bfloat16)Li(\d)E",
+                  symbol)
+    if m:
+        return f"{m[1]}<{'float' if m[2] == 'f' else 'bf16'},{m[3]}>"
+    return "ebag_bwd_keys_kernel" if "ebag_bwd_keys_kernel" in symbol \
+        else None
+
+
+def leaf_sum(torch, t) -> float:
+    """The f64 sum of a leaf, by row chunks (no f64 copy of a whole
+    leaf): a fingerprint that moves when the leaf moves."""
+    return float(sum(c.double().sum()
+                     for c in t.detach().reshape(-1).split(1 << 24)))
+
+
+def chunked_max_abs(torch, a, b) -> float:
+    """max |a - b| in f64 over chunks of the first axis of two tensors."""
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a.split(1 << 20), b.split(1 << 20)))
+
+
+def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
+    """The EmbeddingBag backward kernel against its plain version in f64 at
+    the train shapes (see the module docstring, phase 10); returns the
+    kernel row (its ``launches`` filled in by the caller)."""
+    import gc
+
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.data import recsys_synth
+    from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                                   embedding_bag_bwd_plain)
+    from repro_torch.models.recsys import common
+
+    B = rf.RS_SHAPES["train_batch"]["batch"]
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def shifted(cfg, spec):
+        b = recsys_synth.ctr_batch(
+            rng, batch=B, n_dense=cfg.n_dense, vocab_sizes=spec.vocab_sizes,
+            nnz=spec.nnz, device=dev)
+        idx = (b["sparse_idx"] + common.field_offsets(spec, dev)[
+            None, :, None]).contiguous()
+        return idx, b["sparse_w"], common.padded_rows(spec.total_rows)
+
+    def hold(label, dout, idx, w, V) -> dict:
+        got = embedding_bag_bwd_cuda(dout, idx, w, V)
+        again = embedding_bag_bwd_cuda(dout, idx, w, V)
+        torch.cuda.synchronize()
+        r = {"shape": list(idx.shape) + [V, dout.shape[-1]],
+             "dtype": str(dout.dtype).replace("torch.", ""),
+             "bitwise_repeat": bool(torch.equal(got, again))}
+        del again
+        exp = embedding_bag_bwd_plain(dout.double(), idx, w, V)
+        top = float(exp.abs().max())
+        r["max_abs_g"], r["max_abs_err"] = top, chunked_max_abs(torch, got,
+                                                                exp)
+        r["rel_err"] = r["max_abs_err"] / max(top, 1e-30)
+        if dout.dtype == torch.bfloat16:
+            # one bf16 ulp of each value plus the f32 limit
+            r["over_bf16_ulp"] = int(sum(
+                int(((x.double() - y).abs() > EBAG_BF16_RTOL * y.abs()
+                     + TOL_EBAG_BWD * top).sum())
+                for x, y in zip(got.split(1 << 20), exp.split(1 << 20))))
+            ok = r["over_bf16_ulp"] == 0
+        else:
+            ok = r["rel_err"] <= TOL_EBAG_BWD
+        r["zero_rows_match"] = bool(all(
+            torch.equal(x == 0, y == 0) for x, y in
+            zip(got.split(1 << 20), exp.split(1 << 20))))
+        print(f"embedding_bag_bwd {label}: " + json.dumps(r), flush=True)
+        check(ok, f"embedding_bag_bwd {label} differs from plain in f64: "
+              f"{r}")
+        check(r["bitwise_repeat"], f"embedding_bag_bwd {label} does not "
+              f"repeat bit for bit")
+        check(r["zero_rows_match"],
+              f"embedding_bag_bwd {label}: rows no slot names are not 0")
+        del got, exp
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    checks = {}
+    idx, w, V = shifted(rf.DLRM_RM2, rf.DLRM_RM2.sparse)
+    d = rf.DLRM_RM2.sparse.embed_dim
+    dout = torch.randn(*idx.shape[:2], d, generator=g, device=dev)
+    checks["dlrm_train_shape"] = hold("dlrm_train_shape", dout, idx, w, V)
+    hot = torch.full_like(idx, V // 3)           # every slot on one row
+    checks["hot_row"] = hold("hot_row", dout, hot, w, V)
+    del hot
+    edge = idx.clone()                 # negatives count from the end;
+    edge.view(-1)[::7] -= V            # every 13th slot out of range
+    edge.view(-1)[1::13] += V
+    checks["negative_and_out_of_range"] = hold(
+        "negative_and_out_of_range", dout, edge, w, V)
+    del edge
+    checks["bf16"] = hold("bf16", dout.bfloat16(), idx, w, V)
+    wide = rf.WIDE_DEEP.wide_spec
+    w_idx, w_w, w_V = shifted(rf.WIDE_DEEP, wide)
+    w_dout = torch.randn(*w_idx.shape[:2], 1, generator=g, device=dev)
+    checks["wide_d1"] = hold("wide_d1", w_dout, w_idx, w_w, w_V)
+    del w_idx, w_w, w_dout
+
+    # timed at DLRM-RM2's train shape, f32, beside plain and the library
+    Bk, Fk, nnz = idx.shape
+    flat = idx.view(-1).long()
+    src = (dout[:, :, None, :] * w[..., None]).reshape(-1, d)
+    row = {
+        "name": "embedding_bag_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/nn/embedding_bag.py:29 (no Pallas "
+                    "counterpart: XLA's scatter-add, the transpose of "
+                    "jnp.take)",
+        "max_abs_err": checks["dlrm_train_shape"]["max_abs_err"],
+        "ms": time_ms(torch, lambda: embedding_bag_bwd_cuda(dout, idx, w, V),
+                      iters=10),
+        "plain_ms": time_ms(torch, lambda: embedding_bag_bwd_plain(
+            dout, idx, w, V), iters=3, warmup=1),
+        "library_ms": time_ms(torch, lambda: torch.zeros(
+            V, d, device=dev).index_add_(0, flat, src), iters=10),
+        "library": "torch.zeros + index_add_ (float atomics)",
+        "shape": [Bk, Fk, nnz, V, d], "dtype": "float32",
+        "index_slots": idx.numel(), "distinct_rows": distinct_rows(idx, V),
+        "checks": checks, "ptxas": ptxas}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        nbytes(dout, idx, w) + V * d * 4, 2 * idx.numel() * d)
+    del src
+    # F.embedding_bag's backward alone (its graph kept), as a second yardstick
+    table = torch.zeros(V, d, device=dev, requires_grad=True)
+    out = torch.nn.functional.embedding_bag(
+        idx.view(Bk * Fk, nnz), table, per_sample_weights=w.view(Bk * Fk, nnz),
+        mode="sum")
+    gout = dout.view(Bk * Fk, d)
+    row["library_embedding_bag_bwd_ms"] = time_ms(
+        torch, lambda: torch.autograd.grad(out, table, gout,
+                                           retain_graph=True), iters=5)
+    del out, table, gout, dout, idx, w, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def recsys_train_phase(torch, np, dev, ptxas):
+    """The recsys family's training path at full width (see the module
+    docstring, phase 10). Returns (report, the embedding_bag_bwd kernel
+    row, the main path's embedding_bag launches by config)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import optim
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.data import recsys_synth
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import bert4rec, ctr
+    from repro_torch.optim.adam import leaves
+
+    B = rf.RS_SHAPES["train_batch"]["batch"]
+    rng = np.random.default_rng(23)
+
+    def resident() -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    resident()
+    row = ebag_bwd_checks(torch, np, dev, rng, ptxas)
+    rep = {"tol_grad_rel": TOL_RS_TRAIN_GRAD, "batch": B}
+    fwd_launches = {}
+    for cfg, per_step in ((rf.DLRM_RM2, 1), (rf.WIDE_DEEP, 2),
+                          (rf.DCN_V2, 1), (rf.BERT4REC, 0)):
+        base = resident()
+        is_ctr = cfg is not rf.BERT4REC
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = (ctr if is_ctr else bert4rec).init(gen, cfg)
+        t0 = time.perf_counter()
+        if is_ctr:
+            batch = recsys_synth.ctr_batch(
+                rng, batch=B, n_dense=cfg.n_dense,
+                vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+                device=dev)
+            accum = 1
+        else:
+            batch = recsys_synth.bert4rec_batch(
+                rng, batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                n_mask=cfg.n_mask, n_neg=cfg.n_neg,
+                mask_token=cfg.mask_token, device=dev)
+            accum = rf.B4R_ONE_CARD_ACCUM
+        r = {"resident_before_gb": base / 1e9,
+             "params_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+             "batch_s": time.perf_counter() - t0,
+             "accum_steps": accum, "microbatch": B // accum}
+
+        if is_ctr:
+            # one step's gradients, the kernels against impl="plain"
+            flat = [p.requires_grad_() for _, p in leaves(params)]
+            grads = {}
+            for impl in ("kernel", "plain"):
+                with torch.enable_grad():
+                    loss, _ = ctr.loss(params, cfg, batch, impl=impl)
+                    grads[impl] = torch.autograd.grad(loss, flat)
+                del loss
+            errs = {}
+            for (path, _), a, b in zip(leaves(params), grads["kernel"],
+                                       grads["plain"]):
+                top = max(float(b.abs().max()), 1e-30)
+                errs[path] = chunked_max_abs(torch, a.reshape(-1),
+                                             b.reshape(-1)) / top
+            del grads, a, b
+            worst = max(errs, key=errs.get)
+            r["grad_vs_plain"] = {"worst_leaf": worst,
+                                  "worst_rel_err": errs[worst],
+                                  "by_leaf": errs}
+            check(errs[worst] <= TOL_RS_TRAIN_GRAD,
+                  f"{cfg.name} gradient of {worst}, kernels vs plain, "
+                  f"differs by {errs[worst]} of its largest magnitude")
+            for p in flat:
+                p.requires_grad_(False)
+            del flat
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        r["grad_check_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        state = [params, optim.adam_init(params)]
+        if is_ctr:
+            step = rf.make_fn(cfg, "train")
+        else:     # the batch as microbatches, as the LM accumulation checks
+            step = optim.make_train_step(
+                lambda p, b: bert4rec.loss(p, cfg, b),
+                dataclasses.replace(rf.RS_OPT, accum_steps=accum))
+        before = {path: leaf_sum(torch, p) for path, p in leaves(params)}
+        losses = []
+
+        def one_step():
+            state[0], state[1], m = step(state[0], state[1], batch)
+            losses.append(float(m["loss"]))
+
+        # the main path: the counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        one_step()                                       # warm-up
+        torch.cuda.synchronize()
+        warm = ops.launch_counts()
+        ms = []
+        for _ in range(RS_TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        n_steps = 1 + RS_TRAIN_TIMED
+        launched = {k: counts[k] for k in ("embedding_bag",
+                                           "embedding_bag_bwd")}
+        fwd_launches[cfg.name] = launched["embedding_bag"]
+        r.update({
+            "steps": n_steps, "losses": losses,
+            "s_per_step": float(np.mean(ms)) / 1e3,
+            "step_ms": ms,
+            "samples_per_s": B / (float(np.mean(ms)) / 1e3),
+            "launches": launched,
+            "launches_per_step": {k: warm[k] for k in launched},
+            "count": int(state[1]["count"]),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "peak_total_gb": torch.cuda.max_memory_allocated() / 1e9})
+        after = {path: leaf_sum(torch, p) for path, p in leaves(state[0])}
+        r["leaves_moved"] = sum(before[k] != after[k] for k in before)
+        r["leaves"] = len(before)
+        rep[cfg.name] = r
+        print(f"recsys-train {cfg.name}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "grad_vs_plain"}), flush=True)
+        check(all(np.isfinite(losses)), f"{cfg.name} train losses {losses}")
+        check(r["leaves_moved"] == r["leaves"],
+              f"{cfg.name}: {r['leaves'] - r['leaves_moved']} parameter "
+              f"leaves did not move")
+        check(r["count"] == n_steps, f"{cfg.name} Adam count {r['count']}")
+        check(r["peak_total_gb"] < 80.0, f"{cfg.name} peak "
+              f"{r['peak_total_gb']} GB")
+        for k, n in launched.items():
+            check(n == n_steps * per_step and warm[k] == per_step,
+                  f"{cfg.name}: {n} {k} launches in {n_steps} steps "
+                  f"({warm[k]} in the first), expected {per_step} a step")
+        del state, params, batch, step
+    resident()
+    return rep, row, fwd_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1473,6 +1801,14 @@ def main() -> int:
           and all(pq_sass["LDG.E.128"][n] and pq_sass["STG.E.128"][n]
                   for n in wide),
           f"{PQ_LIB}: the tiled kernel's wide loads and stores: {pq_sass}")
+
+    # the EmbeddingBag forward and backward kernels: no spills
+    ptxas = ptxas_by_kernel(logs[EBAG_LIB], ebag_kernel)
+    check_no_spills(EBAG_LIB, ptxas)
+    report["hopper"][EBAG_LIB] = {"ptxas": ptxas}
+    print(f"{EBAG_LIB}: ptxas {ptxas}", flush=True)
+    check(len(ptxas) == 13, f"{EBAG_LIB}: expected 13 kernels, ptxas "
+          f"{ptxas}")
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -1919,6 +2255,11 @@ def main() -> int:
 
     # ----------------------------------------------------------- recsys
     report["recsys"], ebag_row = recsys_phase(torch, np, dev)
+
+    # ----------------------------------------------------- recsys-train
+    report["recsys_train"], ebag_bwd_row, rs_train_fwd = recsys_train_phase(
+        torch, np, dev, {k: v for k, v in report["hopper"][EBAG_LIB][
+            "ptxas"].items() if "bwd" in k})
 
     # ---------------------------------------------------------- kernels
     kernels = []
@@ -2403,12 +2744,26 @@ def main() -> int:
                    for cell in ("serve_p99", "serve_bulk", "retrieval_cand")
                    if isinstance(rs[name].get(cell), dict)
                    and "launches" in rs[name][cell]}
-    ebag_row["launches"] = sum(rs_launches.values())
+    ebag_row["launches"] = sum(rs_launches.values()) + sum(
+        rs_train_fwd.values())
     ebag_row["launches_by_path"] = {
-        "recsys": rs_launches, "serve": launches["embedding_bag"],
+        "recsys": rs_launches, "recsys_train": rs_train_fwd,
+        "serve": launches["embedding_bag"],
         "train": train_launches["embedding_bag"],
         "lm_prefill": prefill_launches["embedding_bag"]}
     kernels.append(ebag_row)
+    # its backward, checked and timed in the recsys-train phase
+    rt = report["recsys_train"]
+    ebag_bwd_row["launches_by_path"] = {
+        "recsys_train": {name: rt[name]["launches"]["embedding_bag_bwd"]
+                         for name in ("dlrm-rm2", "wide-deep", "dcn-v2",
+                                      "bert4rec")},
+        "serve": launches["embedding_bag_bwd"],
+        "train": train_launches["embedding_bag_bwd"],
+        "lm_prefill": prefill_launches["embedding_bag_bwd"]}
+    ebag_bwd_row["launches"] = sum(
+        ebag_bwd_row["launches_by_path"]["recsys_train"].values())
+    kernels.append(ebag_bwd_row)
 
     report["kernels"] = kernels
     report["card"] = card

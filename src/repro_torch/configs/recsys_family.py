@@ -1,10 +1,11 @@
-"""The recsys family's configurations and its serving entry points.
+"""The recsys family's configurations and its train and serving entry
+points.
 
 The four configs carry the exact widths of the JAX package's
 ``configs/recsys_family.py`` (Wide&Deep, DLRM-RM2, DCN-v2, BERT4Rec).
 ``make_fn`` is the counterpart of a JAX ``Cell.make_fn`` with no mesh,
-for the serve and retrieval shapes; training waits for the recsys
-training slice. The XLA dry-run machinery (``Cell``, ``abstract_args``)
+for the train, serve and retrieval shapes; ``train`` is fixed to the JAX
+cell's ``RS_OPT``. The XLA dry-run machinery (``Cell``, ``abstract_args``)
 has no counterpart in the port.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from repro_torch.device import check_device
 from repro_torch.models.recsys import bert4rec, ctr
 from repro_torch.models.recsys.common import SparseSpec, criteo_like_vocab
-from repro_torch.optim import AdamConfig
+from repro_torch.optim import AdamConfig, make_train_step
 
 RS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -26,6 +27,11 @@ RS_SHAPES = {
 }
 
 RS_OPT = AdamConfig(lr=1e-3, grad_clip=1.0)
+# BERT4Rec's train_batch on one 80 GB card: its gathered negatives at
+# B=65,536 ([B, 40, 100, 64] f32) take 67 GB, so the card's step takes the
+# batch as this many microbatches of 4,096, through RS_OPT with
+# accum_steps set (the shape chip_smoke.py and profile run)
+B4R_ONE_CARD_ACCUM = 16
 
 WIDE_DEEP = ctr.CTRConfig(
     name="wide-deep",
@@ -85,32 +91,42 @@ def reduced_b4r(cfg: bert4rec.Bert4RecConfig) -> bert4rec.Bert4RecConfig:
 
 def make_fn(cfg, kind: str, *, device="cuda"):
     """The step of ``kind`` for ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU; without a GPU the default raises), run
-    without autograd. The batch and the candidates are moved to
-    ``device``; the parameters must already live there.
+    caller asks for the CPU; without a GPU the default raises). The batch
+    and the candidates are moved to ``device``; the parameters and the
+    Adam state must already live there.
 
-    CTR configs: ``serve``: (params, batch) -> logits [B]; ``retrieval``:
-    (params, batch, cand [N, ctr_repr_dim]) -> top-100 (scores, rows).
-    BERT4Rec: ``serve``: (params, {"tokens"}) -> top-100 (scores, item
-    ids) over the whole catalogue; ``retrieval``: (params, {"tokens"},
-    cand_ids [N]) -> top-100 (scores, positions in cand_ids).
-    ``train`` waits for the recsys training slice.
+    ``train``: (params, opt_state, batch) -> (params, opt_state, metrics),
+    the loss's Adam step with ``RS_OPT`` (the JAX cell's), parameters and
+    moments updated in place. The CTR loss runs its lookups through the
+    EmbeddingBag kernel and the table's gradient through its backward
+    kernel; BERT4Rec's Cloze loss launches no kernel. Another
+    ``AdamConfig`` (``accum_steps=B4R_ONE_CARD_ACCUM``) goes through
+    ``optim.make_train_step`` over ``ctr.loss`` or ``bert4rec.loss``.
+    The serving steps run without autograd. CTR configs: ``serve``:
+    (params, batch) -> logits [B]; ``retrieval``: (params, batch, cand
+    [N, ctr_repr_dim]) -> top-100 (scores, rows). BERT4Rec: ``serve``:
+    (params, {"tokens"}) -> top-100 (scores, item ids) over the whole
+    catalogue; ``retrieval``: (params, {"tokens"}, cand_ids [N]) ->
+    top-100 (scores, positions in cand_ids).
     """
     is_ctr = isinstance(cfg, ctr.CTRConfig)
-    if kind == "serve":
+    mod = ctr if is_ctr else bert4rec
+    if kind == "train":
+        train = make_train_step(lambda p, b: mod.loss(p, cfg, b), RS_OPT)
+    elif kind == "serve":
         fn = ((lambda p, b: ctr.forward(p, cfg, b)) if is_ctr   # noqa: E731
               else (lambda p, b: bert4rec.serve(p, cfg, b, k=100)))
     elif kind == "retrieval":
-        mod = ctr if is_ctr else bert4rec
         fn = lambda p, b, c: mod.retrieval(p, cfg, b, c, k=100)  # noqa: E731
-    elif kind == "train":
-        raise NotImplementedError(
-            "recsys training (the Adam step and a backward through the "
-            "EmbeddingBag kernel) is not ported yet: ROADMAP Queue 1, "
-            "recsys training")
     else:
         raise ValueError(f"unknown recsys step kind: {kind!r}")
     device = check_device(device)
+
+    if kind == "train":
+        def train_step(params, opt_state, batch):
+            return train(params, opt_state,
+                         {k: v.to(device) for k, v in batch.items()})
+        return train_step
 
     @torch.no_grad()
     def step(params, batch, *cand):

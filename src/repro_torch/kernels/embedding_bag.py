@@ -1,5 +1,6 @@
-"""Fused EmbeddingBag (gather plus weighted sum over the bag): the plain
-PyTorch version and the CUDA kernel's wrapper (``csrc/embedding_bag.cu``).
+"""Fused EmbeddingBag (gather plus weighted sum over the bag) and its
+gradient with respect to the table: the plain PyTorch versions and the
+CUDA kernels' wrappers (``csrc/embedding_bag.cu``).
 
 ``out[b, f] = sum_n weights[b, f, n] * table[idx[b, f, n]]`` for a table
 [V, d], idx [B, F, nnz] int32 and weights [B, F, nnz] f32 or None (all
@@ -11,6 +12,13 @@ reference (``kernels/ref.py``): a negative index counts from the end,
 and an index outside [-V, V) reads a row of NaN, so its bag's output is
 NaN even where its weight is 0. (The Pallas kernel clamps such an index
 to a valid row instead; the port follows the reference.)
+
+The backward is the transpose of that read, as ``jax.vjp`` of the JAX
+package's XLA lookup gives it: ``g[r] = sum of weights * dout`` over the
+slots that name row r, a dense [V, d] gradient whose rows no slot names
+are 0; a slot outside [-V, V) adds nothing. The kernel sums in f32 in a
+fixed order (a stable sort of the slots by row, then fixed chunks), so
+it repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -25,7 +33,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNEL = CudaKernel("embedding_bag", "embedding_bag.cu", {
     "embedding_bag": [_P, _P, _P, _P, _L, _I, _L, _I, _I],
+    "embedding_bag_bwd_keys": [_P, _P, _L, _L],
+    "embedding_bag_bwd": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I],
 })
+# sorted slots in a chunk of the backward's first pass, which one group
+# of lanes walks: a row's n slots spread over about n / BWD_CHUNK groups,
+# at the cost of two partial rows of scratch a chunk
+BWD_CHUNK = 32
+_MAX_ROWS = 2 ** 31 - 1  # the backward's keys and slots are 32-bit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,6 +70,23 @@ def embedding_bag_plain(table, idx, weights=None):
     out = rows.sum(dim=-2).masked_fill(bad.any(dim=-1, keepdim=True),
                                        float("nan"))
     return out.to(table.dtype)
+
+
+def embedding_bag_bwd_plain(dout, idx, weights, num_rows: int):
+    """The table's gradient: dout [B, F, d], idx [B, F, nnz], weights
+    [B, F, nnz] or None -> [num_rows, d] in dout's dtype, by ``index_add_``
+    in f32 (in f64 when dout is f64), a slot outside [-V, V) adding
+    nothing."""
+    acc = torch.float64 if dout.dtype == torch.float64 else torch.float32
+    i, bad = _wrap(idx, num_rows)
+    d = dout.shape[-1]
+    src = dout.to(acc)[..., None, :].expand(*idx.shape, d)
+    if weights is not None:
+        src = src * weights.to(acc)[..., None]
+    src = src.masked_fill(bad[..., None], 0.0)
+    g = torch.zeros((num_rows, d), dtype=acc, device=dout.device)
+    g.index_add_(0, i.reshape(-1), src.reshape(-1, d))
+    return g.to(dout.dtype)
 
 
 def embedding_bag_cuda(table, idx, weights=None):
@@ -94,3 +126,54 @@ def embedding_bag_cuda(table, idx, weights=None):
                   weights.data_ptr() if weights is not None else None,
                   out.data_ptr(), V, d, B * F, nnz, _DTYPES[table.dtype])
     return out
+
+
+def embedding_bag_bwd_cuda(dout, idx, weights, num_rows: int):
+    """Launch the backward kernels; same contract as
+    ``embedding_bag_bwd_plain`` for dout in float32 or bfloat16 (the
+    table's dtype). Raises on anything the kernels do not take."""
+    check_device(dout)
+    if dout.dim() != 3 or idx.dim() != 3 or dout.shape[:2] != idx.shape[:2]:
+        raise ValueError(f"expected dout [B, F, d] and idx [B, F, nnz], got "
+                         f"{tuple(dout.shape)} and {tuple(idx.shape)}")
+    if dout.dtype not in _DTYPES:
+        raise TypeError(f"dout must be float32 or bfloat16, got "
+                        f"{dout.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if not 0 < num_rows <= _MAX_ROWS:
+        raise ValueError(f"the backward takes 1 to {_MAX_ROWS} rows, got "
+                         f"{num_rows}")
+    tensors = [("dout", dout), ("idx", idx)]
+    if weights is not None:
+        if weights.dtype != torch.float32 or weights.shape != idx.shape:
+            raise TypeError(f"weights must be float32 of idx's shape "
+                            f"{tuple(idx.shape)}, got {weights.dtype} "
+                            f"{tuple(weights.shape)}")
+        tensors.append(("weights", weights))
+    for name, t in tensors:
+        if t.device != dout.device:
+            raise ValueError(f"{name} is on {t.device}, dout on "
+                             f"{dout.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    d, n, nnz = dout.shape[-1], idx.numel(), idx.shape[-1]
+    if n > _MAX_ROWS:
+        raise ValueError(f"the backward takes at most {_MAX_ROWS} index "
+                         f"slots, got {n}")
+    grad = torch.zeros((num_rows, d), dtype=dout.dtype, device=dout.device)
+    if n == 0 or d == 0:
+        return grad
+    keys = torch.empty(n, dtype=torch.int32, device=dout.device)
+    KERNEL.launch("embedding_bag_bwd_keys", dout.device, idx.data_ptr(),
+                  keys.data_ptr(), n, num_rows)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    del keys
+    partial = torch.empty(2 * -(-n // BWD_CHUNK) * d, dtype=torch.float32,
+                          device=dout.device)
+    KERNEL.launch("embedding_bag_bwd", dout.device, sorted_keys.data_ptr(),
+                  perm.data_ptr(), dout.data_ptr(),
+                  weights.data_ptr() if weights is not None else None,
+                  grad.data_ptr(), partial.data_ptr(), n, num_rows, d, nnz,
+                  BWD_CHUNK, _DTYPES[dout.dtype])
+    return grad

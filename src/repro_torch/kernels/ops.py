@@ -5,13 +5,14 @@ how the tests run). A CUDA tensor launches the CUDA kernel, or raises:
 a device that is not sm_90, a missing ``nvcc``, a failed build or a
 failed launch is an error, never a reason to run something else.
 
-Bus attention and flash attention are differentiable: each goes through
-one ``torch.autograd.Function`` on every device, whose forward and
-backward are the CUDA kernels on the card and their plain versions on
-the CPU. The EmbeddingBag kernel has no backward (the JAX package gives
-its Pallas kernel no VJP): on the card ``embedding_bag`` raises when an
-input requires grad, rather than return an output that autograd cannot
-reach.
+Bus attention, flash attention and the EmbeddingBag are differentiable:
+each goes through one ``torch.autograd.Function`` on every device, whose
+forward and backward are the CUDA kernels on the card and their plain
+versions on the CPU. The EmbeddingBag's backward gives the table's
+gradient (the JAX package trains through XLA's take, whose transpose is a
+dense scatter-add; its Pallas kernel has no VJP). Its weights are batch
+data that no JAX cell differentiates: on every device ``embedding_bag``
+raises when they require grad, rather than drop their gradient.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ KERNELS = {**_bus.ROUTES,
                _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dq_wgmma"),
            "flash_attention_bwd_dkv_wgmma": (
                _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dkv_wgmma"),
-           "embedding_bag": (_ebag.KERNEL, "embedding_bag")}
+           "embedding_bag": (_ebag.KERNEL, "embedding_bag"),
+           "embedding_bag_bwd": (_ebag.KERNEL, "embedding_bag_bwd")}
 
 FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it
 
@@ -130,19 +132,38 @@ def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
     return _pq.pq_lut_scores_cuda(lut, codes, valid)
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    """(table, idx, weights) -> [B, F, d]. Saves idx and the weights; the
+    backward gives the table's dense gradient, idx and the weights none."""
+
+    @staticmethod
+    def forward(ctx, table, idx, weights):
+        ctx.save_for_backward(idx, weights)
+        ctx.num_rows = table.shape[0]
+        if table.device.type == "cpu":
+            return _ebag.embedding_bag_plain(table, idx, weights)
+        return _ebag.embedding_bag_cuda(table, idx, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, weights = ctx.saved_tensors
+        bwd = (_ebag.embedding_bag_bwd_plain if dout.device.type == "cpu"
+               else _ebag.embedding_bag_bwd_cuda)
+        return bwd(dout.contiguous(), idx, weights, ctx.num_rows), None, None
+
+
 def embedding_bag(table, idx, weights=None):
     """table: [V, d]; idx: [B, F, nnz] int32; weights: [B, F, nnz] f32 or
-    None (all ones) -> [B, F, d] in the table's dtype. On a CUDA tensor
-    this is forward only: a table or weights that require grad raise."""
-    if table.device.type == "cpu":
-        return _ebag.embedding_bag_plain(table, idx, weights)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (table, weights)):
+    None (all ones) -> [B, F, d] in the table's dtype, differentiable in
+    the table. Weights that require grad raise under autograd, on every
+    device: no JAX cell differentiates them, and nothing computes their
+    gradient."""
+    if (torch.is_grad_enabled() and weights is not None
+            and weights.requires_grad):
         raise NotImplementedError(
-            "embedding_bag on the card is forward only: the kernel has no "
-            "backward, so a table or weights that require grad would lose "
-            "their gradient")
-    return _ebag.embedding_bag_cuda(table, idx, weights)
+            "embedding_bag has no backward for the weights: only the "
+            "table gets a gradient")
+    return _EmbeddingBag.apply(table, idx, weights)
 
 
 def _libraries():

@@ -7,6 +7,7 @@ the serve slice's recall goes.
     python -m repro_torch.launch.profile --lm [--out PATH]
     python -m repro_torch.launch.profile --lm-train [--out PATH]
     python -m repro_torch.launch.profile --recsys [--out PATH]
+    python -m repro_torch.launch.profile --recsys-train [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
 random weights, a ``make_loader`` corpus, IVF-PQ with nlist from the
@@ -51,6 +52,16 @@ batch) after one warm call: device time by kernel name and the device's
 busy share, printed and written to ``--out`` (default
 ``chiprun_out/profile_recsys.json``).
 
+With ``--recsys-train`` it instead profiles the recsys family's training
+path at ``train_batch``'s B=65,536, each step after one warm step: one
+DLRM-RM2 step through ``make_fn(cfg, "train")`` (the fused 32,710,656 x
+64 f32 table, its Adam moments, seeded random weights, a ``recsys_synth``
+batch), then one BERT4Rec step as ``B4R_ONE_CARD_ACCUM`` microbatches of
+4,096: device time by kernel name and the device's busy share, with the
+EmbeddingBag's kernels (the forward, the backward's keys, chunk and
+combine passes) named apart, printed and written to ``--out`` (default
+``chiprun_out/profile_recsys_train.json``).
+
 With ``--recall-repeat`` it instead studies where the spread of recall@10
 between runs comes from (``recall_repeat``), and writes the corpus
 embeddings and the probe users' vectors to ``--vectors-out`` (an .npz that
@@ -78,7 +89,7 @@ from repro_torch.launch.serve import Recommender, _pad_histories
 from repro_torch.launch.train import first_batch_of_bucket, make_loader
 from repro_torch.data import recsys_synth
 from repro_torch.models import lm
-from repro_torch.models.recsys import ctr
+from repro_torch.models.recsys import bert4rec, ctr
 from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
@@ -90,13 +101,16 @@ FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                "flash_bwd_dkv_wgmma_kernel", "split_kv_kernel",
                "flash_fwd_tf32_kernel", "flash_fwd_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# the EmbeddingBag's: the forward, and the backward's three passes
+EBAG_NAMES = ("embedding_bag_kernel", "ebag_bwd_keys_kernel",
+              "ebag_bwd_chunk_kernel", "ebag_bwd_combine_kernel")
 
 
 def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
     """Device time by kernel name from a profile, and the busy share;
-    each flash kernel that ran (FLASH_NAMES) also apart, with its calls,
-    device ms and share of the wall time, whether or not it is among the
-    ``top``."""
+    each flash or EmbeddingBag kernel that ran (FLASH_NAMES, EBAG_NAMES)
+    also apart, with its calls, device ms and share of the wall time,
+    whether or not it is among the ``top``."""
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(e.device_type):
@@ -112,8 +126,9 @@ def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
            "kernels": [{"name": k[:90], "calls": n, "device_ms": us / 1e3}
                        for us, n, k in rows[:top]]}
     out["named"] = {}
-    for part in FLASH_NAMES:
-        hit = [(us, n) for us, n, k in rows if f"{part}<" in k]
+    for part in FLASH_NAMES + EBAG_NAMES:
+        hit = [(us, n) for us, n, k in rows
+               if f"{part}<" in k or f"{part}(" in k]
         if hit:
             ms = sum(us for us, _ in hit) / 1e3
             out["named"][part] = {
@@ -217,6 +232,45 @@ def profile_recsys(dev) -> dict:
     serve = recsys_family.make_fn(cfg, "serve", device=dev)
     out = _profiled(lambda: serve(params, batch))
     out.update(config=cfg.name, batch=B)
+    return out
+
+
+def profile_recsys_train(dev, cfg) -> dict:
+    """``torch.profiler`` over one train step of ``cfg`` at
+    ``train_batch``'s B=65,536 (the smoke's shape), after one warm step:
+    a CTR config through ``make_fn(cfg, "train")``, BERT4Rec as
+    ``B4R_ONE_CARD_ACCUM`` microbatches through ``optim.make_train_step``
+    with ``RS_OPT`` and that ``accum_steps``."""
+    B = recsys_family.RS_SHAPES["train_batch"]["batch"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(23)
+    torch.cuda.reset_peak_memory_stats()
+    if isinstance(cfg, ctr.CTRConfig):
+        params = ctr.init(gen, cfg)
+        batch = recsys_synth.ctr_batch(
+            rng, batch=B, n_dense=cfg.n_dense,
+            vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+            device=dev)
+        step = recsys_family.make_fn(cfg, "train", device=dev)
+        accum = 1
+    else:
+        params = bert4rec.init(gen, cfg)
+        batch = recsys_synth.bert4rec_batch(
+            rng, batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+            n_mask=cfg.n_mask, n_neg=cfg.n_neg, mask_token=cfg.mask_token,
+            device=dev)
+        accum = recsys_family.B4R_ONE_CARD_ACCUM
+        step = optim.make_train_step(
+            lambda p, b: bert4rec.loss(p, cfg, b),
+            dataclasses.replace(recsys_family.RS_OPT, accum_steps=accum))
+    state = [params, optim.adam_init(params)]
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    out = _profiled(run, top=24)
+    out.update(config=cfg.name, batch=B, accum_steps=accum,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return out
 
 
@@ -380,6 +434,9 @@ def main(argv=None):
                     help="profile one Qwen3-14B train step (8 layers)")
     ap.add_argument("--recsys", action="store_true",
                     help="profile one DLRM-RM2 serve_bulk forward")
+    ap.add_argument("--recsys-train", action="store_true",
+                    help="profile one DLRM-RM2 and one BERT4Rec train step "
+                         "(B=65,536)")
     ap.add_argument("--recall-repeat", action="store_true",
                     help="run only the recall-repeat study")
     ap.add_argument("--vectors-out", default="chiprun_out/recall_vectors.npz")
@@ -415,6 +472,15 @@ def main(argv=None):
         report = {"card": card, "serve_bulk": profile_recsys(dev)}
         _write(args.out or "chiprun_out/profile_recsys.json", report)
         _print_table("dlrm-rm2 serve_bulk", report["serve_bulk"])
+        print(card)
+        return report
+    if args.recsys_train:
+        report = {"card": card}
+        for cfg in (recsys_family.DLRM_RM2, recsys_family.BERT4REC):
+            report[cfg.name] = profile_recsys_train(dev, cfg)
+            _print_table(f"{cfg.name} train step", report[cfg.name])
+            torch.cuda.empty_cache()
+        _write(args.out or "chiprun_out/profile_recsys_train.json", report)
         print(card)
         return report
     _, log, store, lcfg = make_loader(PROD, n_news=args.news, seed=0)

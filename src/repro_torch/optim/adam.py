@@ -56,16 +56,19 @@ def leaves(tree, prefix: str = ""):
 
 
 def unflatten(like, values):
-    """A tree shaped like ``like`` holding ``values`` in ``leaves`` order."""
-    it = iter(values)
+    """A tree shaped like ``like`` holding ``values`` in ``leaves`` order.
+    (A module-level helper, not a recursive closure: such a closure is a
+    reference cycle, and would keep ``values``, a step's gradients, alive
+    until Python's cycle collector ran.)"""
+    return _build(like, iter(values))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-    return build(like)
+
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return [_build(v, it) for v in node]
+    return next(it)
 
 
 def tree_map(fn, tree):

@@ -37,6 +37,9 @@ LSE_TOL = 1e-4        # f32 either way: sums of exp in another order
 # order (exact for nnz <= 2); bf16 rounds those f32 sums once, so one ulp
 # (2^-7 of the value) apart at most, plus the f32 gap near 0
 EBAG_TOL_F32, EBAG_BF16_RTOL = 2e-5, 2.0 ** -7
+# its backward vs plain: f32 sums of a row's slots in another order,
+# within 1e-5 of the largest |g|; bf16 rounds those sums once (one ulp)
+EBAG_BWD_REL = 1e-5
 
 
 @pytest.fixture
@@ -1192,13 +1195,14 @@ def test_embedding_bag_wrapper_refuses_what_the_kernel_does_not_take(
                                     .contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="table on"):
         ebag_mod.embedding_bag_cuda(table, idx.cpu(), w)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.embedding_bag(table.clone().requires_grad_(), idx, w)
+    # a table that requires grad has its backward kernel; weights do not
+    out = ops.embedding_bag(table.clone().requires_grad_(), idx, w)
+    assert out.shape == (4, 3, 16) and out.grad_fn is not None
     with pytest.raises(NotImplementedError, match="backward"):
         ops.embedding_bag(table, idx, w.clone().requires_grad_())
     with torch.no_grad():                          # no graph: forward only
-        assert ops.embedding_bag(table.clone().requires_grad_(), idx,
-                                 w).shape == (4, 3, 16)
+        assert ops.embedding_bag(table, idx, w.clone().requires_grad_()
+                                 ).shape == (4, 3, 16)
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda *a, **kw: (8, 0))
     with pytest.raises(RuntimeError, match="sm_90a"):
@@ -1238,3 +1242,185 @@ def test_recsys_forward_on_cuda_goes_through_the_kernel(cuda, monkeypatch):
             assert ops.launch_counts()["embedding_bag"] == \
                 before + per_forward, name
         assert float((got.cpu() - exp).abs().max()) <= 1e-5, name
+
+
+def _ebag_bwd(V, d, B, F, nnz, dev, dtype=torch.float32, seed=0, lo=0,
+              hi=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dout = torch.randn(B, F, d, generator=g, device=dev).to(dtype)
+    idx = torch.randint(lo, V if hi is None else hi, (B, F, nnz),
+                        generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand(B, F, nnz, generator=g, device=dev)
+    return dout, idx, w
+
+
+def _hold_ebag_bwd(got, dout, idx, w, V):
+    """The kernel's gradient against plain's in f64: within EBAG_BWD_REL of
+    the largest |g| (f32), or one bf16 ulp plus that (bf16)."""
+    exp = ebag_mod.embedding_bag_bwd_plain(dout.double(), idx, w, V)
+    assert got.dtype == dout.dtype and got.shape == exp.shape
+    top = float(exp.abs().max())
+    err = (got.double() - exp).abs()
+    if dout.dtype == torch.float32:
+        assert float(err.max()) <= EBAG_BWD_REL * max(top, 1e-30)
+    else:
+        lim = EBAG_BF16_RTOL * exp.abs() + EBAG_BWD_REL * top
+        assert bool((err <= lim).all())
+    return exp
+
+
+@pytest.mark.parametrize("d", [1, 7, 16, 32, 64, 160])
+@pytest.mark.parametrize("nnz", [1, 2, 16])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_bwd_cuda_matches_plain(cuda, d, nnz, weighted, dtype):
+    V = 1000
+    dout, idx, w = _ebag_bwd(V, d, 67, 13, nnz, cuda, dtype)
+    w = w if weighted else None
+    got = ebag_mod.embedding_bag_bwd_cuda(dout, idx, w, V)
+    torch.cuda.synchronize()
+    _hold_ebag_bwd(got, dout, idx, w, V)
+    plain = ebag_mod.embedding_bag_bwd_plain(dout, idx, w, V)
+    assert torch.equal(got == 0, plain == 0)    # untouched rows stay 0
+
+
+@pytest.mark.parametrize("d", [1, 16, 64])
+@pytest.mark.parametrize("hot", ["one_row", "few_rows", "runs_across"])
+def test_embedding_bag_bwd_cuda_hot_rows(cuda, d, hot):
+    """Every slot on one row; a handful of rows over 65,536 slots (the
+    Criteo 4-row fields); runs that end on, before and past chunk edges."""
+    V, B, F = 5000, 4096, 16
+    dout, idx, w = _ebag_bwd(V, d, B, F, 1, cuda)
+    if hot == "one_row":
+        idx.fill_(17)
+    elif hot == "few_rows":
+        idx.remainder_(4)
+    else:
+        # run lengths 1..97 over consecutive rows: ends fall everywhere
+        lens = torch.arange(1, 98, device=cuda).repeat(40)
+        rows = torch.repeat_interleave(torch.arange(lens.numel(),
+                                                    device=cuda), lens)
+        idx = rows[:B * F].to(torch.int32).view(B, F, 1).contiguous()
+    got = ebag_mod.embedding_bag_bwd_cuda(dout, idx, w, V)
+    torch.cuda.synchronize()
+    _hold_ebag_bwd(got, dout, idx, w, V)
+    again = ebag_mod.embedding_bag_bwd_cuda(dout, idx, w, V)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d", [1, 64])
+def test_embedding_bag_bwd_cuda_negative_and_out_of_range(cuda, d):
+    V = 50
+    dout, idx, w = _ebag_bwd(V, d, 300, 3, 2, cuda, lo=-2 * V, hi=2 * V)
+    idx[0, 0] = torch.tensor([-1, V], device=cuda)     # row V-1; dropped
+    got = ebag_mod.embedding_bag_bwd_cuda(dout, idx, w, V)
+    torch.cuda.synchronize()
+    _hold_ebag_bwd(got, dout, idx, w, V)
+    assert bool(torch.isfinite(got).all())
+    # every slot out of range: nothing added anywhere
+    far = torch.where(idx >= 0, idx + 2 * V, idx - 2 * V).to(torch.int32)
+    assert not bool(ebag_mod.embedding_bag_bwd_cuda(dout, far, w, V).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_bwd_cuda_is_bitwise_deterministic(cuda, dtype):
+    V = 200                       # many slots a row, over many chunks
+    dout, idx, w = _ebag_bwd(V, 64, 2048, 26, 1, cuda, dtype)
+    runs = [ebag_mod.embedding_bag_bwd_cuda(dout, idx, w, V)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_embedding_bag_bwd_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda):
+    V = 100
+    dout, idx, w = _ebag_bwd(V, 16, 4, 3, 2, cuda)
+    bwd = ebag_mod.embedding_bag_bwd_cuda
+    with pytest.raises(TypeError, match="int32"):
+        bwd(dout, idx.long(), w, V)
+    with pytest.raises(TypeError, match="weights"):
+        bwd(dout, idx, w.double(), V)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bwd(dout.half(), idx, w, V)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(dout.transpose(0, 1).contiguous().transpose(0, 1), idx, w, V)
+    with pytest.raises(ValueError, match="dout on"):
+        bwd(dout, idx.cpu(), w, V)
+    with pytest.raises(ValueError, match=r"\[B, F, d\]"):
+        bwd(dout[:2], idx, w, V)
+    with pytest.raises(ValueError, match="rows"):
+        bwd(dout, idx, w, 2 ** 31)
+    with pytest.raises(RuntimeError, match="on a cpu tensor"):
+        bwd(dout.cpu(), idx.cpu(), w.cpu(), V)
+
+
+def test_embedding_bag_grad_on_cuda_goes_through_both_kernels(cuda,
+                                                              monkeypatch):
+    """Under autograd the forward launches ``embedding_bag`` and the
+    backward ``embedding_bag_bwd``, once each; no plain version runs."""
+    V = 300
+    table = torch.randn(V, 32, device=cuda, requires_grad=True)
+    _, idx, w = _ebag_bwd(V, 32, 64, 5, 2, cuda)
+    dout = torch.randn(64, 5, 32, device=cuda)
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(ebag_mod, "embedding_bag_plain", refuse)
+    monkeypatch.setattr(ebag_mod, "embedding_bag_bwd_plain", refuse)
+    before = ops.launch_counts()
+    out = ops.embedding_bag(table, idx, w)
+    (g,) = torch.autograd.grad(out, table, dout)
+    after = ops.launch_counts()
+    assert after["embedding_bag"] == before["embedding_bag"] + 1
+    assert after["embedding_bag_bwd"] == before["embedding_bag_bwd"] + 1
+    monkeypatch.undo()
+    exp = ebag_mod.embedding_bag_bwd_plain(dout, idx, w, V)
+    assert float((g - exp).abs().max()) <= EBAG_BWD_REL * float(
+        exp.abs().max())
+
+
+def test_recsys_train_steps_on_the_card_match_the_cpu(cuda):
+    """Two train steps of each recsys config at its reduced size, on the
+    card and on the CPU from the same state: losses and parameters within
+    1e-4; the CTR steps launch the EmbeddingBag and its backward once a
+    table, BERT4Rec neither."""
+    from repro_torch import optim
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.data import recsys_synth
+    from repro_torch.models.recsys import bert4rec, ctr
+    from repro_torch.optim.adam import leaves
+
+    for name, tables in (("DLRM_RM2", 1), ("WIDE_DEEP", 2), ("DCN_V2", 1),
+                         ("BERT4REC", 0)):
+        if name == "BERT4REC":
+            cfg = rf.reduced_b4r(rf.BERT4REC)
+            params = bert4rec.init(torch.Generator().manual_seed(0), cfg)
+            batches = [recsys_synth.bert4rec_batch(
+                np.random.default_rng(i), batch=16, seq_len=cfg.seq_len,
+                n_items=cfg.n_items, n_mask=cfg.n_mask, n_neg=cfg.n_neg,
+                mask_token=cfg.mask_token, device="cpu") for i in range(2)]
+        else:
+            cfg = rf.reduced_ctr(getattr(rf, name))
+            params = ctr.init(torch.Generator().manual_seed(0), cfg)
+            batches = [recsys_synth.ctr_batch(
+                np.random.default_rng(i), batch=64, n_dense=cfg.n_dense,
+                vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+                device="cpu") for i in range(2)]
+        p_d = _to(params, cuda)
+        o_d, o_c = optim.adam_init(p_d), optim.adam_init(params)
+        step_d, step_c = rf.make_fn(cfg, "train"), rf.make_fn(
+            cfg, "train", device="cpu")
+        before = ops.launch_counts()
+        for b in batches:
+            p_d, o_d, m_d = step_d(p_d, o_d, b)
+            params, o_c, m_c = step_c(params, o_c, b)
+            assert abs(float(m_d["loss"]) - float(m_c["loss"])) <= 1e-4, \
+                name
+        after = ops.launch_counts()
+        for k in ("embedding_bag", "embedding_bag_bwd"):
+            assert after[k] - before[k] == 2 * tables, (name, k)
+        for (path, a), (_, b) in zip(leaves(p_d), leaves(params)):
+            assert float((a.detach().cpu() - b.detach()).abs().max()) \
+                <= 1e-4, (name, path)

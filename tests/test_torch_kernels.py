@@ -19,7 +19,8 @@ from repro.kernels.ref import pq_lut_scores as pq_ref  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.bus_attention import (  # noqa: E402
     bus_attention_cuda, bus_attention_plain)
-from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402,E501
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_bwd_cuda, embedding_bag_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd_plain)
 from repro_torch.kernels.pq_scoring import (  # noqa: E402
@@ -159,6 +160,9 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                                     dtype=torch.int32)
     assert torch.equal(ops.embedding_bag(table, idx),
                        embedding_bag_plain(table, idx))
+    tg = table.clone().requires_grad_()            # its plain backward too
+    ops.embedding_bag(tg, idx).sum().backward()
+    assert float(tg.grad.sum()) == 4 * table.shape[1]
     assert ops.launch_counts() == {"bus_attention": 0,
                                    "bus_attention_bwd": 0,
                                    "bus_attention_simt": 0,
@@ -172,7 +176,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                    "flash_attention_bwd_dkv": 0,
                                    "flash_attention_bwd_dq_wgmma": 0,
                                    "flash_attention_bwd_dkv_wgmma": 0,
-                                   "embedding_bag": 0}
+                                   "embedding_bag": 0,
+                                   "embedding_bag_bwd": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -182,6 +187,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     lut, codes, valid = _pq_inputs(2, 8, 32, 40, 2, 2, np.uint8)
     with pytest.raises(RuntimeError, match="CUDA kernel"):
         pq_lut_scores_cuda(torch.tensor(lut), torch.tensor(codes))
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        embedding_bag_bwd_cuda(torch.zeros(2, 3, 4),
+                               torch.zeros(2, 3, 1, dtype=torch.int32), None,
+                               10)
 
 
 def test_kernels_refuse_a_device_that_is_not_sm90(monkeypatch):

@@ -233,7 +233,7 @@ def _run_steps(name, accum_steps, B, count, n_steps=3):
     params = _jax_params(jcfg, seed=1)
     jopt = dict(joptim.adam_init(params), count=jnp.int32(count))
     p_t = bridge.params_from_jax(_np(params), "cpu")
-    o_t = bridge.lm_opt_from_jax(_np(jopt), "cpu")
+    o_t = bridge.opt_from_jax(_np(jopt), "cpu")
     jstep = jax.jit(joptim.make_train_step(
         lambda p, b: jax_lm.lm_loss(p, jcfg, b), jopt_cfg,
         joptim.linear_warmup_cosine(3e-4, 200, 10000)))
@@ -306,7 +306,7 @@ def test_lm_opt_from_jax_splits_the_stacked_moments():
     opt = {"m": jax.tree.map(lambda a: a + 1.5, opt["m"]),
            "v": jax.tree.map(lambda a: a + 0.25, opt["v"]),
            "count": jnp.int32(7)}
-    got = bridge.lm_opt_from_jax(_np(opt), "cpu")
+    got = bridge.opt_from_jax(_np(opt), "cpu")
     assert len(got["m"]["layers"]) == jcfg.n_layers
     assert got["count"].dtype == torch.int32 and int(got["count"]) == 7
     for tree, value in ((got["m"], 1.5), (got["v"], 0.25)):
