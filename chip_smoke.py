@@ -54,7 +54,25 @@ Phases, each of which exits non-zero on failure:
      (train) kernels and through the plain path on the same parameters,
               batch and draws: loss within 1e-4, every gradient leaf
               within 1e-3 of that leaf's largest magnitude.
-  7. lm       the LM family's serving path: Qwen3-14B at full width and
+  7. ckpt     checkpoints, resume and supervised restarts at PROD on the
+              train phase's store and batcher, under build/ckpt_smoke
+              (removed at the end): free disk of at least 2.5 x the
+              snapshot's bytes; ``save_state`` of the train phase's final
+              state, ``restore_state`` into ``init_state(seed=1)`` (every
+              leaf ``torch.equal``, the same step and generator state);
+              one ``Trainer.step`` on the top-bucket batch from the
+              restored and from the saved state (the same loss within
+              1e-4, reported bit for bit or as its difference); the
+              ``AsyncCheckpointer``'s host snapshot and write. Then
+              ``fit_supervised`` of a new PROD trainer for 4 steps,
+              checkpointing every 2, with a fault armed at ``train.step``
+              step 3: 1 restart, resumed from step 2, 4 steps done, finite
+              losses, and, counted around that fit alone, exactly 2 x 12 x
+              5 forward and 12 x 5 backward bus launches (3 steps before
+              the crash, 2 after the resume), none on the SIMT pair.
+              Prints the snapshot's bytes and the seconds and GB/s of the
+              save, the restore and the async snapshot beside the card.
+  8. lm       the LM family's serving path: Qwen3-14B at full width and
               depth (40 layers, d 5120, 40/8 heads of 128, d_ff 17,408,
               vocab 151,936, qk-norm) in bf16, random weights from a
               seeded generator. One warm-up and one timed prefill at B=1,
@@ -70,7 +88,7 @@ Phases, each of which exits non-zero on failure:
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit; bf16 goes through the
               Hopper flash forward, f32 through the 3xTF32 one.
-  8. lm-train the LM family's training path: Qwen3-14B at full width, 8
+  9. lm-train the LM family's training path: Qwen3-14B at full width, 8
               of its 40 layers, bf16 parameters and f32 Adam moments
               (seeded), B=2 at train_4k's S=4,096 (labels the tokens
               shifted left, -100 last), through ``make_fn(cfg,
@@ -95,7 +113,7 @@ Phases, each of which exits non-zero on failure:
               it splits into row chunks (embed, head, FFN) against the
               same update of the whole leaf and against Adam in f64
               (TOL_ADAM).
-  9. recsys   the recsys family's serving path at full width, f32,
+  10. recsys  the recsys family's serving path at full width, f32,
               seeded random weights, batches from ``recsys_synth``:
               DLRM-RM2 (26 fields, criteo_like_vocab, d 64: a fused
               32,710,656 x 64 table, 8.37 GB), Wide&Deep (40 fields, d
@@ -115,7 +133,7 @@ Phases, each of which exits non-zero on failure:
               launches, its first rows against the same serve on the CPU;
               its serve_bulk would need a 3.1 TB score matrix and is left
               out. Each config's tables are freed before the next.
-  10. recsys-train the recsys family's training path at full width, f32,
+  11. recsys-train the recsys family's training path at full width, f32,
               seeded random weights, ``recsys_synth`` batches at
               train_batch's B=65,536: first the EmbeddingBag backward
               kernel against its plain version in f64 (within
@@ -141,7 +159,7 @@ Phases, each of which exits non-zero on failure:
               and exactly 1, 2, 1, 0 launches of ``embedding_bag`` and
               of ``embedding_bag_bwd`` a step. Each config is freed
               before the next.
-  11. kernels each kernel against its plain version at the main paths'
+  12. kernels each kernel against its plain version at the main paths'
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
@@ -219,6 +237,10 @@ TOL_DISTORTION = 0.01            # share of residual energy PQ codes lose
 TOL_BWD = 1e-4                   # backward kernel vs plain, f32
 TOL_LOSS, TOL_GRAD = 1e-4, 1e-3  # train step, kernel vs plain path
 TRAIN_STEPS, TIMED_STEPS, PLAIN_E = 4, 3, 256
+# the ckpt phase: free disk for two snapshots and a half (the supervised
+# fit holds two on disk at once); a fit of CKPT_STEPS checkpointing every
+# CKPT_EVERY, crashed once after step CKPT_CRASH_AT
+CKPT_DISK_FACTOR, CKPT_STEPS, CKPT_EVERY, CKPT_CRASH_AT = 2.5, 4, 2, 3
 TOL_FLASH = {"float32": 2e-4, "bfloat16": 2e-2}   # the JAX tests' own
 # bf16 flash output, element-wise, on top of the flat limit: both versions
 # round an f32 result to bf16, so they differ by at most one bf16 ulp,
@@ -824,7 +846,7 @@ def gathered_bytes(idx, V: int, row_bytes: int) -> int:
 
 def recsys_phase(torch, np, dev):
     """The recsys family's serving path at full width (see the module
-    docstring, phase 8). Returns (report, the embedding_bag kernel row).
+    docstring, phase 10). Returns (report, the embedding_bag kernel row).
     Memory is reported above what was resident when a config began."""
     import gc
 
@@ -1170,7 +1192,7 @@ def adam_by_chunks(torch, names, params, grads) -> dict:
 
 
 def lm_train_phase(torch, np, dev):
-    """The LM family's training path (see the module docstring, phase 8).
+    """The LM family's training path (see the module docstring, phase 9).
     Returns (report, the launch counts of the timed run's four steps)."""
     import dataclasses
     import gc
@@ -1429,7 +1451,7 @@ def chunked_max_abs(torch, a, b) -> float:
 
 def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
     """The EmbeddingBag backward kernel against its plain version in f64 at
-    the train shapes (see the module docstring, phase 10); returns the
+    the train shapes (see the module docstring, phase 11); returns the
     kernel row (its ``launches`` filled in by the caller)."""
     import gc
 
@@ -1549,7 +1571,7 @@ def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
 
 def recsys_train_phase(torch, np, dev, ptxas):
     """The recsys family's training path at full width (see the module
-    docstring, phase 10). Returns (report, the embedding_bag_bwd kernel
+    docstring, phase 11). Returns (report, the embedding_bag_bwd kernel
     row, the main path's embedding_bag launches by config)."""
     import dataclasses
     import gc
@@ -1691,6 +1713,139 @@ def recsys_train_phase(torch, np, dev, ptxas):
         del state, params, batch, step
     resident()
     return rep, row, fwd_launches
+
+
+def ckpt_phase(torch, np, dev, cfg, card, trainer, state, top_batch, top,
+               make_batcher):
+    """The checkpoint, resume and restart path at PROD (see the module
+    docstring, phase 7). Returns (report, the bus launches of the
+    supervised fit)."""
+    import shutil
+
+    from repro_torch import checkpoint as ckpt, training
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adam import leaves
+    from repro_torch.resilience import FaultPlan, faults, fit_supervised
+
+    def state_leaves(s):
+        return ([t for _, t in leaves(s.params)]
+                + [t for _, t in leaves(s.opt)]
+                + [s.cache.emb, s.cache.written_step])
+
+    root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # the snapshot's bytes, as written: every leaf of the on-disk tree
+        snap_bytes = sum(int(t.numel()) * t.element_size()
+                         for t in state_leaves(state)) + 4 \
+            + state.rng.get_state().numel()
+        free = shutil.disk_usage(root).free
+        rep = {"card": card, "snapshot_bytes": snap_bytes,
+               "disk_free_bytes": free}
+        check(free >= CKPT_DISK_FACTOR * snap_bytes,
+              f"ckpt: {free} bytes free under {root}, need "
+              f"{CKPT_DISK_FACTOR} x the snapshot's {snap_bytes}")
+
+        # a synchronous save of the train phase's final state, and its
+        # restore into a fresh state of another seed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        training.save_state(str(root / "sync"), state.step, state)
+        rep["save_s"] = time.perf_counter() - t0
+        like = trainer.init_state(seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, got = training.restore_state(str(root / "sync"), like)
+        torch.cuda.synchronize()
+        rep["restore_s"] = time.perf_counter() - t0
+        del like
+        same = [torch.equal(a, b) for a, b in
+                zip(state_leaves(got), state_leaves(state))]
+        rep["leaves_equal"] = f"{sum(same)}/{len(same)}"
+        check(all(same), f"ckpt: restored leaves differ ({rep['leaves_equal']}"
+              f" equal)")
+        check(step == got.step == state.step,
+              f"ckpt: restored step {step}/{got.step}, saved {state.step}")
+        check(got.rng.device.type == dev.type and torch.equal(
+            got.rng.get_state(), state.rng.get_state()),
+            "ckpt: the restored generator's state differs")
+
+        # one step on one top-bucket batch from each: the same loss
+        got, m_got = trainer.step(got, top_batch, top)
+        state, m_saved = trainer.step(state, top_batch, top)
+        l_got, l_saved = float(m_got["loss"]), float(m_saved["loss"])
+        rep.update({"loss_restored": l_got, "loss_saved": l_saved,
+                    "loss_bit_for_bit": bool(torch.equal(m_got["loss"],
+                                                         m_saved["loss"])),
+                    "loss_abs_diff": abs(l_got - l_saved)})
+        check(np.isfinite(l_got) and abs(l_got - l_saved) <= TOL_LOSS,
+              f"ckpt: a step from the restored state gives loss {l_got}, "
+              f"from the saved one {l_saved}")
+        del got, m_got, m_saved
+
+        # the async writer: the host snapshot (what save blocks on) and
+        # the write behind it
+        writer = ckpt.AsyncCheckpointer(str(root / "async"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        training.save_state(str(root / "async"), state.step, state,
+                            writer=writer)
+        rep["async_snapshot_s"] = time.perf_counter() - t0
+        writer.wait()
+        rep["async_total_s"] = time.perf_counter() - t0
+        for k in ("save", "restore", "async_snapshot", "async_total"):
+            rep[f"{k}_gb_per_s"] = snap_bytes / 1e9 / rep[f"{k}_s"]
+        shutil.rmtree(root / "sync")
+        shutil.rmtree(root / "async")
+        torch.cuda.empty_cache()
+
+        # supervised restarts: a crash after step 3, the resume from the
+        # step-2 checkpoint, steps 3 and 4 again
+        plan = FaultPlan().fail("train.step", step=CKPT_CRASH_AT)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with faults.armed(plan):
+            res = fit_supervised(
+                training.get_trainer("speedyfeed", cfg=cfg, device=dev),
+                make_batcher, steps=CKPT_STEPS, ckpt_dir=str(root / "fit"),
+                ckpt_every=CKPT_EVERY, max_restarts=1, backoff_s=0,
+                log_every=CKPT_EVERY)
+        torch.cuda.synchronize()
+        fit_launches = ops.launch_counts()
+        rep["supervised"] = {
+            "fit_s": time.perf_counter() - t0, "restarts": res.restarts,
+            "resumed_from": res.resumed_from, "steps_done": res.steps_done,
+            "losses_after_resume": res.losses,
+            "faults_fired": plan.fired("train.step"),
+            "launches": fit_launches}
+        print("ckpt: " + json.dumps(rep), flush=True)
+        check(res.restarts == 1 and plan.fired("train.step") == 1,
+              f"ckpt: {res.restarts} restarts, "
+              f"{plan.fired('train.step')} faults fired")
+        check(res.resumed_from == CKPT_EVERY,
+              f"ckpt: resumed from {res.resumed_from}")
+        check(res.steps_done == res.state.step == CKPT_STEPS,
+              f"ckpt: {res.steps_done} steps done")
+        check(len(res.losses) == CKPT_STEPS - CKPT_EVERY
+              and all(np.isfinite(res.losses)),
+              f"ckpt: losses after the resume {res.losses}")
+        # 3 steps before the crash, 2 after the resume from step 2
+        n = CKPT_CRASH_AT + CKPT_STEPS - CKPT_EVERY
+        L = cfg.plm.n_layers
+        check(fit_launches["bus_attention"] == 2 * L * n
+              and fit_launches["bus_attention_bwd"] == L * n,
+              f"ckpt: bus launches {fit_launches}, expected {2 * L * n} "
+              f"forward and {L * n} backward")
+        check(fit_launches["bus_attention_simt"] == 0
+              and fit_launches["bus_attention_bwd_simt"] == 0,
+              "ckpt: the supervised fit sent a bus launch to the SIMT "
+              "kernels")
+        del res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rep, state, fit_launches
 
 
 def main() -> int:
@@ -2055,6 +2210,11 @@ def main() -> int:
           f"key-bias gradients are not ~0: {zero_leaves}")
     del grads, gk, gp, flat
 
+    # ------------------------------------------------------------- ckpt
+    report["ckpt"], state, ckpt_launches = ckpt_phase(
+        torch, np, dev, cfg, card, trainer, state, top_batch, top,
+        make_batcher)
+
     # --------------------------------------------------------------- lm
     # the trainer's memory goes first; the peak counts from here
     del trainer, state, res, top_batch, watch, now, neg
@@ -2278,9 +2438,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
         "replaces": "src/repro/kernels/bus_attention.py:92",
         "launches": launches["bus_attention"]
-        + train_launches["bus_attention"],
+        + train_launches["bus_attention"] + ckpt_launches["bus_attention"],
         "launches_by_path": {"serve": launches["bus_attention"],
-                             "train": train_launches["bus_attention"]},
+                             "train": train_launches["bus_attention"],
+                             "ckpt": ckpt_launches["bus_attention"]},
         **fwd_row})
     del q, k, v, kv_mask
 
@@ -2291,9 +2452,11 @@ def main() -> int:
         "name": "bus_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
         "replaces": "src/repro/kernels/bus_attention.py:115",
-        "launches": train_launches["bus_attention_bwd"],
+        "launches": train_launches["bus_attention_bwd"]
+        + ckpt_launches["bus_attention_bwd"],
         "launches_by_path": {"serve": launches["bus_attention_bwd"],
-                             "train": train_launches["bus_attention_bwd"]},
+                             "train": train_launches["bus_attention_bwd"],
+                             "ckpt": ckpt_launches["bus_attention_bwd"]},
         **on_route(ops, tc_bwd, lambda: bus_bwd_row(torch, qb, kb, vb, mb,
                                                     dob))})
     # the forward at the step's shape (a step launches it 24 times with
@@ -2342,9 +2505,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bus_attention_simt.cu",
             "replaces": f"src/repro/kernels/bus_attention.py{replaces}",
-            "launches": launches[name] + train_launches[name],
+            "launches": launches[name] + train_launches[name]
+            + ckpt_launches[name],
             "launches_by_path": {"serve": launches[name],
-                                 "train": train_launches[name]},
+                                 "train": train_launches[name],
+                                 "ckpt": ckpt_launches[name]},
             **on_route(ops, name, fn)})
     del qs_, ks_, vs_, ms_, dos_
 

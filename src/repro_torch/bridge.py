@@ -4,6 +4,14 @@ into the port.
 The functions take plain numpy arrays (the caller converts the JAX
 arrays, e.g. ``jax.tree.map(np.asarray, tree)``), so this module needs
 neither framework's arrays beyond torch.
+
+The two packages lay out a stack of layers differently: JAX keeps one
+``layers`` dict whose leaves carry a leading ``n_layers`` axis (from
+``jax.vmap``, scanned by ``jax.lax.scan``), the port a list of per-layer
+dicts. ``split_layers`` and ``stack_layers`` are the one conversion in
+each direction; ``params_from_jax`` and the checkpoint code
+(``training/state.py``, whose files are JAX's layout) both use them. A
+JAX checkpoint directory is read by ``training.state.restore_state``.
 """
 from __future__ import annotations
 
@@ -29,6 +37,60 @@ def tensor_from_jax(leaf, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.array(arr)).to(device)
 
 
+def split_layers(tree):
+    """JAX's layout -> the port's: every ``layers`` dict of stacked leaves
+    (a leading ``n_layers`` axis) becomes a list of per-layer dicts whose
+    leaves index that axis (views, not copies). Other dicts and list nodes
+    keep their shape; leaves are numpy arrays or tensors."""
+    def conv(node, *, stacked=False):
+        if isinstance(node, dict):
+            if stacked:
+                return [conv(_index(node, i)) for i in range(_leading(node))]
+            return {k: conv(v, stacked=(k == "layers")) for k, v in
+                    node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        return node
+
+    return conv(tree)
+
+
+def stack_layers(tree):
+    """The port's layout -> JAX's, the inverse of ``split_layers``: every
+    ``layers`` list of per-layer dicts becomes one dict whose leaves stack
+    the layers' on a new leading axis (``torch.stack`` for tensors, a copy
+    on their device; ``np.stack`` for arrays). Other nodes keep their
+    shape, and their leaves are the tree's own."""
+    def conv(node, *, stacked=False):
+        if isinstance(node, dict):
+            return {k: conv(v, stacked=(k == "layers")) for k, v in
+                    node.items()}
+        if isinstance(node, list):
+            if stacked:
+                return _stack(node)
+            return [conv(v) for v in node]
+        return node
+
+    return conv(tree)
+
+
+def _stack(items):
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack([it[k] for it in items]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack([t.detach() for t in items])
+    return np.stack([np.asarray(t) for t in items])
+
+
+def _map_leaves(fn, node):
+    if isinstance(node, dict):
+        return {k: _map_leaves(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_leaves(fn, v) for v in node]
+    return fn(node)
+
+
 def params_from_jax(tree, device="cuda"):
     """A JAX parameter tree (dicts and lists of numpy leaves) -> the port's
     tree.
@@ -36,21 +98,12 @@ def params_from_jax(tree, device="cuda"):
     Dense weights keep their ``[in, out]`` layout and every leaf its dtype
     (bf16 included). A stacked ``layers`` subtree (a leading ``n_layers``
     axis from ``jax.vmap``, as in the PLM and the LM) is split into a list
-    of per-layer dicts. A list node (DCN-v2's ``cross``, BERT4Rec's
-    ``blocks``) stays a list, each element carried over in turn.
+    of per-layer dicts (``split_layers``). A list node (DCN-v2's
+    ``cross``, BERT4Rec's ``blocks``) stays a list, each element carried
+    over in turn.
     """
-    def conv(node, *, stacked=False):
-        if isinstance(node, dict):
-            if stacked:
-                n = _leading(node)
-                return [conv(_index(node, i)) for i in range(n)]
-            return {k: conv(v, stacked=(k == "layers")) for k, v in
-                    node.items()}
-        if isinstance(node, list):
-            return [conv(v) for v in node]
-        return tensor_from_jax(node, device)
-
-    return conv(tree)
+    return _map_leaves(lambda leaf: tensor_from_jax(leaf, device),
+                       split_layers(tree))
 
 
 def lm_cache_from_jax(cache, device="cuda") -> dict:
@@ -79,13 +132,14 @@ def opt_from_jax(opt, device="cuda") -> dict:
 def _leading(node) -> int:
     while isinstance(node, dict):
         node = next(iter(node.values()))
-    return int(np.shape(node)[0])
+    return int((node.shape if isinstance(node, torch.Tensor)
+                else np.shape(node))[0])
 
 
 def _index(node, i):
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
-    return np.asarray(node)[i]
+    return (node if isinstance(node, torch.Tensor) else np.asarray(node))[i]
 
 
 def state_from_jax(params, opt, cache, step: int, *, seed: int = 0,

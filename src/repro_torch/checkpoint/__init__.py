@@ -1,0 +1,2 @@
+from .ckpt import (AsyncCheckpointer, CheckpointCorruptError, all_steps,
+                   latest_step, restore, save)

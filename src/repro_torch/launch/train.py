@@ -1,12 +1,17 @@
 """Train SpeedyFeed (Algorithm 1) end to end, and the configuration and
 corpus helpers the launchers share.
 
-  python -m repro_torch.launch.train --steps 20 [--seed 0] [--device cuda]
+  python -m repro_torch.launch.train --steps 200 [--seed 0] [--device cuda]
+      [--ckpt-dir ckpt --ckpt-every 50] [--max-restarts 2]
+      [--chaos-crash-at STEP] [--metrics-out metrics.jsonl]
 
 ``train_speedyfeed`` runs the registry's ``"speedyfeed"`` Trainer over the
 DynamicBatcher (two loader threads, work stealing) on a synthetic
 Microsoft-News-like corpus, through the async device prefetcher. It runs
-on the card unless ``device="cpu"`` is asked for.
+on the card unless ``device="cpu"`` is asked for. With ``ckpt_dir`` it
+checkpoints the state (the JAX package's format) and resumes from the
+newest valid step on boot; ``max_restarts > 0`` runs it under
+``resilience.fit_supervised``.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ import argparse
 
 import numpy as np
 
-from repro_torch import core, data, training
+from repro_torch import core, data, obs, training
 from repro_torch.device import check_device
+from repro_torch.resilience import FaultPlan, faults, fit_supervised
 
 
 def small_speedyfeed_config(**over):
@@ -63,11 +69,20 @@ def first_batch_of_bucket(log, store, lcfg, bucket: int, *, seed: int = 0):
         batcher.stop()
 
 
-def train_speedyfeed(*, steps: int, seed: int = 0, cfg=None,
-                     log_every: int = 20, prefetch_depth: int = 2,
+def train_speedyfeed(*, steps: int, ckpt_dir: str | None = None,
+                     ckpt_every: int = 50, seed: int = 0, cfg=None,
+                     fail_at: int | None = None, log_every: int = 20,
+                     async_ckpt: bool = True, prefetch_depth: int = 2,
+                     max_restarts: int = 0, backoff_s: float = 0.05,
                      device="cuda") -> training.TrainResult:
     """Train end to end at ``cfg`` (the small configuration unless given)
-    on ``make_loader``'s corpus."""
+    on ``make_loader``'s corpus. ``fail_at`` injects a crash (restart
+    tests).
+
+    ``max_restarts > 0`` runs the loop under ``fit_supervised``: a
+    transient crash (injected fault, lost batch, non-finite-loss bailout)
+    restarts from the latest valid checkpoint with backoff, up to
+    ``max_restarts`` times."""
     device = check_device(device)
     cfg = cfg or small_speedyfeed_config()
     _, log, store, lcfg = make_loader(cfg, seed=seed)
@@ -77,8 +92,15 @@ def train_speedyfeed(*, steps: int, seed: int = 0, cfg=None,
         return data.DynamicBatcher(log, store, lcfg, n_threads=2,
                                    seed=seed + 1_000_003 * epoch).start()
 
-    return trainer.fit(make_batcher, steps=steps, seed=seed,
-                       log_every=log_every, prefetch_depth=prefetch_depth)
+    fit_kw = dict(seed=seed, ckpt_every=ckpt_every, async_ckpt=async_ckpt,
+                  log_every=log_every, fail_at=fail_at,
+                  prefetch_depth=prefetch_depth)
+    if max_restarts > 0:
+        return fit_supervised(trainer, make_batcher, steps=steps,
+                              ckpt_dir=ckpt_dir, max_restarts=max_restarts,
+                              backoff_s=backoff_s, **fit_kw)
+    return trainer.fit(make_batcher, steps=steps, ckpt_dir=ckpt_dir,
+                       **fit_kw)
 
 
 def main(argv=None):
@@ -87,14 +109,48 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here, and resume from its newest "
+                         "valid step on boot (a JAX run's too)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--metrics-out", default=None,
+                    help="append obs-registry JSONL snapshots here "
+                         "(periodic + one final)")
+    ap.add_argument("--metrics-every", type=float, default=10.0,
+                    help="periodic snapshot cadence, seconds")
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="supervise the run: restart from the latest valid "
+                         "checkpoint up to N times on transient failures")
+    ap.add_argument("--chaos-crash-at", type=int, default=None, metavar="STEP",
+                    help="fault injection: crash the step loop ONCE at STEP "
+                         "(fires through repro_torch.resilience.faults, so "
+                         "the restarted attempt runs through); pair with "
+                         "--max-restarts to smoke-test auto-resume")
     args = ap.parse_args(argv)
-    res = train_speedyfeed(steps=args.steps, seed=args.seed,
-                           device=args.device)
+    obs.reset()      # this run's registry export is exactly this run
+    if args.metrics_out:
+        obs.configure_reporter(path=args.metrics_out,
+                               every_s=args.metrics_every)
+    if args.chaos_crash_at is not None:
+        faults.arm(FaultPlan().fail("train.step", step=[args.chaos_crash_at]))
+    try:
+        res = train_speedyfeed(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                               ckpt_every=args.ckpt_every, seed=args.seed,
+                               max_restarts=args.max_restarts,
+                               device=args.device)
+    finally:
+        faults.disarm()
     loss = (f"loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; "
-            if res.losses else "no steps run; ")
+            if res.losses else "no new steps (already trained); ")
     print(f"done: {res.steps_done} steps in {res.wall_seconds:.1f}s; " + loss
           + f"buckets {res.bucket_steps}; host stall "
-          f"{res.host_stall_fraction:.1%}")
+          f"{res.host_stall_fraction:.1%}"
+          + (f" (restarts {res.restarts})" if res.restarts else "")
+          + (f" (resumed from {res.resumed_from})"
+             if res.resumed_from is not None else ""))
+    if args.metrics_out:
+        obs.tick(force=True)
+        print(f"metrics snapshot -> {args.metrics_out}")
     return res
 
 

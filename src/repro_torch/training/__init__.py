@@ -1,19 +1,24 @@
-"""Training runtime: TrainState, the bucketed Trainer and the
-host-to-device prefetcher.
+"""Training runtime: TrainState, the bucketed Trainer, the
+host-to-device prefetcher and the state's checkpoints.
 
 Batches arrive on the device from a background thread (the
 ``DevicePrefetcher`` over the ``DynamicBatcher``), each at its own
 seg-length bucket, so a short-segment batch runs a short step. Step
 metrics stay on the device in a ``MetricsBuffer`` and are fetched in one
 transfer every ``log_every`` steps: the step loop never waits on the
-device in between. Checkpoints are not ported yet.
+device in between. Checkpoints keep the JAX package's on-disk layout
+(``{params, opt, cache}`` with stacked ``layers``, ``cache::age``
+accepted as a legacy alias of ``cache::written_step``), so a checkpoint
+written by either package restores in the other.
 """
 from .prefetch import STREAM_END, DevicePrefetcher, PrefetchedBatch
 from .registry import get_trainer, register_trainer, registered_trainers
-from .state import TrainState, make_state
-from .trainer import MetricsBuffer, NonFiniteLossError, Trainer, TrainResult
+from .state import (CKPT_ALIASES, CKPT_OPTIONAL, TrainState, from_ckpt_tree,
+                    make_state, restore_state, save_state, to_ckpt_tree)
+from .trainer import MetricsBuffer, Trainer, TrainResult
 
 __all__ = ["STREAM_END", "DevicePrefetcher", "PrefetchedBatch",
            "get_trainer", "register_trainer", "registered_trainers",
-           "TrainState", "make_state", "MetricsBuffer", "NonFiniteLossError",
-           "Trainer", "TrainResult"]
+           "CKPT_ALIASES", "CKPT_OPTIONAL", "TrainState", "from_ckpt_tree",
+           "make_state", "restore_state", "save_state", "to_ckpt_tree",
+           "MetricsBuffer", "Trainer", "TrainResult"]

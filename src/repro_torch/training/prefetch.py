@@ -14,6 +14,12 @@ needed.
 The prefetcher also owns epoch turnover: on ``EPOCH_END`` it stops the
 exhausted batcher and starts the next epoch's, so the consumer sees one
 uninterrupted batch stream.
+
+Obs: the ``prefetch.h2d`` fault site fires before each copy (its
+exception reaches ``get`` with its own type), the copy is timed as the
+``prefetch_h2d`` span, ``prefetch_queue_depth`` gauges the batches
+waiting on the device, and ``prefetch_thread_leaks_total`` counts
+producers abandoned by ``stop``.
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ import warnings
 
 import torch
 
-from repro_torch import data
+from repro_torch import data, obs
 from repro_torch.device import check_device
+from repro_torch.resilience import faults
 
 # producer finished cleanly (max_epochs reached, queue drained); distinct
 # from None, which means timeout
@@ -63,6 +70,10 @@ class DevicePrefetcher:
         self._finished = threading.Event()
         self._error: BaseException | None = None
         self._thread: threading.Thread | None = None
+        # device-ready batches waiting for the step thread: 0 at steady
+        # state means the consumer is input-bound, == depth means the
+        # producer keeps ahead (what double buffering is for)
+        self._g_depth = obs.gauge("prefetch_queue_depth")
 
     def start(self) -> "DevicePrefetcher":
         if self._device.type == "cuda":
@@ -100,11 +111,14 @@ class DevicePrefetcher:
                 stats = item.pop("_stats", None)
                 bucket = int(item.pop("_bucket",
                                       (stats or {}).get("seg_len", 0)))
-                pb = PrefetchedBatch(bucket, self._to_device(item), stats,
-                                     epoch)
+                faults.fire("prefetch.h2d", step=epoch)
+                with obs.span("prefetch_h2d"):
+                    arrays = self._to_device(item)
+                pb = PrefetchedBatch(bucket, arrays, stats, epoch)
                 while not self._stop.is_set():
                     try:
                         self._q.put(pb, timeout=0.1)   # backpressure
+                        self._g_depth.set(self._q.qsize())
                         break
                     except queue.Full:
                         continue
@@ -125,7 +139,9 @@ class DevicePrefetcher:
                 err, self._error = self._error, None
                 raise err
             try:
-                return self._q.get(timeout=0.05)
+                pb = self._q.get(timeout=0.05)
+                self._g_depth.set(self._q.qsize())
+                return pb
             except queue.Empty:
                 if self._finished.is_set() and self._q.empty():
                     if self._error is not None:   # a crash is not a clean
@@ -137,13 +153,16 @@ class DevicePrefetcher:
     def stop(self, timeout: float = 5.0):
         """Shut the producer down. Never raises (safe in ``finally``);
         producer errors surface through ``get``. A producer that does not
-        join within ``timeout`` is left as a daemon thread, with a
-        warning."""
+        join within ``timeout`` is left as a daemon thread, never silently:
+        the leak is counted (``prefetch_thread_leaks_total``) and warned
+        about, so a supervisor restarting the trainer can see threads pile
+        up."""
         self._stop.set()
         t = self._thread
         if t is not None:
             t.join(timeout=timeout)
             if t.is_alive():
+                obs.counter("prefetch_thread_leaks_total").inc()
                 warnings.warn(
                     f"prefetch producer thread did not stop within "
                     f"{timeout}s and was abandoned (daemon)", stacklevel=2)

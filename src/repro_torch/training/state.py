@@ -1,18 +1,41 @@
-"""TrainState: what the training runtime threads through every step.
+"""TrainState: what the training runtime threads through every step, and
+its checkpoints.
 
 ``step`` is a host integer (the step draws need no device value) and
 ``rng`` the generator on the device from which each step takes its cache
 gate and negatives. Parameters, Adam moments and the cache are updated in
 place by the step; the state's tuple is rebuilt each step with the next
 ``step``.
+
+On disk a state is the JAX package's layout, ``{params, opt, cache: {emb,
+written_step}, step}`` with JAX's stacked ``layers`` arrays, so the same
+keys, shapes, dtypes and bytes (and so the same checksums) as a JAX
+checkpoint of the same state. JAX keeps a PRNG key ``rng`` (uint32[2])
+that a torch generator has no form of: the port writes its generator's
+``get_state()`` bytes under ``torch_rng`` instead. Each package restores
+the other's checkpoints: the key the other package wrote is ignored, and
+the restoring state keeps its own generator or key (``CKPT_OPTIONAL``).
+Legacy checkpoints that named the cache timestamp ``age`` restore through
+``CKPT_ALIASES``.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.core import CacheState
+
+# legacy (pre-Trainer) on-disk names, keyed by the current flattened key
+CKPT_ALIASES = {"cache::written_step": "cache::age"}
+# leaves absent from legacy checkpoints and from the other package's:
+# restored states keep the init value
+CKPT_OPTIONAL = ("step", "rng", "torch_rng")
+# the bytes of a generator's ``get_state()`` on each device type (CPU:
+# mt19937's state; CUDA: Philox's seed and offset)
+GEN_STATE_BYTES = {"cpu": 5056, "cuda": 16}
 
 
 class TrainState(NamedTuple):
@@ -28,3 +51,79 @@ def make_state(params, opt, cache, *, step: int = 0,
     if rng is None:
         rng = torch.Generator(device=cache.emb.device).manual_seed(0)
     return TrainState(params, opt, cache, int(step), rng)
+
+
+def to_ckpt_tree(state: TrainState) -> dict:
+    """The on-disk checkpoint layout of a TrainState (see the module
+    docstring). The stacked ``layers`` leaves are new tensors on the
+    state's device; every other leaf is the state's own."""
+    from repro_torch.bridge import stack_layers
+    return {"params": stack_layers(state.params),
+            "opt": stack_layers(state.opt),
+            "cache": {"emb": state.cache.emb,
+                      "written_step": state.cache.written_step},
+            "step": np.int32(state.step),
+            "torch_rng": state.rng.get_state()}
+
+
+def _generator(saved, like: torch.Generator) -> torch.Generator:
+    """A generator on ``like``'s device holding the ``saved`` state bytes;
+    ``like`` itself where the checkpoint holds none (a JAX checkpoint)."""
+    if saved is None:
+        return like
+    saved = torch.from_numpy(np.array(saved, dtype=np.uint8))
+    gen = torch.Generator(device=like.device)
+    want = gen.get_state().numel()
+    if saved.numel() != want:
+        kind = {n: dev for dev, n in GEN_STATE_BYTES.items()}.get(
+            saved.numel(), "unknown")
+        raise ValueError(
+            f"the checkpoint's generator state is {saved.numel()} bytes (a "
+            f"{kind} generator's) but this state's generator is on "
+            f"{like.device} ({want} bytes): a generator's state does not "
+            f"move between device types; restore into a state on the "
+            f"device the checkpoint was written from")
+    gen.set_state(saved)
+    return gen
+
+
+def from_ckpt_tree(tree: dict, step: int, like: TrainState) -> TrainState:
+    """A restored checkpoint tree (host arrays) -> a TrainState on
+    ``like``'s device, the ``layers`` split into per-layer lists. The
+    directory step is authoritative (legacy checkpoints have no step
+    leaf)."""
+    from repro_torch.bridge import opt_from_jax, params_from_jax
+    device = like.cache.emb.device
+    cache = CacheState(
+        torch.from_numpy(tree["cache"]["emb"]).to(device),
+        torch.from_numpy(tree["cache"]["written_step"]).to(device))
+    return TrainState(params_from_jax(tree["params"], device),
+                      opt_from_jax(tree["opt"], device), cache, int(step),
+                      _generator(tree["torch_rng"], like.rng))
+
+
+def save_state(ckpt_dir: str, step: int, state: TrainState, *,
+               writer: "ckpt.AsyncCheckpointer | None" = None, keep: int = 3):
+    tree = to_ckpt_tree(state)
+    if writer is not None:
+        writer.save(step, tree)
+    else:
+        ckpt.save(ckpt_dir, step, tree, keep=keep)
+
+
+def restore_state(ckpt_dir: str, like: TrainState, step: int | None = None
+                  ) -> tuple[int, TrainState]:
+    """Restore a TrainState written by either package (the current layout,
+    or the legacy ``{params, opt, cache: {emb, age}}`` one) into ``like``'s
+    structure and device. The one reader of a checkpoint directory in the
+    port, JAX's included.
+
+    A port checkpoint's generator state is restored too (a CPU generator's
+    into a CPU state, a CUDA one's into a CUDA state; across device types
+    ``ValueError``); a checkpoint without one keeps ``like``'s generator.
+    """
+    like_tree = to_ckpt_tree(like)
+    like_tree["torch_rng"] = None        # any size: the device's own
+    step, tree = ckpt.restore(ckpt_dir, like_tree, step,
+                              aliases=CKPT_ALIASES, missing_ok=CKPT_OPTIONAL)
+    return step, from_ckpt_tree(tree, step, like)

@@ -12,6 +12,11 @@ the cache keep their old values, decided on the device by a select, and
 the step still advances. The step reports it as ``nonfinite_step``;
 ``fit`` raises ``NonFiniteLossError`` after ``max_consecutive_nonfinite``
 such steps in a row (checked when the metrics are drained).
+
+``fit`` checkpoints the state every ``ckpt_every`` steps in the JAX
+package's format (``training/state.py``) and resumes from the newest valid
+step of ``ckpt_dir``, a JAX run's included; ``resilience.fit_supervised``
+restarts it through transient failures.
 """
 from __future__ import annotations
 
@@ -22,15 +27,14 @@ import warnings
 
 import torch
 
+from repro_torch import checkpoint as ckpt, obs
 from repro_torch.device import check_device
 from repro_torch.distributed.straggler import StepTimeMonitor
+from repro_torch.resilience import faults
+from repro_torch.resilience.supervise import NonFiniteLossError
 
 from .prefetch import STREAM_END, DevicePrefetcher
-from .state import TrainState
-
-
-class NonFiniteLossError(RuntimeError):
-    """Too many consecutive steps with a non-finite loss."""
+from .state import TrainState, restore_state, save_state
 
 
 class MetricsBuffer:
@@ -40,12 +44,16 @@ class MetricsBuffer:
     ``max_pending`` bounds the backlog when the caller never drains.
     Every drained scalar is appended to a bounded per-key ``history``
     (``history_len`` entries); non-scalar entries are kept in ``last``
-    only, with one warning per key.
+    only, with one warning per key. ``on_drain`` (if given) receives each
+    drained chunk as a list of host metric dicts: the Trainer feeds the
+    obs registry's cache counters from it.
     """
 
-    def __init__(self, max_pending: int = 512, history_len: int = 4096):
+    def __init__(self, max_pending: int = 512, history_len: int = 4096,
+                 on_drain=None):
         self.max_pending = max_pending
         self.history_len = history_len
+        self._on_drain = on_drain
         self._pending = []
         self._warned: set = set()
         self.losses: list = []
@@ -96,8 +104,43 @@ class MetricsBuffer:
                             f"kept in .last but not in the history",
                             stacklevel=2)
             self.losses.extend(float(m["loss"]) for m in host if "loss" in m)
-            self.last = host[-1]
+            # finite_metrics routes NaN/Inf scalars into the obs
+            # nonfinite_metrics_total counter (one warning per key)
+            from repro_torch.configs.base import finite_metrics
+            self.last = finite_metrics(host[-1])
+            if self._on_drain is not None:
+                self._on_drain(host)
         return self.last
+
+
+_CACHE_COUNTER_KEYS = (
+    # per-step cache scalars of core/cache.py's plan
+    # (pipeline.speedyfeed_forward) -> process counters, the paper's
+    # headline cache-reuse signal
+    ("cache_hits", "cache_hits_total"),
+    ("cache_misses", "cache_misses_total"),
+    ("cache_expired", "cache_expired_total"),
+    ("cache_overflow", "cache_overflow_total"),
+)
+
+
+def _feed_cache_obs(host_metrics: list):
+    """MetricsBuffer drain hook: fold the drained per-step cache scalars
+    into obs counters and refresh the derived hit-rate gauge (plus the
+    non-finite-guard skip counter, which drains on the same cadence)."""
+    skipped = sum(float(m.get("nonfinite_step", 0.0)) for m in host_metrics)
+    if skipped:
+        obs.counter("train_nonfinite_steps_total").inc(skipped)
+    for key, name in _CACHE_COUNTER_KEYS:
+        total = sum(float(m[key]) for m in host_metrics if key in m)
+        if total:
+            obs.counter(name).inc(total)
+    hits = obs.counter("cache_hits_total").value
+    misses = obs.counter("cache_misses_total").value
+    expired = obs.counter("cache_expired_total").value
+    looked = hits + misses + expired
+    if looked:
+        obs.gauge("cache_hit_rate").set(hits / looked)
 
 
 def _trailing_nonfinite(history: dict) -> int:
@@ -121,6 +164,9 @@ class TrainResult:
     host_stall_fraction: float = 0.0
     state: object = None      # the final TrainState
     history: dict = dataclasses.field(default_factory=dict)  # key -> values
+    resumed_from: int | None = None   # the checkpoint step fit resumed from
+    # restarts consumed by resilience.fit_supervised (0 for a plain fit)
+    restarts: int = 0
 
 
 class Trainer:
@@ -160,28 +206,61 @@ class Trainer:
                           state.rng), metrics
 
     def fit(self, make_batcher, *, steps: int, state: TrainState | None = None,
-            seed: int = 0, ckpt_dir: str | None = None, log_every: int = 20,
-            prefetch_depth: int = 2, batch_timeout: float = 60.0,
+            seed: int = 0, ckpt_dir: str | None = None, ckpt_every: int = 50,
+            async_ckpt: bool = True, log_every: int = 20,
+            fail_at: int | None = None, prefetch_depth: int = 2,
+            batch_timeout: float = 60.0,
             max_consecutive_nonfinite: int = 8) -> TrainResult:
-        """Train until ``steps`` total steps. ``make_batcher(epoch)`` ->
-        a started DynamicBatcher; epochs roll over inside the prefetcher.
-        Checkpoints are not ported yet: ``ckpt_dir`` raises."""
-        if ckpt_dir is not None:
-            raise NotImplementedError("checkpoints are not ported yet")
+        """Train until ``steps`` total steps, resuming from the newest
+        *valid* checkpoint in ``ckpt_dir`` when one exists (corrupt
+        snapshots are quarantined and skipped by ``checkpoint.restore``;
+        if every snapshot is corrupt, training starts from scratch with a
+        warning instead of crashing).
+
+        ``make_batcher(epoch)`` -> a started DynamicBatcher; epochs roll
+        over inside the prefetcher. A resumed run offsets the epochs by
+        the restored step, so it does not replay the batches before the
+        crash. The state is saved every ``ckpt_every`` steps, through a
+        background writer when ``async_ckpt``. ``fail_at`` injects a
+        crash after that many total steps (restart tests); the
+        ``train.step`` fault site fires after each completed step.
+        ``max_consecutive_nonfinite`` non-finite losses in a row raise
+        ``NonFiniteLossError`` (0 disables), which ``fit_supervised``
+        classifies as transient: a rollback to the last checkpoint.
+        """
         t0 = time.time()
         bs0 = dict(self.bucket_steps)
         state = state if state is not None else self.init_state(seed)
+        resumed = None
+        if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+            try:
+                resumed, state = restore_state(ckpt_dir, state)
+            except FileNotFoundError as e:
+                # every snapshot failed verification (all quarantined by
+                # restore): degrade to a fresh start, don't die on resume
+                warnings.warn(f"resume skipped — {e}; training from "
+                              f"scratch", stacklevel=2)
         step = state.step
-        prefetcher = DevicePrefetcher(make_batcher, depth=prefetch_depth,
+        # a resumed run must not replay the pre-crash batch stream: offset
+        # the loader's epoch numbering (and thus its seeds) by the
+        # restored step
+        epoch0 = step if resumed is not None else 0
+        writer = ckpt.AsyncCheckpointer(ckpt_dir) \
+            if (ckpt_dir and async_ckpt) else None
+        prefetcher = DevicePrefetcher(lambda e: make_batcher(e + epoch0),
+                                      depth=prefetch_depth,
                                       device=self.device).start()
         monitor = StepTimeMonitor(n_hosts=1)
-        buf = MetricsBuffer()
+        buf = MetricsBuffer(on_drain=_feed_cache_obs)
         stall, de_sum, de_n = 0.0, 0.0, 0
         drain_mark, drain_step = time.perf_counter(), step
+        step_hists: dict = {}     # bucket -> train_step_ms histogram
+        step_ctrs: dict = {}      # bucket -> train_steps_total counter
         try:
             while step < steps:
-                tw = time.perf_counter()
-                pb = prefetcher.get(timeout=batch_timeout)
+                t_iter = tw = time.perf_counter()
+                with obs.span("train_host_stall"):
+                    pb = prefetcher.get(timeout=batch_timeout)
                 stall += time.perf_counter() - tw
                 if pb is STREAM_END:       # bounded-epoch source ran dry
                     break
@@ -194,6 +273,23 @@ class Trainer:
                     de_sum += float(pb.stats["data_efficiency"])
                     de_n += 1
                 step += 1
+                # per-step wall at the loop (dispatch + stall; converges to
+                # true step time once the queued device work backpressures)
+                hist = step_hists.get(pb.bucket)
+                if hist is None:
+                    b = str(pb.bucket)
+                    hist = step_hists[pb.bucket] = obs.histogram(
+                        "train_step_ms", bucket=b)
+                    step_ctrs[pb.bucket] = obs.counter(
+                        "train_steps_total", bucket=b)
+                hist.observe((time.perf_counter() - t_iter) * 1e3)
+                step_ctrs[pb.bucket].inc()
+                obs.tick()
+                if fail_at is not None and step >= fail_at:
+                    raise RuntimeError("injected failure")
+                faults.fire("train.step", step=step)
+                if ckpt_dir and step % ckpt_every == 0:
+                    save_state(ckpt_dir, step, state, writer=writer)
                 if log_every and step % log_every == 0:
                     m = buf.drain()
                     bad = _trailing_nonfinite(buf.history)
@@ -202,7 +298,8 @@ class Trainer:
                         raise NonFiniteLossError(
                             f"{bad} consecutive non-finite losses at step "
                             f"{step}: params held at their last finite "
-                            f"values by the guard")
+                            f"values by the guard; rolling back to the "
+                            f"last checkpoint", step=step, consecutive=bad)
                     now = time.perf_counter()
                     monitor.record(0, (now - drain_mark)
                                    / max(step - drain_step, 1))
@@ -215,15 +312,19 @@ class Trainer:
                           f"[bucket {pb.bucket}]", flush=True)
         finally:
             prefetcher.stop()
+            if writer:
+                writer.wait()
         self.monitor = monitor
         self.last_state = state
         final = dict(buf.drain())
         if de_n:      # loader-side Eq. 1 data efficiency (paper Figure 8)
             final["loader_data_efficiency"] = de_sum / de_n
         wall = time.time() - t0
+        obs.gauge("train_host_stall_fraction").set(stall / max(wall, 1e-9))
         bsteps = {k: v - bs0.get(k, 0) for k, v in self.bucket_steps.items()
                   if v - bs0.get(k, 0) > 0}
         return TrainResult(step, buf.losses, wall, final, bsteps,
                            stall / max(wall, 1e-9), state=state,
                            history={k: list(v)
-                                    for k, v in buf.history.items()})
+                                    for k, v in buf.history.items()},
+                           resumed_from=resumed)

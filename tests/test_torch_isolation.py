@@ -39,7 +39,9 @@ def test_the_walk_covers_the_package():
             "trainer.py", "train.py", "lm.py", "lm_family.py", "rope.py",
             "flash_attention.py", "device.py", "chip_smoke.py",
             "embedding_bag.py", "common.py", "ctr.py", "bert4rec.py",
-            "recsys_synth.py", "recsys_family.py"} <= names
+            "recsys_synth.py", "recsys_family.py", "ckpt.py", "faults.py",
+            "supervise.py", "registry.py", "span.py", "export.py",
+            "_default.py", "base.py", "state.py", "bridge.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "embedding_bag.cu").is_file()
     # both embedding_bag.py files: the kernel's module and nn's plain one

@@ -405,11 +405,18 @@ def test_nonfinite_guard_holds_the_state_and_advances_step():
     assert all(torch.equal(a, b) for a, b in zip(after, before))
 
 
-def test_trainer_fit_refuses_checkpoints():
+def test_trainer_fit_refuses_checkpoints(tmp_path):
+    """``fit`` resumes from ``ckpt_dir``, and refuses a checkpoint of
+    another configuration (a shape mismatch: ValueError, which
+    ``fit_supervised`` does not retry) before any step."""
+    other = training.get_trainer(
+        "speedyfeed", cfg=train.small_speedyfeed_config(news_dim=16),
+        device="cpu")
+    training.save_state(str(tmp_path), 1, other.init_state(0))
     trainer = training.get_trainer(
         "speedyfeed", cfg=train.small_speedyfeed_config(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.fit(lambda e: None, steps=1, ckpt_dir="ckpt")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        trainer.fit(lambda e: None, steps=1, ckpt_dir=str(tmp_path))
 
 
 def test_metrics_buffer_drains_in_one_pass():
