@@ -72,7 +72,26 @@ Phases, each of which exits non-zero on failure:
               the crash, 2 after the resume), none on the SIMT pair.
               Prints the snapshot's bytes and the seconds and GB/s of the
               save, the restore and the async snapshot beside the card.
-  8. lm       the LM family's serving path: Qwen3-14B at full width and
+  8. conventional the conventional workflow (the paper's baseline) at
+              PROD, full width and depth, remat, f32: the registry's
+              ``"speedyfeed_conventional"`` Trainer and one
+              ``build_conventional_batch`` of ``CONV_ONE_CARD``'s 32 users
+              (the first 32 histories with at least 2 clicks; 32 x (100 +
+              2) = 3,264 news a step, pad slots included) on the slice's
+              store. One warm-up and CONV_TIMED synchronised
+              ``Trainer.step`` calls: finite losses, moved parameters, the
+              cache untouched (the same tensors, still blank), and, counted
+              around the timed steps, exactly 2 x 12 forward and 12
+              backward bus launches a step, none on the SIMT pair; s/step,
+              news encoded a second, clicks a second, data efficiency and
+              the peak device memory (under 80 GB) beside the card. Then
+              one conventional loss and its gradients at 4 users (408
+              news), through the kernels and through ``impl="plain"`` on
+              the trained parameters: loss within 1e-4, every gradient leaf
+              within 1e-3 of its magnitude (the key biases ~0). The bus
+              kernels are held to plain at the step's own M=3,264 in
+              phase 13.
+  9. lm       the LM family's serving path: Qwen3-14B at full width and
               depth (40 layers, d 5120, 40/8 heads of 128, d_ff 17,408,
               vocab 151,936, qk-norm) in bf16, random weights from a
               seeded generator. One warm-up and one timed prefill at B=1,
@@ -88,7 +107,7 @@ Phases, each of which exits non-zero on failure:
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit; bf16 goes through the
               Hopper flash forward, f32 through the 3xTF32 one.
-  9. lm-train the LM family's training path: Qwen3-14B at full width, 8
+  10. lm-train the LM family's training path: Qwen3-14B at full width, 8
               of its 40 layers, bf16 parameters and f32 Adam moments
               (seeded), B=2 at train_4k's S=4,096 (labels the tokens
               shifted left, -100 last), through ``make_fn(cfg,
@@ -113,7 +132,7 @@ Phases, each of which exits non-zero on failure:
               it splits into row chunks (embed, head, FFN) against the
               same update of the whole leaf and against Adam in f64
               (TOL_ADAM).
-  10. recsys  the recsys family's serving path at full width, f32,
+  11. recsys  the recsys family's serving path at full width, f32,
               seeded random weights, batches from ``recsys_synth``:
               DLRM-RM2 (26 fields, criteo_like_vocab, d 64: a fused
               32,710,656 x 64 table, 8.37 GB), Wide&Deep (40 fields, d
@@ -133,7 +152,7 @@ Phases, each of which exits non-zero on failure:
               launches, its first rows against the same serve on the CPU;
               its serve_bulk would need a 3.1 TB score matrix and is left
               out. Each config's tables are freed before the next.
-  11. recsys-train the recsys family's training path at full width, f32,
+  12. recsys-train the recsys family's training path at full width, f32,
               seeded random weights, ``recsys_synth`` batches at
               train_batch's B=65,536: first the EmbeddingBag backward
               kernel against its plain version in f64 (within
@@ -159,14 +178,15 @@ Phases, each of which exits non-zero on failure:
               and exactly 1, 2, 1, 0 launches of ``embedding_bag`` and
               of ``embedding_bag_bwd`` a step. Each config is freed
               before the next.
-  12. kernels each kernel against its plain version at the main paths'
+  13. kernels each kernel against its plain version at the main paths'
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
               the forward held and timed at the serve chunk, M=256, and
               at the train step's shape, M=4096, the backward at the
-              latter, and both held (not timed) at every bucket S of the
-              fit's batcher, M=64; each launched twice on the same
+              latter, and both held (not timed) at the conventional
+              step's M=3,264 and at every bucket S of the fit's batcher,
+              M=64; each launched twice on the same
               inputs, which must agree bit for bit, beside a control
               that must miss its limit: plain with the bus columns' v
               zeroed; every one of these launches checked to be on the
@@ -237,6 +257,9 @@ TOL_DISTORTION = 0.01            # share of residual energy PQ codes lose
 TOL_BWD = 1e-4                   # backward kernel vs plain, f32
 TOL_LOSS, TOL_GRAD = 1e-4, 1e-3  # train step, kernel vs plain path
 TRAIN_STEPS, TIMED_STEPS, PLAIN_E = 4, 3, 256
+# the conventional phase: timed steps after one warm-up, and the users of
+# the kernel vs plain check (4 x (100 + 2) = 408 news)
+CONV_TIMED, CONV_PLAIN_USERS = 2, 4
 # the ckpt phase: free disk for two snapshots and a half (the supervised
 # fit holds two on disk at once); a fit of CKPT_STEPS checkpointing every
 # CKPT_EVERY, crashed once after step CKPT_CRASH_AT
@@ -846,7 +869,7 @@ def gathered_bytes(idx, V: int, row_bytes: int) -> int:
 
 def recsys_phase(torch, np, dev):
     """The recsys family's serving path at full width (see the module
-    docstring, phase 10). Returns (report, the embedding_bag kernel row).
+    docstring, phase 11). Returns (report, the embedding_bag kernel row).
     Memory is reported above what was resident when a config began."""
     import gc
 
@@ -1192,7 +1215,7 @@ def adam_by_chunks(torch, names, params, grads) -> dict:
 
 
 def lm_train_phase(torch, np, dev):
-    """The LM family's training path (see the module docstring, phase 9).
+    """The LM family's training path (see the module docstring, phase 10).
     Returns (report, the launch counts of the timed run's four steps)."""
     import dataclasses
     import gc
@@ -1451,7 +1474,7 @@ def chunked_max_abs(torch, a, b) -> float:
 
 def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
     """The EmbeddingBag backward kernel against its plain version in f64 at
-    the train shapes (see the module docstring, phase 11); returns the
+    the train shapes (see the module docstring, phase 12); returns the
     kernel row (its ``launches`` filled in by the caller)."""
     import gc
 
@@ -1571,7 +1594,7 @@ def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
 
 def recsys_train_phase(torch, np, dev, ptxas):
     """The recsys family's training path at full width (see the module
-    docstring, phase 11). Returns (report, the embedding_bag_bwd kernel
+    docstring, phase 12). Returns (report, the embedding_bag_bwd kernel
     row, the main path's embedding_bag launches by config)."""
     import dataclasses
     import gc
@@ -1715,6 +1738,42 @@ def recsys_train_phase(torch, np, dev, ptxas):
     return rep, row, fwd_launches
 
 
+def grad_agreement(names, gk, gp) -> dict:
+    """Kernel against plain gradients, leaf by leaf (``gk``, ``gp`` in the
+    order of ``names``): each leaf's max-abs error over its own largest
+    magnitude. The key projection's bias is the exception: its gradient is
+    0 in exact arithmetic (softmax ignores a shift shared by all keys), so
+    both paths must return ~0 there, read against the largest magnitude of
+    any leaf. ``check_grad_agreement`` holds the result."""
+    check(all((a is None) == (b is None) for a, b in zip(gk, gp)),
+          "kernel and plain paths reach different gradient leaves")
+    rows = [(n, a, b) for n, a, b in zip(names, gk, gp) if b is not None]
+    top_mag = max(float(b.abs().max()) for _, _, b in rows)
+    ratios, zero_leaves = {}, {}
+    for n, a, b in rows:
+        if n.endswith("attn/k/b"):
+            zero_leaves[n] = max(float(a.abs().max()),
+                                 float(b.abs().max())) / top_mag
+        else:
+            ratios[n] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+    return {"grad_worst_rel_err": worst[0][1], "grad_worst_leaves": worst,
+            "key_bias_grad_over_top": max(zero_leaves.values()),
+            "n_grad_leaves": len(rows)}
+
+
+def check_grad_agreement(label: str, rep: dict):
+    """Every leaf within TOL_GRAD of its magnitude; key biases within 1e-5
+    of the largest magnitude (``grad_agreement``)."""
+    name, worst = rep["grad_worst_leaves"][0]
+    check(worst <= TOL_GRAD, f"{label}: gradient leaf {name} differs by "
+          f"{worst} of its magnitude")
+    check(rep["key_bias_grad_over_top"] <= 1e-5,
+          f"{label}: key-bias gradients are not ~0: "
+          f"{rep['key_bias_grad_over_top']}")
+
+
 def ckpt_phase(torch, np, dev, cfg, card, trainer, state, top_batch, top,
                make_batcher):
     """The checkpoint, resume and restart path at PROD (see the module
@@ -1846,6 +1905,107 @@ def ckpt_phase(torch, np, dev, cfg, card, trainer, state, top_batch, top,
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return rep, state, fit_launches
+
+
+def conventional_phase(torch, np, dev, cfg, card, log, store, lcfg):
+    """The conventional workflow at PROD (see the module docstring, phase
+    8). Returns (report, the bus launches of the timed steps)."""
+    from repro_torch import core, training
+    from repro_torch.configs.speedyfeed_arch import CONV_ONE_CARD
+    from repro_torch.kernels import ops
+    from repro_torch.launch.speedup import conventional_batch_from_log
+    from repro_torch.optim.adam import leaves
+
+    B, C = CONV_ONE_CARD["users"], CONV_ONE_CARD["cands"]
+    L = CONV_ONE_CARD["hist"]
+    check(lcfg.hist_len == L, f"conventional: the store's L {lcfg.hist_len}")
+
+    def batch_of(n):
+        # the first n histories with at least 2 clicks, as the ladder's
+        raw = conventional_batch_from_log(cfg, log, store, lcfg, n_users=n)
+        check(raw["cand_tokens"].shape[1] == C,
+              f"conventional: {raw['cand_tokens'].shape[1]} candidates")
+        return ({k: torch.as_tensor(v, device=dev) for k, v in raw.items()
+                 if not k.startswith("_")}, raw["_stats"])
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = training.get_trainer("speedyfeed_conventional", cfg=cfg,
+                                   device=dev)
+    state = trainer.init_state(seed=0)
+    cache = state.cache
+    watch = {p: t.detach().clone() for p, t in leaves(state.params)
+             if p in ("plm/layers/0/attn/q/w", "plm/out_proj/w",
+                      "user/proj/w")}
+    batch, stats = batch_of(B)
+    n_news = B * (L + C)
+    state, m = trainer.step(state, batch)               # warm-up
+    losses = [float(m["loss"])]
+    ops.reset_launch_counts()
+    step_s = []
+    for _ in range(CONV_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = ops.launch_counts()
+    now = dict(leaves(state.params))
+    moved = {p: float((t - now[p].detach()).abs().max())
+             for p, t in watch.items()}
+    s_step = float(np.mean(step_s))
+    rep = {"card": card, "users": B, "hist_len": L, "cands": C,
+           "news_per_step": n_news, "steps": 1 + CONV_TIMED,
+           "losses": losses, "click_acc": float(m["click_acc"]),
+           "step_s": step_s, "s_per_step": s_step,
+           "news_encoded_per_s": n_news / s_step,
+           "clicks_per_s": B / s_step,
+           "data_efficiency": stats["data_efficiency"],
+           "numpy": np.__version__,
+           "pad_news_share": float((~batch["hist_mask"]).float().mean()),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "param_moved": moved, "launches": launches,
+           "model_tflop_per_step": 4 * core.plm_flops(cfg.plm, n_news) / 1e12}
+    n = CONV_TIMED * cfg.plm.n_layers
+    check(all(np.isfinite(losses)), f"conventional: losses {losses}")
+    check(all(v > 0 for v in moved.values()),
+          f"conventional: params did not move {moved}")
+    check(state.cache is cache and bool((cache.emb == 0).all())
+          and bool((cache.written_step == core.NEVER).all()),
+          "conventional: the step touched the cache")
+    check(state.step == 1 + CONV_TIMED, f"conventional: step {state.step}")
+    check(launches["bus_attention"] == 2 * n
+          and launches["bus_attention_bwd"] == n,
+          f"conventional: bus launches {launches}, expected {2 * n} forward"
+          f" and {n} backward")
+    check(launches["bus_attention_simt"] == 0
+          and launches["bus_attention_bwd_simt"] == 0,
+          "conventional: a bus launch went to the SIMT kernels")
+    check(rep["max_memory_allocated_gb"] < 80,
+          f"conventional: peak {rep['max_memory_allocated_gb']} GB")
+    del batch, watch, now
+
+    # one loss and its gradients, kernels against the plain path, on the
+    # trained parameters and CONV_PLAIN_USERS users' batch (pad slots in)
+    small, _ = batch_of(CONV_PLAIN_USERS)
+    flat = [p for _, p in leaves(state.params)]
+    grads = {}
+    for impl in ("kernel", "plain"):
+        loss, _ = core.conventional_forward(state.params, cfg, small,
+                                            impl=impl)
+        grads[impl] = (float(loss.detach()), torch.autograd.grad(
+            loss, flat, allow_unused=True))
+    (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+    rep["plain"] = {"users": CONV_PLAIN_USERS,
+                    "news": CONV_PLAIN_USERS * (L + C), "loss_kernel": lk,
+                    "loss_plain": lp, "loss_abs_err": abs(lk - lp),
+                    **grad_agreement([p for p, _ in leaves(state.params)],
+                                     gk, gp)}
+    print("conventional: " + json.dumps(rep), flush=True)
+    check(abs(lk - lp) <= TOL_LOSS,
+          f"conventional: loss kernel {lk} vs plain {lp}")
+    check_grad_agreement("conventional", rep["plain"])
+    return rep, launches
 
 
 def main() -> int:
@@ -2176,38 +2336,14 @@ def main() -> int:
         grads[impl] = (float(out.loss.detach()), g)
         del cold, out
     (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
-    check(all((a is None) == (b is None) for a, b in zip(gk, gp)),
-          "kernel and plain paths reach different gradient leaves")
-    # each leaf's max-abs error over its own largest magnitude; the key
-    # projection's bias is the exception: its gradient is 0 in exact
-    # arithmetic (softmax ignores a shift shared by all keys), so both
-    # paths must return ~0 there (within 1e-5 of the largest magnitude)
-    names = [p for p, _ in leaves(state.params)]
-    rows = [(n, a, b) for n, a, b in zip(names, gk, gp) if b is not None]
-    top_mag = max(float(b.abs().max()) for _, _, b in rows)
-    ratios, zero_leaves = {}, {}
-    for n, a, b in rows:
-        if n.endswith("attn/k/b"):
-            zero_leaves[n] = max(float(a.abs().max()),
-                                 float(b.abs().max())) / top_mag
-        else:
-            ratios[n] = float((a - b).abs().max()) / max(
-                float(b.abs().max()), 1e-30)
-    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
     report["plain_train"] = {"E": PLAIN_E, "loss_kernel": lk,
                              "loss_plain": lp, "loss_abs_err": abs(lk - lp),
-                             "grad_worst_rel_err": worst[0][1],
-                             "grad_worst_leaves": worst,
-                             "key_bias_grad_over_top": max(
-                                 zero_leaves.values()),
-                             "n_grad_leaves": len(rows)}
+                             **grad_agreement(
+                                 [p for p, _ in leaves(state.params)], gk,
+                                 gp)}
     print("plain (train): " + json.dumps(report["plain_train"]), flush=True)
     check(abs(lk - lp) <= TOL_LOSS, f"train loss kernel {lk} vs plain {lp}")
-    check(worst[0][1] <= TOL_GRAD,
-          f"gradient leaf {worst[0][0]} differs by {worst[0][1]} of its "
-          f"magnitude")
-    check(max(zero_leaves.values()) <= 1e-5,
-          f"key-bias gradients are not ~0: {zero_leaves}")
+    check_grad_agreement("train", report["plain_train"])
     del grads, gk, gp, flat
 
     # ------------------------------------------------------------- ckpt
@@ -2215,9 +2351,17 @@ def main() -> int:
         torch, np, dev, cfg, card, trainer, state, top_batch, top,
         make_batcher)
 
-    # --------------------------------------------------------------- lm
-    # the trainer's memory goes first; the peak counts from here
+    # ----------------------------------------------------- conventional
+    # the trainer's memory goes first
     del trainer, state, res, top_batch, watch, now, neg
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["conventional"], conv_launches = conventional_phase(
+        torch, np, dev, cfg, card, log, store, lcfg)
+
+    # --------------------------------------------------------------- lm
+    # the conventional trainer's memory goes with its phase; the peak
+    # counts from here
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2438,10 +2582,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
         "replaces": "src/repro/kernels/bus_attention.py:92",
         "launches": launches["bus_attention"]
-        + train_launches["bus_attention"] + ckpt_launches["bus_attention"],
+        + train_launches["bus_attention"] + ckpt_launches["bus_attention"]
+        + conv_launches["bus_attention"],
         "launches_by_path": {"serve": launches["bus_attention"],
                              "train": train_launches["bus_attention"],
-                             "ckpt": ckpt_launches["bus_attention"]},
+                             "ckpt": ckpt_launches["bus_attention"],
+                             "conventional": conv_launches["bus_attention"]},
         **fwd_row})
     del q, k, v, kv_mask
 
@@ -2453,10 +2599,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/bus_attention.cu",
         "replaces": "src/repro/kernels/bus_attention.py:115",
         "launches": train_launches["bus_attention_bwd"]
-        + ckpt_launches["bus_attention_bwd"],
+        + ckpt_launches["bus_attention_bwd"]
+        + conv_launches["bus_attention_bwd"],
         "launches_by_path": {"serve": launches["bus_attention_bwd"],
                              "train": train_launches["bus_attention_bwd"],
-                             "ckpt": ckpt_launches["bus_attention_bwd"]},
+                             "ckpt": ckpt_launches["bus_attention_bwd"],
+                             "conventional":
+                             conv_launches["bus_attention_bwd"]},
         **on_route(ops, tc_bwd, lambda: bus_bwd_row(torch, qb, kb, vb, mb,
                                                     dob))})
     # the forward at the step's shape (a step launches it 24 times with
@@ -2471,6 +2620,22 @@ def main() -> int:
         report["train"]["bus_kernels_ms_per_step"] / 1e3
         / report["train"]["s_per_step"])
     del qb, kb, vb, dob, mb
+
+    # the forward and backward at the conventional step's shape (its
+    # B*(L+C) news in one encode), held as at the buckets; a generator of
+    # its own leaves the later checks' inputs as they were
+    Mc = report["conventional"]["news_per_step"]
+    qc, kc, vc, mc, doc = bus_inputs(
+        torch, torch.Generator(device=dev).manual_seed(2), Mc, K, S, H, D,
+        dev)
+    for row, name, fn in (
+            (kernels[-2], tc_fwd,
+             lambda: bus_fwd_checks(torch, qc, kc, vc, mc)),
+            (kernels[-1], tc_bwd,
+             lambda: bus_bwd_checks(torch, qc, kc, vc, mc, doc))):
+        row["conventional_shape"] = {**on_route(ops, name, fn),
+                                     "shape": [Mc, K, S, S + K, H, D]}
+    del qc, kc, vc, mc, doc
 
     # every bucket the trainer's fit draws (S in lcfg.buckets, each its own
     # compiled count of key tiles and row blocks), forward and backward at
@@ -2506,10 +2671,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/bus_attention_simt.cu",
             "replaces": f"src/repro/kernels/bus_attention.py{replaces}",
             "launches": launches[name] + train_launches[name]
-            + ckpt_launches[name],
+            + ckpt_launches[name] + conv_launches[name],
             "launches_by_path": {"serve": launches[name],
                                  "train": train_launches[name],
-                                 "ckpt": ckpt_launches[name]},
+                                 "ckpt": ckpt_launches[name],
+                                 "conventional": conv_launches[name]},
             **on_route(ops, name, fn)})
     del qs_, ks_, vs_, ms_, dos_
 

@@ -1,13 +1,14 @@
 """SpeedyFeed core: PLM/BusLM news encoder, cache, centralized set, user
-model, loss and the Algorithm-1 pipeline."""
+model, losses, the Algorithm-1 pipeline and the conventional workflow."""
 from .buslm import buslm_encode, plm_flops
 from .cache import (NEVER, CacheConfig, CachePlan, CacheState,
                     assemble_embeddings, cache_plan, cache_refresh,
                     init_cache)
 from .centralized import MergedSet, dispatch, gather_dedup
-from .loss import ar_loss, sample_negatives
-from .pipeline import (SpeedyFeedConfig, StepOut, init_speedyfeed,
-                       make_config, speedyfeed_forward, speedyfeed_state)
+from .loss import ar_loss, click_loss, sample_negatives
+from .pipeline import (SpeedyFeedConfig, StepOut, conventional_forward,
+                       init_speedyfeed, make_config, speedyfeed_forward,
+                       speedyfeed_state)
 from .plm import (PLMConfig, additive_attention, embed_inputs, ffn,
                   init_plm)
 from .user_model import (UserModelConfig, attentive_user,
@@ -17,9 +18,10 @@ from .user_model import (UserModelConfig, attentive_user,
 __all__ = ["buslm_encode", "plm_flops", "NEVER", "CacheConfig", "CachePlan",
            "CacheState", "assemble_embeddings", "cache_plan", "cache_refresh",
            "init_cache", "MergedSet", "dispatch", "gather_dedup", "ar_loss",
-           "sample_negatives", "SpeedyFeedConfig", "StepOut",
-           "init_speedyfeed", "make_config", "speedyfeed_forward",
-           "speedyfeed_state", "PLMConfig", "additive_attention",
-           "embed_inputs", "ffn", "init_plm", "UserModelConfig",
+           "click_loss", "sample_negatives", "SpeedyFeedConfig", "StepOut",
+           "conventional_forward", "init_speedyfeed", "make_config",
+           "speedyfeed_forward", "speedyfeed_state", "PLMConfig",
+           "additive_attention", "embed_inputs", "ffn", "init_plm",
+           "UserModelConfig",
            "attentive_user", "attentive_user_causal", "init_user_model",
            "user_embeddings"]

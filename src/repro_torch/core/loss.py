@@ -2,7 +2,7 @@
 
 L_auto = -sum_{t<L} log softmax(<theta_{t+1}, mu_t> vs negatives).
 Negatives are drawn from the merged news set of the same batch (in-batch
-sampling). The conventional workflow's ``click_loss`` is not ported yet.
+sampling). ``click_loss`` is the conventional workflow's impression loss.
 """
 from __future__ import annotations
 
@@ -48,3 +48,18 @@ def ar_loss(mu, theta, hist_mask, emb_m, news_ids_m, neg_idx,
     loss = -(logp * valid).sum() / n
     acc = ((logits.argmax(-1) == 0) & valid).sum() / n
     return loss, {"ar_acc": acc, "n_predictions": n_valid}
+
+
+def click_loss(user_emb, cand_emb, labels, cand_mask):
+    """Conventional impression loss: one user embedding scores C candidates.
+
+    user_emb: [B, d]; cand_emb: [B, C, d]; labels: [B] index of the clicked
+    candidate; cand_mask: [B, C]. Returns (mean loss, {"click_acc"}).
+    """
+    logits = torch.einsum("bd,bcd->bc", user_emb, cand_emb).float()
+    logits = logits.masked_fill(~cand_mask, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    loss = -logp.gather(-1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"click_acc": acc}

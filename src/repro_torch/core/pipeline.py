@@ -9,8 +9,9 @@ One training step over a centralized batch:
   5. autoregressive user modelling and the Eq. 5 loss               §4.1.4
   6. refresh the cache
 
-The conventional workflow (the paper's speedup baseline) is not ported
-yet.
+Also the conventional workflow's loss (per-instance encoding, no
+dedup, cache or autoregression), the baseline of the paper's speedup
+ladder (Table 4).
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from .buslm import buslm_encode
 from .cache import (CacheConfig, CacheState, assemble_embeddings, cache_plan,
                     cache_refresh, init_cache)
 from .centralized import dispatch
-from .loss import ar_loss, sample_negatives
+from .loss import ar_loss, click_loss, sample_negatives
 from .plm import PLMConfig, init_plm
-from .user_model import UserModelConfig, init_user_model, user_embeddings
+from .user_model import (UserModelConfig, attentive_user, init_user_model,
+                         user_embeddings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,3 +124,31 @@ def speedyfeed_forward(params, cfg: SpeedyFeedConfig, batch,
         "data_efficiency": n_tok / max(enc_tokens.numel(), 1),
     })
     return StepOut(loss, cache, m)
+
+
+# ---------------------------------------------------------------------------
+# conventional workflow (the paper's baseline; Figure 1 left)
+# ---------------------------------------------------------------------------
+
+def conventional_forward(params, cfg: SpeedyFeedConfig, batch, *,
+                         impl: str = "kernel"):
+    """Typical workflow: every training instance encodes its own history
+    and candidates with the PLM; one click prediction per instance.
+
+    batch: hist_tokens [B, L, K, S], hist_freq, hist_mask [B, L],
+    cand_tokens [B, C, K, S], cand_freq, label [B], cand_mask [B, C].
+    The B*L history news and B*C candidates go through one
+    ``buslm_encode`` call (``impl`` as in ``speedyfeed_forward``), all-pad
+    history slots included. Returns ``click_loss``'s (loss, metrics).
+    """
+    B, L, K, S = batch["hist_tokens"].shape
+    C = batch["cand_tokens"].shape[1]
+    tokens = torch.cat([batch["hist_tokens"].reshape(B * L, K, S),
+                        batch["cand_tokens"].reshape(B * C, K, S)])
+    freq = torch.cat([batch["hist_freq"].reshape(B * L, K, S),
+                      batch["cand_freq"].reshape(B * C, K, S)])
+    emb = buslm_encode(params["plm"], cfg.plm, tokens, freq, impl=impl)
+    theta = emb[:B * L].reshape(B, L, -1)
+    cand = emb[B * L:].reshape(B, C, -1)
+    user = attentive_user(params["user"], theta, batch["hist_mask"])
+    return click_loss(user, cand, batch["label"], batch["cand_mask"])

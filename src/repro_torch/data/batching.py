@@ -9,6 +9,9 @@ Host-side loader (numpy) that:
     into one deduplicated set with inverse index maps (the in-graph
     equivalent is ``core.centralized.gather_dedup``).
 
+``build_conventional_batch`` builds the conventional workflow's batch
+instead: every instance's own padded history and candidates.
+
 Each bucket emits fixed shapes (b_cap users, m_cap merged news, the
 bucket's segment length). Data efficiency (Eq. 1) is reported per batch.
 Runs multi-threaded over a work-stealing queue (``distributed.straggler``).
@@ -156,6 +159,42 @@ def build_centralized_batch(instances, store: NewsStore, cfg: LoaderConfig,
         },
     }
 
+
+
+def build_conventional_batch(instances, store: NewsStore, cfg: LoaderConfig,
+                             *, n_cands: int = 2,
+                             rng: np.random.Generator | None = None):
+    """Typical-workflow batch: per-instance history tensors, full padding,
+    one click prediction per instance (the last click is the positive,
+    the ``n_cands - 1`` negatives are drawn uniformly from the store, and
+    the candidates are shuffled). ``_stats["data_efficiency"]`` (Eq. 1)
+    counts the non-pad tokens over every encoded slot."""
+    rng = rng or np.random.default_rng(0)
+    B, L, K, S = len(instances), cfg.hist_len, cfg.n_segments, cfg.seg_len
+    ht = np.zeros((B, L, K, S), np.int32)
+    hf = np.zeros((B, L, K, S), np.int32)
+    hm = np.zeros((B, L), bool)
+    ct = np.zeros((B, n_cands, K, S), np.int32)
+    cf = np.zeros((B, n_cands, K, S), np.int32)
+    label = np.zeros((B,), np.int32)
+    for b, h in enumerate(instances):
+        h = h[-(L + 1):]
+        hist, pos = h[:-1], h[-1]
+        ht[b, :len(hist)] = store.tokens[hist]
+        hf[b, :len(hist)] = store.freq[hist]
+        hm[b, :len(hist)] = True
+        negs = rng.integers(1, store.tokens.shape[0], n_cands - 1)
+        cands = np.concatenate([[pos], negs])
+        perm = rng.permutation(n_cands)
+        ct[b] = store.tokens[cands[perm]]
+        cf[b] = store.freq[cands[perm]]
+        label[b] = int(np.argwhere(perm == 0)[0, 0])
+    valid = int((ht != 0).sum() + (ct != 0).sum())
+    return {"hist_tokens": ht, "hist_freq": hf, "hist_mask": hm,
+            "cand_tokens": ct, "cand_freq": cf, "label": label,
+            "cand_mask": np.ones((B, n_cands), bool),
+            "_stats": {"data_efficiency":
+                       valid / max(ht.size + ct.size, 1)}}
 
 class DynamicBatcher:
     """Multi-threaded bucketed loader -> queue of centralized batches.
