@@ -90,7 +90,7 @@ Phases, each of which exits non-zero on failure:
               the trained parameters: loss within 1e-4, every gradient leaf
               within 1e-3 of its magnitude (the key biases ~0). The bus
               kernels are held to plain at the step's own M=3,264 in
-              phase 13.
+              phase 14.
   9. lm       the LM family's serving path: Qwen3-14B at full width and
               depth (40 layers, d 5120, 40/8 heads of 128, d_ff 17,408,
               vocab 151,936, qk-norm) in bf16, random weights from a
@@ -178,7 +178,36 @@ Phases, each of which exits non-zero on failure:
               and exactly 1, 2, 1, 0 launches of ``embedding_bag`` and
               of ``embedding_bag_bwd`` a step. Each config is freed
               before the next.
-  13. kernels each kernel against its plain version at the main paths'
+  13. quality the paper's quality experiments. (a) The news baselines
+              (``models.news``: NPA, NAML, LSTUR, NRMS) at
+              ``NewsBaselineConfig``'s full defaults (vocab 30,522,
+              100,000 users, d 64, 4 heads, CNN width 3, 3 views, f32) on
+              one ``build_conventional_batch`` at CONV_BATCH (512 users,
+              L=100, 2 candidates, K=3 x S=32: 52,224 news a step;
+              ``user_id`` as table3 sets it): the slice's corpus with a
+              click log of 512 users of its own (the slice's log has
+              400), tokenized at the baselines' vocabulary. For each, one
+              step's loss at QUALITY_CPU_USERS users on the card against
+              the CPU's (TOL_QUALITY_CPU), then through
+              ``optim.make_train_step`` with table3's Adam (lr 1e-3) one
+              warm-up and QUALITY_TIMED synchronised steps: finite
+              losses, every leaf moved but an attention's key bias (an
+              exactly-0 gradient), no kernel launched (NRMS's attention is
+              masked: plain, never flash), s/step, clicks/s, news/s and
+              the peak memory. (b) PROD with ``user_kind="nrms"`` (4
+              heads of 192) through the ``"speedyfeed"`` Trainer on the
+              train phase's top-bucket batch: one warm-up and
+              QUALITY_TIMED ``Trainer.step`` calls, finite losses, the
+              user self-attention's leaves moved, exactly 2 x 12 forward
+              and 12 backward bus launches a step. (c) ``python -m
+              repro_torch.launch.tables`` at ``bench`` (its ``main``, on
+              the card, writing ``chiprun_out/tables.jsonl``): every
+              table's rows printed on lines of their own, 25 finite
+              rows, accuracies in [0, 1], and exactly the bus launches
+              its runs make (2 layers a step of each Algorithm-1 run with
+              the bus, its warm-up included; 2 a fig9 encode at K > 1),
+              none on the SIMT pair. Prints the phase's seconds.
+  14. kernels each kernel against its plain version at the main paths'
               shapes, timed with CUDA events beside its bound and a
               PyTorch call as a yardstick (for the bus kernels
               ``F.scaled_dot_product_attention``'s forward and backward,
@@ -186,7 +215,10 @@ Phases, each of which exits non-zero on failure:
               at the train step's shape, M=4096, the backward at the
               latter, and both held (not timed) at the conventional
               step's M=3,264 and at every bucket S of the fit's batcher,
-              M=64; each launched twice on the same
+              M=64, and at the quality phase's shapes, M=256 at 4 heads
+              of 16 with the bench buckets and fig9's splits of 48
+              tokens (K x S = 3 x 8, 3 x 16, 2 x 24, 4 x 12, 6 x 8);
+              each launched twice on the same
               inputs, which must agree bit for bit, beside a control
               that must miss its limit: plain with the bus columns' v
               zeroed; every one of these launches checked to be on the
@@ -260,6 +292,12 @@ TRAIN_STEPS, TIMED_STEPS, PLAIN_E = 4, 3, 256
 # the conventional phase: timed steps after one warm-up, and the users of
 # the kernel vs plain check (4 x (100 + 2) = 408 news)
 CONV_TIMED, CONV_PLAIN_USERS = 2, 4
+# the quality phase: timed steps after one warm-up (the baselines and the
+# NRMS-user PROD step); the users whose loss on the card is held to the
+# CPU's within TOL_QUALITY_CPU (f32 with TF32 off, sums in other orders);
+# the seed of the baselines' click log over the slice's corpus
+QUALITY_TIMED, QUALITY_CPU_USERS, QUALITY_LOG_SEED = 2, 4, 1
+TOL_QUALITY_CPU = 1e-5
 # the ckpt phase: free disk for two snapshots and a half (the supervised
 # fit holds two on disk at once); a fit of CKPT_STEPS checkpointing every
 # CKPT_EVERY, crashed once after step CKPT_CRASH_AT
@@ -620,10 +658,16 @@ def bus_zeroed(v, S: int):
     return v
 
 
+def masked_segment(K: int) -> int:
+    """The segment ``bus_inputs`` masks whole in every 7th news: 2, or the
+    last when there are fewer."""
+    return min(2, K - 1)
+
+
 def bus_inputs(torch, g, M: int, K: int, S: int, H: int, D: int, dev):
     """q, k, v, kv_mask and do for M news at segment length S (Sk = S + K),
     f32 from ``g``; a quarter of the keys masked, key 0 kept, and segment
-    2 of every 7th news all masked."""
+    ``masked_segment(K)`` of every 7th news all masked."""
     Sk = S + K
     q = torch.randn(M, K, S, H, D, generator=g, device=dev)
     k = torch.randn(M, K, Sk, H, D, generator=g, device=dev)
@@ -631,7 +675,7 @@ def bus_inputs(torch, g, M: int, K: int, S: int, H: int, D: int, dev):
     do = torch.randn(M, K, S, H, D, generator=g, device=dev)
     kv_mask = torch.rand(M, K, Sk, generator=g, device=dev) < 0.75
     kv_mask[:, :, 0] = True
-    kv_mask[::7, 2] = False                  # all-masked segments
+    kv_mask[::7, masked_segment(K)] = False  # all-masked segments
     return q, k, v, kv_mask, do
 
 
@@ -670,7 +714,7 @@ def bus_bwd_checks(torch, q, k, v, kv_mask, do) -> dict:
     del ref
     check(err <= TOL_BWD, f"bus_attention_bwd at {at} differs from plain by "
           f"{err}")
-    check(float(got[2][::7, 2].abs().max()) > 0,
+    check(float(got[2][::7, masked_segment(K)].abs().max()) > 0,
           f"dv is zero on an all-masked segment at {at}")
     again = bus_attention_bwd_cuda(q, k, v, kv_mask, do)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2008,6 +2052,227 @@ def conventional_phase(torch, np, dev, cfg, card, log, store, lcfg):
     return rep, launches
 
 
+def quality_phase(torch, np, dev, cfg, card, corpus, serve_lcfg, top_batch,
+                  top):
+    """The paper's quality experiments (see the module docstring, phase
+    13): (a) the four news baselines at their full default widths, (b)
+    the PROD Algorithm-1 step with the NRMS user encoder, (c) every table
+    of ``launch.tables`` at ``bench``. Returns (report, the bus launches
+    of each part by kernel name)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import data, optim, training
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bus_attention import ROUTES
+    from repro_torch.launch import tables
+    from repro_torch.models import news
+    from repro_torch.optim.adam import leaves
+
+    rep, launches = {"card": card}, {}
+    t_phase = time.perf_counter()
+    # ------------------------------------------- (a) the four baselines
+    batch, rep["baseline_batch"] = baseline_batch(torch, np, dev, corpus,
+                                                  serve_lcfg)
+    B = rep["baseline_batch"]["users"]
+    n_news = rep["baseline_batch"]["news_per_step"]
+    small = {k: v[:QUALITY_CPU_USERS] for k, v in batch.items()}
+    adam = optim.AdamConfig(lr=1e-3)            # table3's for NRMS
+    for name in news.NAMES:
+        bcfg = news.NewsBaselineConfig(name=name)
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+        params = news.init(torch.Generator(device=dev).manual_seed(0), bcfg)
+        opt = optim.adam_init(params)
+        step = optim.make_train_step(
+            lambda p, b, c=bcfg: news.loss(p, c, b), adam)
+        start = {p: t.detach().clone() for p, t in leaves(params)}
+        # one step's loss on the card against the CPU's, on a copy of the
+        # initial parameters and QUALITY_CPU_USERS users
+        losses_small = {}
+        for label, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            p_c = copy.deepcopy(tree_to(params, where))
+            b_c = {k: v.to(where) for k, v in small.items()}
+            _, _, m_c = step(p_c, optim.adam_init(p_c), b_c)
+            losses_small[label] = float(m_c["loss"])
+            del p_c, b_c
+        ops.reset_launch_counts()
+        params, opt, m = step(params, opt, batch)          # warm-up
+        losses = [float(m["loss"])]
+        step_s = []
+        for _ in range(QUALITY_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = ops.launch_counts()
+        now = dict(leaves(params))
+        unmoved = [p for p, t in start.items() if torch.equal(t, now[p])]
+        s_step = float(np.mean(step_s))
+        r = {"config": dataclasses.asdict(bcfg),
+             "params": sum(t.numel() for t in start.values()),
+             "losses": losses, "click_acc": float(m["click_acc"]),
+             "step_s": step_s, "s_per_step": s_step,
+             "clicks_per_s": B / s_step, "news_encoded_per_s": n_news / s_step,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "resident_before_gb": resident, "unmoved_leaves": unmoved,
+             "kernel_launches": {k: v for k, v in counts.items() if v},
+             "loss_cuda_vs_cpu": {**losses_small, "users": QUALITY_CPU_USERS,
+                                  "abs_err": abs(losses_small["cuda"]
+                                                 - losses_small["cpu"])}}
+        rep[name] = r
+        print(f"quality {name}: " + json.dumps(r), flush=True)
+        check(all(np.isfinite(losses)), f"quality {name}: losses {losses}")
+        # an attention's key bias has an exactly-0 gradient and may keep
+        # its value; every other leaf moves
+        check(all(p.endswith("attn/k/b") for p in unmoved),
+              f"quality {name}: leaves did not move: {unmoved}")
+        check(not any(counts.values()),
+              f"quality {name}: a kernel launched: {r['kernel_launches']}")
+        check(r["loss_cuda_vs_cpu"]["abs_err"] <= TOL_QUALITY_CPU,
+              f"quality {name}: loss on the card {losses_small['cuda']} vs "
+              f"the CPU {losses_small['cpu']}")
+        check(r["peak_gb"] < 80, f"quality {name}: peak {r['peak_gb']} GB")
+        del params, opt, step, start, now, m
+    del batch, small
+
+    # ------------------------------------ (b) PROD with the NRMS user model
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ncfg = dataclasses.replace(cfg, user=dataclasses.replace(
+        cfg.user, kind="nrms"))
+    trainer = training.get_trainer("speedyfeed", cfg=ncfg, device=dev)
+    state = trainer.init_state(seed=0)
+    watch = {p: t.detach().clone() for p, t in leaves(state.params)
+             if p.startswith("user/self_attn/")}
+    check(len(watch) == 8, f"quality nrms-user: self_attn leaves {watch}")
+    state, m = trainer.step(state, top_batch, top)          # warm-up
+    losses = [float(m["loss"])]
+    ops.reset_launch_counts()
+    step_s = []
+    for _ in range(QUALITY_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, top_batch, top)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches["nrms_user"] = ops.launch_counts()
+    now = dict(leaves(state.params))
+    moved = {p: float((t - now[p].detach()).abs().max())
+             for p, t in watch.items()}
+    nL = ncfg.plm.n_layers
+    rep["nrms_user"] = {
+        "user": dataclasses.asdict(ncfg.user), "bucket": top,
+        "losses": losses, "step_s": step_s,
+        "s_per_step": float(np.mean(step_s)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "self_attn_moved": moved, "launches": launches["nrms_user"]}
+    print("quality nrms-user: " + json.dumps(rep["nrms_user"]), flush=True)
+    check(all(np.isfinite(losses)), f"quality nrms-user: losses {losses}")
+    check(all(v > 0 for k, v in moved.items() if not k.endswith("k/b")),
+          f"quality nrms-user: self_attn did not move {moved}")
+    check(launches["nrms_user"]["bus_attention"] == 2 * nL * QUALITY_TIMED
+          and launches["nrms_user"]["bus_attention_bwd"]
+          == nL * QUALITY_TIMED,
+          f"quality nrms-user: bus launches {launches['nrms_user']}")
+    del trainer, state, watch, now
+
+    # ------------------------------------------ (c) the tables at bench
+    gc_collect(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out" / "tables.jsonl"
+    rows, info = tables.main(["--device", "cuda", "--out", str(out)])
+    tables_s = time.perf_counter() - t0
+    launches["tables"] = ops.launch_counts()
+    bcfg = tables.bench_cfg()
+    buckets = data.default_buckets(bcfg.plm.seg_len)
+    steps = info["steps"]
+    # the Algorithm-1 runs with the bus (table5's w/o bus has none): one
+    # warm-up step a bucket, then the run's steps; fig9's encodes at K > 1
+    sf_steps = ((len(buckets) + steps["table3"])
+                + 3 * (len(buckets) + steps["table5"])
+                + 4 * (len(buckets) + steps["table6"]))
+    n_enc = sum(1 for k in tables.FIG9_SEGMENTS
+                if k > 1 and tables.FIG9_TOTAL % k == 0) * (
+        info["fig9_timer"]["warmup"] + info["fig9_timer"]["iters"])
+    nb = bcfg.plm.n_layers
+    expect = {"bus_attention": nb * (sf_steps + n_enc),
+              "bus_attention_bwd": nb * sf_steps}
+    by_name = {n: v for n, _, v in rows}
+    rep["tables"] = {"rows": [list(r) for r in rows], "info": info,
+                     "seconds": tables_s, "launches": launches["tables"],
+                     "expected_launches": expect}
+    print("quality tables: " + json.dumps({
+        k: v for k, v in rep["tables"].items() if k != "rows"}), flush=True)
+    check(len(rows) == 25 and all(np.isfinite(v) for v in by_name.values()),
+          f"quality tables: rows {rows}")
+    check(all(0 <= v <= 1 for n, v in by_name.items()
+              if n.startswith(("table3/", "table5/", "table6/"))),
+          f"quality tables: accuracies {by_name}")
+    for name, n in expect.items():
+        check(launches["tables"][name] == n,
+              f"quality tables: {launches['tables'][name]} {name} "
+              f"launches, expected {n}")
+    for part, counts in launches.items():
+        check(all(counts[n] == 0 for n in ROUTES if n.endswith("_simt")),
+              f"quality {part}: a bus launch went to the SIMT kernels")
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"quality: {rep['seconds']:.1f} s", flush=True)
+    return rep, launches
+
+
+def baseline_batch(torch, np, dev, corpus, serve_lcfg):
+    """The news baselines' batch of the quality phase: one
+    ``build_conventional_batch`` of CONV_BATCH's 512 users from a click
+    log of their own over the slice's corpus (the slice's log holds 400
+    users), their news tokenized at the baselines' vocabulary (30,522
+    ids; the slice's store hashes words into PROD's 30,720), ``user_id``
+    as table3 sets it. Returns (the batch on ``dev``, its shape and
+    counts)."""
+    import dataclasses
+
+    from repro_torch import data
+    from repro_torch.configs.speedyfeed_arch import CONV_BATCH
+    from repro_torch.launch.speedup import ladder_users
+    from repro_torch.models import news
+
+    B, L, C = CONV_BATCH["users"], CONV_BATCH["hist"], CONV_BATCH["cands"]
+    t0 = time.perf_counter()
+    vocab = news.NewsBaselineConfig(name="nrms").vocab
+    qlcfg = dataclasses.replace(serve_lcfg, vocab=vocab)
+    stats = data.build_corpus_stats(
+        [corpus.text(i) for i in range(corpus.n_news)])
+    qstore = data.NewsStore(corpus, stats, qlcfg)
+    qlog = data.make_click_log(np.random.default_rng(QUALITY_LOG_SEED),
+                               corpus, n_users=B, max_hist=L)
+    users = ladder_users(qlog, B)
+    check(len(users) == B, f"quality: {len(users)} users of {B}")
+    raw = data.build_conventional_batch(users, qstore, qlcfg, n_cands=C,
+                                        rng=np.random.default_rng(0))
+    raw["user_id"] = np.arange(B, dtype=np.int32)
+    check(int(raw["hist_tokens"].max()) < vocab,
+          "quality: a token past the baselines' vocabulary")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()
+             if not k.startswith("_")}
+    return batch, {
+        "users": B, "hist_len": L, "cands": C, "news_per_step": B * (L + C),
+        "vocab": vocab, "max_token": int(raw["hist_tokens"].max()),
+        "pad_token_share": float((raw["hist_tokens"] == 0).mean()),
+        "data_efficiency": raw["_stats"]["data_efficiency"],
+        "host_s": time.perf_counter() - t0}
+
+
+def gc_collect(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2028,6 +2293,7 @@ def main() -> int:
         flash_attention_bwd_plain, flash_attention_cuda,
         flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
+    from repro_torch.launch import tables
     from repro_torch.launch.profile import pq_distortion
     from repro_torch.launch.serve import (Recommender, _pad_histories,
                                           measure_recall, micro_batch_loop,
@@ -2128,7 +2394,7 @@ def main() -> int:
     # ------------------------------------------------------------ slice
     cfg = PROD
     t0 = time.perf_counter()
-    _, log, store, serve_lcfg = make_loader(cfg, n_news=N_NEWS, seed=0)
+    corpus, log, store, serve_lcfg = make_loader(cfg, n_news=N_NEWS, seed=0)
     report["corpus_s"] = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(0)
     params = core.init_speedyfeed(gen, cfg)
@@ -2352,8 +2618,9 @@ def main() -> int:
         make_batcher)
 
     # ----------------------------------------------------- conventional
-    # the trainer's memory goes first
-    del trainer, state, res, top_batch, watch, now, neg
+    # the trainer's memory goes first (the top-bucket batch stays for the
+    # quality phase)
+    del trainer, state, res, watch, now, neg
     gc.collect()
     torch.cuda.empty_cache()
     report["conventional"], conv_launches = conventional_phase(
@@ -2565,7 +2832,22 @@ def main() -> int:
         torch, np, dev, {k: v for k, v in report["hopper"][EBAG_LIB][
             "ptxas"].items() if "bwd" in k})
 
+    # ---------------------------------------------------------- quality
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["quality"], quality_launches = quality_phase(
+        torch, np, dev, cfg, card, corpus, serve_lcfg, top_batch, top)
+    del top_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- kernels
+    def quality_by(name):
+        return {part: c[name] for part, c in quality_launches.items()}
+
+    def quality_sum(name):
+        return sum(quality_by(name).values())
+
     kernels = []
     g = torch.Generator(device=dev).manual_seed(1)
     K, S, H, D = cfg.plm.n_segments, cfg.plm.seg_len, cfg.plm.n_heads, \
@@ -2583,11 +2865,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/bus_attention.py:92",
         "launches": launches["bus_attention"]
         + train_launches["bus_attention"] + ckpt_launches["bus_attention"]
-        + conv_launches["bus_attention"],
+        + conv_launches["bus_attention"] + quality_sum("bus_attention"),
         "launches_by_path": {"serve": launches["bus_attention"],
                              "train": train_launches["bus_attention"],
                              "ckpt": ckpt_launches["bus_attention"],
-                             "conventional": conv_launches["bus_attention"]},
+                             "conventional": conv_launches["bus_attention"],
+                             "quality": quality_by("bus_attention")},
         **fwd_row})
     del q, k, v, kv_mask
 
@@ -2600,12 +2883,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/bus_attention.py:115",
         "launches": train_launches["bus_attention_bwd"]
         + ckpt_launches["bus_attention_bwd"]
-        + conv_launches["bus_attention_bwd"],
+        + conv_launches["bus_attention_bwd"]
+        + quality_sum("bus_attention_bwd"),
         "launches_by_path": {"serve": launches["bus_attention_bwd"],
                              "train": train_launches["bus_attention_bwd"],
                              "ckpt": ckpt_launches["bus_attention_bwd"],
                              "conventional":
-                             conv_launches["bus_attention_bwd"]},
+                             conv_launches["bus_attention_bwd"],
+                             "quality": quality_by("bus_attention_bwd")},
         **on_route(ops, tc_bwd, lambda: bus_bwd_row(torch, qb, kb, vb, mb,
                                                     dob))})
     # the forward at the step's shape (a step launches it 24 times with
@@ -2655,6 +2940,32 @@ def main() -> int:
                 "shape": [BUS_BUCKET_M, K, Sq, Sq + K, H, D]}
         del qq, kq, vq, mq, doq
 
+    # the quality phase's shapes (launch.tables at bench: 4 heads of 16,
+    # the loader's buckets at K=3 and fig9's splits of 48 tokens), forward
+    # and backward, held as at the buckets over fig9's 256 news
+    bcfg = tables.bench_cfg()
+    Hq = bcfg.plm.n_heads
+    Dq = bcfg.plm.d_model // Hq
+    shapes = [(bcfg.plm.n_segments, b)
+              for b in data.default_buckets(bcfg.plm.seg_len)]
+    shapes += [(k, tables.FIG9_TOTAL // k) for k in tables.FIG9_SEGMENTS
+               if k > 1 and (k, tables.FIG9_TOTAL // k) not in shapes]
+    for Kq, Sq in shapes:
+        check(bus_route(Sq, Sq + Kq, Dq) == (tc_fwd, tc_bwd),
+              f"the tables' shape K={Kq}, S={Sq} is not routed to the "
+              "tensor-core kernels")
+        qq, kq, vq, mq, doq = bus_inputs(torch, g, tables.FIG9_NEWS, Kq, Sq,
+                                         Hq, Dq, dev)
+        for row, name, fn in (
+                (kernels[-2], tc_fwd,
+                 lambda: bus_fwd_checks(torch, qq, kq, vq, mq)),
+                (kernels[-1], tc_bwd,
+                 lambda: bus_bwd_checks(torch, qq, kq, vq, mq, doq))):
+            row.setdefault("tables_shapes", {})[f"K{Kq}_S{Sq}"] = {
+                **on_route(ops, name, fn),
+                "shape": [tables.FIG9_NEWS, Kq, Sq, Sq + Kq, Hq, Dq]}
+        del qq, kq, vq, mq, doq
+
     # the SIMT pair: the route for the shapes the tensor-core kernels do
     # not take (no main path sends one: their launches above are 0), held
     # and timed at the production widths with a longer segment
@@ -2671,11 +2982,13 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/bus_attention_simt.cu",
             "replaces": f"src/repro/kernels/bus_attention.py{replaces}",
             "launches": launches[name] + train_launches[name]
-            + ckpt_launches[name] + conv_launches[name],
+            + ckpt_launches[name] + conv_launches[name]
+            + quality_sum(name),
             "launches_by_path": {"serve": launches[name],
                                  "train": train_launches[name],
                                  "ckpt": ckpt_launches[name],
-                                 "conventional": conv_launches[name]},
+                                 "conventional": conv_launches[name],
+                                 "quality": quality_by(name)},
             **on_route(ops, name, fn)})
     del qs_, ks_, vs_, ms_, dos_
 

@@ -5,8 +5,9 @@
 * ``attentive_user_causal``: its autoregressive form, mu_t over
   {theta_l}_{l<=t}. Additive attention is a weighted mean, so the causal
   variant is a pair of prefix sums in O(L).
-
-The NRMS user encoder is not ported (it is not on the production path).
+* ``nrms``: multi-head self-attention over the history (NRMS), then the
+  attentive pooling, causal or not. The attention carries a key mask, so
+  it is plain attention (``nn.attention``), never the flash kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.nn import dense, init_dense, normal_init
+from repro_torch.nn import (AttnConfig, attention, dense, init_attention,
+                           init_dense, normal_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,11 +28,21 @@ class UserModelConfig:
 
 
 def init_user_model(gen: torch.Generator, cfg: UserModelConfig):
-    if cfg.kind != "attentive":
-        raise NotImplementedError(f"user model {cfg.kind!r} is not ported")
+    if cfg.kind not in ("attentive", "nrms"):
+        raise ValueError(f"unknown user model {cfg.kind!r}")
     d = cfg.news_dim
-    return {"proj": init_dense(gen, d, d, use_bias=True),
-            "query": normal_init(gen, (d,), 0.02)}
+    p = {"proj": init_dense(gen, d, d, use_bias=True),
+         "query": normal_init(gen, (d,), 0.02)}
+    if cfg.kind == "nrms":
+        p["self_attn"] = init_attention(gen, _nrms_attn_cfg(cfg))
+    return p
+
+
+def _nrms_attn_cfg(cfg: UserModelConfig) -> AttnConfig:
+    return AttnConfig(d_model=cfg.news_dim, n_heads=cfg.n_heads,
+                      n_kv=cfg.n_heads, head_dim=cfg.news_dim // cfg.n_heads,
+                      qkv_bias=True, out_bias=True, rope_fraction=0.0,
+                      causal=cfg.causal)
 
 
 def _scores(p, theta):
@@ -63,9 +75,11 @@ def attentive_user_causal(p, theta, mask):
 
 
 def user_embeddings(p, cfg: UserModelConfig, theta, mask):
-    """Dispatch on kind and causality: causal -> [B, L, d], else [B, d]."""
-    if cfg.kind != "attentive":
-        raise NotImplementedError(f"user model {cfg.kind!r} is not ported")
+    """Dispatch on kind and causality: causal -> [B, L, d], else [B, d].
+    NRMS adds its self-attention over the history to theta first."""
+    if cfg.kind == "nrms":
+        theta = theta + attention(p["self_attn"], theta, _nrms_attn_cfg(cfg),
+                                  mask=mask)
     if cfg.causal:
         return attentive_user_causal(p, theta, mask)
     return attentive_user(p, theta, mask)

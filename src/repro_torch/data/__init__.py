@@ -7,12 +7,13 @@ from .batching import (EPOCH_END, DynamicBatcher, LoaderConfig, NewsStore,
                        Sentinel, bucket_for, build_centralized_batch,
                        build_conventional_batch, default_buckets,
                        synth_centralized_batch)
-from .news_synth import ClickLog, NewsCorpus, make_click_log, make_corpus
+from .news_synth import (ClickLog, NewsCorpus, click_share_topk,
+                         make_click_log, make_corpus)
 from .refine import CorpusStats, build_corpus_stats
 
 __all__ = ["batching", "recsys_synth", "EPOCH_END", "DynamicBatcher",
            "LoaderConfig", "NewsStore", "Sentinel", "bucket_for",
            "build_centralized_batch", "build_conventional_batch",
            "default_buckets", "synth_centralized_batch", "ClickLog",
-           "NewsCorpus", "make_click_log", "make_corpus", "CorpusStats",
-           "build_corpus_stats"]
+           "NewsCorpus", "click_share_topk", "make_click_log", "make_corpus",
+           "CorpusStats", "build_corpus_stats"]

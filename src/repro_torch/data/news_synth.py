@@ -110,3 +110,19 @@ def make_click_log(rng: np.random.Generator, corpus: NewsCorpus, *,
                             if n_clicks <= corpus.n_news else True, p=w)
         histories.append(clicks.astype(np.int64) + 1)   # 1-based ids
     return ClickLog(histories)
+
+
+def click_share_topk(log: ClickLog, corpus: NewsCorpus, fracs) -> dict:
+    """Table 1: the share of all clicks that the top ``f`` of the news by
+    clicks take, for each ``f`` in ``fracs`` (at least one news each)."""
+    counts = np.zeros(corpus.n_news + 1, np.int64)
+    for h in log.histories:
+        np.add.at(counts, h, 1)
+    counts = counts[1:]
+    order = np.argsort(-counts)
+    total = counts.sum()
+    out = {}
+    for f in fracs:
+        k = max(1, int(round(corpus.n_news * f)))
+        out[f] = counts[order[:k]].sum() / max(total, 1)
+    return out

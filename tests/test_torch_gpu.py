@@ -137,6 +137,30 @@ def test_bus_kernels_at_every_bucket_match_plain(cuda, S, dtype):
     assert float(got[2][::3, 2].float().abs().max()) > 0    # uniform p
 
 
+@pytest.mark.parametrize("K,S", [(3, 8), (3, 16),             # bench buckets
+                                 (2, 24), (4, 12), (6, 8)])   # fig9's splits
+def test_bus_kernels_at_the_tables_shapes_match_plain(cuda, K, S):
+    # launch.tables at bench: 4 heads of 16, f32, 256 news (fig9's encode);
+    # each shape on the tensor-core pair, one launch of each
+    q, k, v, mask = _bus(256, K, S, 4, 16, cuda, seed=K * 100 + S)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(S), device=cuda)
+    assert bus_mod.bus_route(S, S + K, 16) == ("bus_attention",
+                                               "bus_attention_bwd")
+    before = ops.launch_counts()
+    o = bus_mod.bus_attention_cuda(q, k, v, mask)
+    got = bus_mod.bus_attention_bwd_cuda(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["bus_attention"] == before["bus_attention"] + 1
+    assert after["bus_attention_bwd"] == before["bus_attention_bwd"] + 1
+    exp = bus_mod.bus_attention_plain(q, k, v, mask)
+    assert float((o - exp).abs().max()) <= BUS_TOL[torch.float32]
+    for a, b in zip(got, bus_mod.bus_attention_bwd_plain(q, k, v, mask, do)):
+        assert float((a - b).abs().max()) <= BWD_TOL[torch.float32]
+    assert float(got[2][::3, K - 1].abs().max()) > 0        # uniform p
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bus_kernels_are_bitwise_deterministic(cuda, dtype):
     # no atomics: each tile owns its outputs, so two launches agree
@@ -1424,3 +1448,48 @@ def test_recsys_train_steps_on_the_card_match_the_cpu(cuda):
         for (path, a), (_, b) in zip(leaves(p_d), leaves(params)):
             assert float((a.detach().cpu() - b.detach()).abs().max()) \
                 <= 1e-4, (name, path)
+
+
+@pytest.mark.parametrize("name", ["npa", "naml", "lstur", "nrms"])
+def test_news_baseline_grads_on_the_card_match_the_cpu(cuda, name):
+    # the Table-3 baselines at a small size: the loss and its gradients on
+    # the card and on the CPU from the same parameters, no kernel launched
+    # (NRMS's attention is masked: plain, never flash). Each leaf within
+    # 1e-4 of its own largest magnitude; the biases that shift every
+    # logit of one softmax alike (an attention's keys, an additive pool's
+    # scores) have gradients of cancellation noise, held against the
+    # largest magnitude of any leaf
+    from repro_torch.models import news
+    from repro_torch.optim.adam import leaves
+    torch.backends.cudnn.allow_tf32 = False      # the CNNs' conv1d in f32
+    cfg = news.NewsBaselineConfig(name=name, vocab=500, n_users=16,
+                                  d_word=16, d_news=16)
+    params = news.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    ht = rng.integers(0, 500, (4, 6, 3, 8)).astype(np.int32)
+    hm = rng.random((4, 6)) < 0.7
+    hm[:, 0] = True
+    ht[~hm] = 0
+    batch = {"hist_tokens": ht, "hist_mask": hm,
+             "cand_tokens": rng.integers(0, 500, (4, 3, 3, 8)).astype(
+                 np.int32),
+             "label": rng.integers(0, 3, 4).astype(np.int32),
+             "cand_mask": np.ones((4, 3), bool),
+             "user_id": rng.integers(0, 16, 4).astype(np.int32)}
+    out = {}
+    before = ops.launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        flat = [t.requires_grad_() for _, t in leaves(p)]
+        loss, _ = news.loss(p, cfg, {k: torch.as_tensor(v, device=dev)
+                                     for k, v in batch.items()})
+        out[dev.type] = (float(loss), [g.cpu() for g in torch.autograd.grad(
+            loss, flat)])
+    assert ops.launch_counts() == before
+    (ld, gd), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(ld - lc) <= 1e-5, name
+    top = max(float(g.abs().max()) for g in gc)
+    for (path, _), a, b in zip(leaves(params), gd, gc):
+        scale = top if path.endswith(("attn/k/b", "_pool/proj/b")) else \
+            float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale, (name, path)

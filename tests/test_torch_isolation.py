@@ -41,7 +41,8 @@ def test_the_walk_covers_the_package():
             "embedding_bag.py", "common.py", "ctr.py", "bert4rec.py",
             "recsys_synth.py", "recsys_family.py", "ckpt.py", "faults.py",
             "supervise.py", "registry.py", "span.py", "export.py",
-            "_default.py", "base.py", "state.py", "bridge.py"} <= names
+            "_default.py", "base.py", "state.py", "bridge.py", "news.py",
+            "tables.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "embedding_bag.cu").is_file()
     # both embedding_bag.py files: the kernel's module and nn's plain one

@@ -164,13 +164,6 @@ def test_attentive_user_causal_matches_jax():
     assert float(got[1].abs().max()) == 0.0       # empty history -> zeros
 
 
-def test_user_embeddings_refuses_nrms():
-    cfg = core.UserModelConfig(news_dim=8, kind="nrms")
-    with pytest.raises(NotImplementedError):
-        core.user_embeddings({}, cfg, torch.zeros(1, 2, 8),
-                             torch.ones(1, 2, dtype=torch.bool))
-
-
 @pytest.mark.parametrize("with_inv", [True, False])
 def test_ar_loss_matches_jax(with_inv):
     rng = np.random.default_rng(5)
