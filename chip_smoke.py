@@ -30,10 +30,17 @@ Phases, each of which exits non-zero on failure:
               16,384-news corpus: the two halves of
               ``Recommender.build_index`` timed apart (``_encode_corpus``,
               then ``build_index_from``: the IVF-PQ build), a warm-up
-              batch, 128 requests in batches of 16 through
-              ``micro_batch_loop``, and ``measure_recall`` on a probe of
-              16. The kernels' launch counts are set to 0 just before and
-              read just after; both serve kernels must have risen.
+              batch a shape bucket (the scheduler's warm-up calls), 128
+              requests through ``micro_batch_loop`` on the
+              continuous-batching ``RequestScheduler`` (max batch 16),
+              and ``measure_recall`` on a probe of 16. The latencies are
+              the registry's ``query_latency_ms``: e2e a request (queued
+              plus execute) as ``query_p50_ms`` / ``query_p99_ms``, and
+              the batch's execute time as ``query_execute_p50_ms`` /
+              ``_p99_ms`` (what ``query_p50_ms`` read before the
+              scheduler). The kernels' launch counts are set to 0 just
+              before and read just after; both serve kernels must have
+              risen.
   3. index    the served IVF-PQ build against the same build of the same
               embeddings on the CPU: the share of residual energy the PQ
               codes lose (``launch.profile.pq_distortion``) within 0.01.
@@ -41,6 +48,33 @@ Phases, each of which exits non-zero on failure:
               on the card (embeddings within 5e-4), and redo one query
               batch's two stages with the plain LUT scan on the inputs the
               served IVF-PQ search gathers (equal top-k id sets).
+  4b. serve-front the serving front end on the slice's Recommender, the
+              launch counts set to 0 before and read after: (e) OPQ
+              (``PQConfig(opq_iters=2)``) built on the card over the
+              slice's embeddings, its PQ distortion within 0.01 of a CPU
+              OPQ build's and not above plain PQ's, recall@10 of both
+              read (not held); (b) ``open_loop_harness`` with
+              ``--rebuild-mid-loop``, ``--slo-ms`` 50, 2 s a point, at
+              0.25x, 0.5x and 1.5x of the closed loop's sustained rate
+              (16 requests over its execute p50), then a
+              ``during_rebuild`` point at 0.5x while a churn thread
+              publishes and fully rebuilds: nothing rejected or late at
+              0.25x, rejects or late-drops at 1.5x, finite goodput and
+              percentiles, at least one swap inside the rebuild point's
+              window; every point on its own line and merged into
+              ``chiprun_out/serve_sweep.json``; (c) the same harness with
+              ``--chaos-rebuild-failures 2`` at 0.5x, 1 s a point: the
+              plan fires twice, the index health goes degraded and back,
+              ``health()`` ends healthy, every point served with no
+              error; (d) a service over the same store and snapshot with
+              a delta hard cap of 8: the publish past it raises
+              ``BackpressureError`` and leaves the store and view as they
+              were, queries still answer; (f) ``--autotune`` over nprobe
+              {4, 8, 16, 32} x k' {40, 64, 128}, the grid printed and the
+              winner installed. Every scan of the phase on the tiled PQ
+              kernel; then that kernel held to plain (TOL_PQ) at B = 1,
+              2, 4, 8 on the served snapshot's codes and at B=16 on the
+              OPQ snapshot's rotated LUT. Prints the phase's seconds.
   5. train    Algorithm 1 at PROD, full width and depth (E=4096 encoded
               news per step, remat on): ``Trainer.fit`` for 4 steps over
               the DynamicBatcher on the slice's store with the paper's
@@ -298,6 +332,16 @@ CONV_TIMED, CONV_PLAIN_USERS = 2, 4
 # the seed of the baselines' click log over the slice's corpus
 QUALITY_TIMED, QUALITY_CPU_USERS, QUALITY_LOG_SEED = 2, 4, 1
 TOL_QUALITY_CPU = 1e-5
+# the serve-front phase: the open-loop sweep's offered rates as shares of
+# the closed loop's sustained rate (BATCH requests over its execute p50),
+# seconds a point, the SLO; the chaos run's injected rebuild failures, its
+# rate share and seconds a point; the backpressure service's delta hard
+# cap; OPQ's alternations; the scan's batch buckets held to plain
+FRONT_RATE_SHARES = (0.25, 0.5, 1.5)
+FRONT_DURATION_S, FRONT_SLO_MS = 2.0, 50.0
+CHAOS_FAILURES, CHAOS_DURATION_S = 2, 1.0
+BACKPRESSURE_CAP, OPQ_ITERS = 8, 2
+FRONT_SCAN_BATCHES = (1, 2, 4, 8)
 # the ckpt phase: free disk for two snapshots and a half (the supervised
 # fit holds two on disk at once); a fit of CKPT_STEPS checkpointing every
 # CKPT_EVERY, crashed once after step CKPT_CRASH_AT
@@ -2267,6 +2311,259 @@ def baseline_batch(torch, np, dev, corpus, serve_lcfg):
         "host_s": time.perf_counter() - t0}
 
 
+def serve_front_phase(torch, np, dev, rec, reqs, exec_p50_ms: float,
+                      plain_distortion: float):
+    """The serving front end on the slice's PROD Recommender: OPQ, the
+    open-loop sweep with a rebuild mid-loop, chaos, backpressure and the
+    autotuner, counted from 0; then the PQ scan held to plain at the
+    scheduler's small buckets and on OPQ's rotated LUT. Returns (report,
+    launches)."""
+    from repro_torch import obs, serving
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pq_scoring import ROUTES as PQ_ROUTES
+    from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile import pq_distortion
+    from repro_torch.resilience import faults
+    from repro_torch.serving.index import _pq_scan_inputs
+
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    svc = rec.service
+    emb = svc.store.emb
+    n_rows = emb.shape[0]
+    probe_reqs = reqs[BATCH:]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    rep = {}
+
+    def counter(name, **labels):
+        return obs.counter(name, **labels).value
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    # (e) OPQ on the slice's embeddings, on the card and on the CPU
+    bld = svc.builder
+    opq_cfg = dataclasses.replace(bld.pq, opq_iters=OPQ_ITERS)
+    t0 = time.perf_counter()
+    opq_snap = serving.IndexBuilder(
+        bld.kind, bld.dim, ivf=bld.ivf, pq=opq_cfg, seed=bld.seed,
+        device=dev).build(np.arange(1, n_rows), emb[1:])
+    torch.cuda.synchronize()
+    opq_build_s = time.perf_counter() - t0
+    cpu_opq = serving.IndexBuilder(
+        bld.kind, bld.dim, ivf=bld.ivf, pq=opq_cfg, seed=bld.seed,
+        device="cpu").build(np.arange(1, n_rows), emb[1:].cpu())
+    plain_snap = svc.snapshot()
+    recall_plain = serve.measure_recall(rec, probe_reqs, k=10, probe=16)
+    svc.swap(opq_snap)
+    recall_opq = serve.measure_recall(rec, probe_reqs, k=10, probe=16)
+    svc.swap(plain_snap)
+    rot = opq_snap.pq_rot
+    rep["opq"] = {
+        "opq_iters": OPQ_ITERS, "build_s": opq_build_s,
+        "pq_distortion": {"opq_card": pq_distortion(opq_snap, emb),
+                          "opq_cpu": pq_distortion(cpu_opq, emb.cpu()),
+                          "plain_card": plain_distortion},
+        "rot_orthogonality_err": float((rot.T @ rot - torch.eye(
+            rot.shape[0], device=dev)).abs().max()),
+        "recall_at_10": {"opq": recall_opq, "plain": recall_plain}}
+    print("serve-front opq: " + json.dumps(rep["opq"]), flush=True)
+    d = rep["opq"]["pq_distortion"]
+    check(abs(d["opq_card"] - d["opq_cpu"]) <= TOL_DISTORTION,
+          f"OPQ distortion on the card {d['opq_card']} vs the CPU build "
+          f"{d['opq_cpu']}")
+    check(d["opq_card"] <= d["plain_card"],
+          f"OPQ distortion {d['opq_card']} worse than plain PQ's "
+          f"{d['plain_card']}")
+
+    # (b) the open-loop sweep around the closed loop's sustained rate,
+    # then one point at the middle rate while a churn thread publishes and
+    # fully rebuilds
+    sustained = BATCH / exec_p50_ms * 1e3
+    rates = [round(f * sustained, 1) for f in FRONT_RATE_SHARES]
+
+    def harness(flags, chaos_n=0):
+        args = serve.build_parser().parse_args(flags)
+        try:
+            return serve.open_loop_harness(args, rec, probe_reqs,
+                                           chaos_n=chaos_n)
+        finally:
+            faults.disarm()
+
+    swaps0 = svc.n_swaps
+    t0 = time.perf_counter()
+    entries, _ = harness(
+        ["--open-loop", "--rebuild-mid-loop", "--batch", str(BATCH),
+         "--slo-ms", str(FRONT_SLO_MS), "--duration", str(FRONT_DURATION_S),
+         "--bench-out", str(out_dir / "serve_sweep.json"), "--sweep",
+         *map(str, rates)])
+    sweep_s = time.perf_counter() - t0
+    # the harness swaps once in its warm cycle before the quiescent points
+    # and at most once after the during_rebuild window, for the build in
+    # flight when the churn stops: the rest swapped inside that window
+    swaps = svc.n_swaps - swaps0
+    swaps_in_window = swaps - 2
+    for e in entries:
+        for pt in e["points"]:
+            print("serve-front point: " + json.dumps(
+                {"scenario": e["scenario"], **pt}), flush=True)
+    quiet, during = entries[0]["points"], entries[1]["points"][0]
+    rep["sweep"] = {"sustained_qps": sustained, "rates": rates,
+                    "swaps": swaps,
+                    "swaps_in_rebuild_window_at_least": swaps_in_window,
+                    "s": sweep_s}
+    print("serve-front sweep: " + json.dumps(rep["sweep"]), flush=True)
+    rep["sweep"]["entries"] = entries
+    check([p["offered_qps"] for p in quiet] == rates,
+          f"sweep points {[p['offered_qps'] for p in quiet]} != {rates}")
+    low, high = quiet[0], quiet[-1]
+    check(low["rejected"] == low["late_dropped"] == low["completed_late"]
+          == low["errors"] == 0 and low["completed"] == low["offered"],
+          f"at {FRONT_RATE_SHARES[0]}x of the sustained rate: {low}")
+    check(high["rejected"] + high["late_dropped"] > 0,
+          f"at {FRONT_RATE_SHARES[-1]}x nothing was rejected or late: {high}")
+    for pt in quiet + [during]:
+        vals = [pt[k] for k in ("goodput_qps", "e2e_ms_p50", "e2e_ms_p99",
+                                "queued_ms_p50", "queued_ms_p99")]
+        check(all(np.isfinite(vals)) and pt["errors"] == 0,
+              f"sweep point not finite or with errors: {pt}")
+    check(swaps_in_window >= 1,
+          f"no swap during the during_rebuild point: {swaps} swaps in the "
+          f"harness, its warm cycle's and the last build's included")
+
+    # (c) chaos: CHAOS_FAILURES injected rebuild failures in the open
+    # loop's measured window; retried, degraded, recovered, under the
+    # launcher's knobs for --chaos-rebuild-failures, for this run only
+    knobs = serve.chaos_service_kw(CHAOS_FAILURES)
+    knobs0 = {k: getattr(svc, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(svc, k, v)
+    tr0 = {to: counter("health_transitions_total", component="index", to=to)
+           for to in ("degraded", "healthy")}
+    f0 = counter("index_build_failures_total", mode="full")
+    mid = rates[len(rates) // 2]
+    entries_c, plan = harness(
+        ["--open-loop", "--chaos-rebuild-failures", str(CHAOS_FAILURES),
+         "--batch", str(BATCH), "--slo-ms", str(FRONT_SLO_MS), "--duration",
+         str(CHAOS_DURATION_S), "--bench-out",
+         str(out_dir / "serve_sweep_chaos.json"), "--qps", str(mid)],
+        chaos_n=CHAOS_FAILURES)
+    for k, v in knobs0.items():
+        setattr(svc, k, v)
+    health = svc.health()
+    tr = {to: counter("health_transitions_total", component="index",
+                      to=to) - tr0[to] for to in tr0}
+    pts = [pt for e in entries_c for pt in e["points"]]
+    rep["chaos"] = {
+        "fired": plan.fired("index.rebuild"),
+        "build_attempts": plan.calls("index.rebuild"),
+        "build_failures": counter("index_build_failures_total",
+                                  mode="full") - f0,
+        "health": health["status"], "index_transitions": tr,
+        "points": [{"scenario": e["scenario"], **pt} for e in entries_c
+                   for pt in e["points"]]}
+    print("serve-front chaos: " + json.dumps(rep["chaos"]), flush=True)
+    check(rep["chaos"]["fired"] == CHAOS_FAILURES,
+          f"the chaos plan fired {rep['chaos']['fired']} times")
+    check(health["status"] == "healthy", f"health after chaos: {health}")
+    check(tr["degraded"] >= 1 and tr["healthy"] >= 1,
+          f"index health transitions under chaos: {tr}")
+    check(all(pt["completed"] > 0 and pt["errors"] == 0 for pt in pts),
+          f"queries failed under chaos: {pts}")
+
+    # (d) backpressure: a service over the same store and snapshot with a
+    # small delta hard cap
+    bp = serving.RetrievalService(
+        svc.builder, emb, k=10, k_prime=svc.k_prime, auto_compact=False,
+        delta_hard_cap=BACKPRESSURE_CAP, device=dev)
+    bp.swap(plain_snap)
+    n0 = bp.store.emb.shape[0]
+    fresh = (emb[1:1 + BACKPRESSURE_CAP + 1].cpu().numpy() + 0.01)
+    bp.publish(np.arange(n0, n0 + BACKPRESSURE_CAP),
+               fresh[:BACKPRESSURE_CAP])
+    store0, view0 = bp.store.emb.clone(), bp._view
+    b0 = counter("publish_backpressure_total")
+    raised = False
+    try:
+        bp.publish(np.array([n0 + BACKPRESSURE_CAP]),
+                   fresh[BACKPRESSURE_CAP:])
+    except serving.BackpressureError:
+        raised = True
+    unchanged = (bp._view is view0 and torch.equal(bp.store.emb, store0)
+                 and bp.n_pending == BACKPRESSURE_CAP)
+    hist, mask = serve._pad_histories(rec, probe_reqs[:BATCH], BATCH)
+    _, ids_bp = bp.query(rec.encode_users(hist, mask))
+    rep["backpressure"] = {
+        "hard_cap": BACKPRESSURE_CAP, "raised": raised,
+        "state_unchanged": unchanged,
+        "backpressure_total": counter("publish_backpressure_total") - b0,
+        "health": bp.health()["status"],
+        "queries_answered": int((ids_bp > 0).all(axis=1).sum())}
+    print("serve-front backpressure: " + json.dumps(rep["backpressure"]),
+          flush=True)
+    check(raised and unchanged
+          and rep["backpressure"]["queries_answered"] == BATCH,
+          f"backpressure: {rep['backpressure']}")
+    del bp, store0, view0
+
+    # (f) the autotuner over nprobe {4, 8, 16, 32} x k' {40, 64, 128}
+    args_f = serve.build_parser().parse_args(["--autotune", "--batch",
+                                              str(BATCH)])
+    best = serve.tune(rec, probe_reqs, args_f)
+    rep["autotune"] = {
+        "grid": [{k: v for k, v in dataclasses.asdict(t).items()
+                  if k != "trials"} for t in best.trials],
+        "winner": {"nprobe": best.nprobe, "k_prime": best.k_prime,
+                   "recall": best.recall, "ms": best.ms,
+                   "met_target": best.met_target},
+        "installed": {"nprobe": svc.snapshot().nprobe,
+                      "k_prime": svc.k_prime}}
+    print("serve-front autotune: " + json.dumps(rep["autotune"]), flush=True)
+    check(len(best.trials) == 12
+          and rep["autotune"]["installed"] == {"nprobe": best.nprobe,
+                                               "k_prime": best.k_prime},
+          f"autotune: the winner is not the installed config "
+          f"{rep['autotune']}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    rep["launches"] = launches
+    check(launches["pq_lut_scores"] > 0 and
+          launches["pq_lut_scores_general"] == 0,
+          f"serve-front scans not all on the tiled kernel: {launches}")
+
+    # the scan at the scheduler's small buckets, on the slice's served
+    # snapshot (nprobe 16, whatever the autotuner installed since), and at
+    # BATCH on OPQ's rotated LUT: held to plain
+    hist, mask = serve._pad_histories(rec, probe_reqs[:BATCH], BATCH)
+    user = rec.encode_users(hist, mask)
+    scans = {}
+    for label, snap_, rows in (
+            *((f"B{b}", plain_snap, b) for b in FRONT_SCAN_BATCHES),
+            ("opq_B16", opq_snap, BATCH)):
+        lut, codes, valid, _, _ = _pq_scan_inputs(
+            user[:rows], snap_.cent_unit, snap_.cent_raw, snap_.list_ids,
+            snap_.payload, snap_.lens, snap_.pq_centers, snap_.pq_rot,
+            nprobe=snap_.nprobe, metric=snap_.metric)
+        got = on_route(ops, "pq_lut_scores", lambda: ops.pq_lut_scores(
+            lut, codes, valid), PQ_ROUTES)
+        ref = pq_lut_scores_plain(lut, codes, valid)
+        fin = torch.isfinite(ref)
+        check(torch.equal(torch.isfinite(got), fin),
+              f"{label}: finite slots differ from plain")
+        err = float((got[fin] - ref[fin]).abs().max())
+        scans[label] = {"shape": [*lut.shape, codes.shape[1]],
+                        "rotated": snap_.pq_rot is not None,
+                        "max_abs_err": err}
+        check(err <= TOL_PQ, f"{label}: the scan differs from plain by {err}")
+    rep["scans"] = scans
+    rep["seconds"] = time.perf_counter() - t_phase
+    print("serve-front scans: " + json.dumps(scans), flush=True)
+    print(f"serve-front: {rep['seconds']:.1f} s", flush=True)
+    return rep, launches
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -2295,9 +2592,12 @@ def main() -> int:
     from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
     from repro_torch.launch import tables
     from repro_torch.launch.profile import pq_distortion
+    from repro_torch import obs
     from repro_torch.launch.serve import (Recommender, _pad_histories,
+                                          make_recommend_execute,
                                           measure_recall, micro_batch_loop,
                                           pq_scan_inputs)
+    from repro_torch.serving.scheduler import pow2_buckets
     from repro_torch.launch.train import first_batch_of_bucket, make_loader
     from repro_torch.models import lm
     from repro_torch.nn import attention, embed, rmsnorm
@@ -2398,8 +2698,14 @@ def main() -> int:
     report["corpus_s"] = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(0)
     params = core.init_speedyfeed(gen, cfg)
+    # one registry for the serving phases, as the launcher starts one; a
+    # delta hard cap that holds the corpus: the bootstrap publishes all of
+    # it into the delta tier before the first build (the default cap, 8 x
+    # the compaction threshold of 512, holds 4,096)
+    obs.reset()
     rec = Recommender(cfg, params, store, k=10, index_kind="ivf-pq",
-                      nprobe=16, k_prime=64, device=dev)
+                      nprobe=16, k_prime=64, device=dev,
+                      service_kw={"delta_hard_cap": N_NEWS})
     reqs = list(log.histories[:N_REQUESTS + BATCH])
     print(f"corpus: {store.tokens.shape[0]} news rows in "
           f"{report['corpus_s']:.1f} s; {len(reqs)} requests", flush=True)
@@ -2414,8 +2720,14 @@ def main() -> int:
     svc = rec.build_index_from(emb)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
-    micro_batch_loop(rec, reqs[:BATCH], max_batch=BATCH)      # warm-up
-    _, n_batches, lat = micro_batch_loop(rec, reqs[BATCH:], max_batch=BATCH)
+    # warm-up: one batch a shape bucket, outside the scheduler's metrics
+    # (RequestScheduler.warmup's calls)
+    warm = make_recommend_execute(rec)
+    for b in pow2_buckets(BATCH):
+        warm(reqs[:b], b)
+    _, n_batches = micro_batch_loop(rec, reqs[BATCH:], max_batch=BATCH)
+    lat = {phase: obs.histogram("query_latency_ms", phase=phase)
+           for phase in ("e2e", "execute", "queued")}
     recall = measure_recall(rec, reqs[BATCH:], k=10, probe=16)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -2428,8 +2740,14 @@ def main() -> int:
         "nlist": int(snap.list_ids.shape[0]), "cap": snap.cap,
         "ntotal": snap.ntotal, "requests": N_REQUESTS, "batch": BATCH,
         "n_batches": n_batches,
-        "query_p50_ms": float(torch.tensor(lat).quantile(0.5)),
-        "query_p99_ms": float(torch.tensor(lat).quantile(0.99)),
+        "query_p50_ms": lat["e2e"].percentile(50),
+        "query_p99_ms": lat["e2e"].percentile(99),
+        "query_execute_p50_ms": lat["execute"].percentile(50),
+        "query_execute_p99_ms": lat["execute"].percentile(99),
+        "query_queued_p50_ms": lat["queued"].percentile(50),
+        "query_queued_p99_ms": lat["queued"].percentile(99),
+        "batch_size_mean": obs.histogram("serve_batch_size").sum
+        / max(n_batches, 1),
         "recall_at_10": recall, "launches": launches,
         "expected_bus_launches": cfg.plm.n_layers * chunks}
     print("slice: " + json.dumps(report["slice"]), flush=True)
@@ -2446,6 +2764,9 @@ def main() -> int:
     check(launches["pq_lut_scores_general"] == 0,
           "the serve path sent a scan to the general PQ kernel")
     check(0.0 < recall <= 1.0, f"recall@10 {recall}")
+    check(lat["e2e"].count == lat["execute"].count == N_REQUESTS
+          and np.isfinite(report["slice"]["query_p99_ms"]),
+          f"the closed loop served {lat['e2e'].count} of {N_REQUESTS}")
 
     # ------------------------------------------------------------ index
     # the served IVF-PQ build against the same build on the CPU, where
@@ -2499,6 +2820,11 @@ def main() -> int:
     print("plain: " + json.dumps(report["plain"]), flush=True)
     check(enc_err <= TOL_ENCODE, f"encode differs from plain by {enc_err}")
     check(same, "top-k id sets differ between kernel and plain scans")
+
+    # ------------------------------------------------------- serve-front
+    report["serve_front"], front_launches = serve_front_phase(
+        torch, np, dev, rec, reqs, report["slice"]["query_execute_p50_ms"],
+        dist["card"])
 
     # ------------------------------------------------------------ train
     # the slice's store, read by the DynamicBatcher with the paper's token
@@ -3014,7 +3340,8 @@ def main() -> int:
                                     x["valid"], 50, 3)}
         del x
     print("pq: " + json.dumps(pq), flush=True)
-    pq_launches = {n: {"serve": launches[n], "train": train_launches[n]}
+    pq_launches = {n: {"serve": launches[n], "train": train_launches[n],
+                       "serve_front": front_launches[n]}
                    for n in ("pq_lut_scores", "pq_lut_scores_general")}
     main = pq["main"]
     for name, ms_key, err_key in (

@@ -355,6 +355,17 @@ def _exact_top(store, user, k: int = 10):
                       k).indices
 
 
+def slice_recommender(params, store, n_news: int, device) -> Recommender:
+    """The serve slice's Recommender (IVF-PQ, nprobe 16, k' 64) over a
+    corpus of ``n_news`` rows. Its bootstrap publishes the whole corpus
+    into the delta tier, so the delta hard cap holds the corpus: the
+    default cap (8 x the compaction threshold of 512) holds 4,096 rows and
+    refuses a larger bootstrap with ``BackpressureError``."""
+    return Recommender(PROD, params, store, k=10, index_kind="ivf-pq",
+                       nprobe=16, k_prime=64,
+                       service_kw={"delta_hard_cap": n_news}, device=device)
+
+
 def recall_repeat(emb, user, *, seeds=range(8), repeats: int = 3,
                   small_probe: int = 16, device="cuda") -> dict:
     """Where the spread of recall@10 between runs comes from: IVF-PQ builds
@@ -379,8 +390,7 @@ def recall_repeat(emb, user, *, seeds=range(8), repeats: int = 3,
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                rec = Recommender(PROD, {}, None, k=10, index_kind="ivf-pq",
-                                  nprobe=16, k_prime=64, device=device)
+                rec = slice_recommender({}, None, emb.shape[0], device)
                 t0 = time.perf_counter()
                 svc = rec.build_index_from(emb.to(device), seed=seed)
                 build_s = time.perf_counter() - t0
@@ -494,8 +504,7 @@ def main(argv=None):
         return report
     params = core.init_speedyfeed(
         torch.Generator(device=dev).manual_seed(0), PROD)
-    rec = Recommender(PROD, params, store, k=10, index_kind="ivf-pq",
-                      nprobe=16, k_prime=64, device=dev)
+    rec = slice_recommender(params, store, store.tokens.shape[0], dev)
     emb = rec._encode_corpus()
     svc = rec.build_index_from(emb)
     report = {"card": card, "news": int(emb.shape[0])}

@@ -26,7 +26,8 @@ whole layer to its near-zero-cost disabled path.
 
 The metric-name catalog (units, labels, who writes what) is the JAX
 package's ``docs/observability.md``; the port writes the training,
-checkpoint and fault-injection series listed there.
+checkpoint, fault-injection, index-lifecycle, health and request-loop
+series listed there.
 """
 from __future__ import annotations
 

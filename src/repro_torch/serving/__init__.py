@@ -1,21 +1,33 @@
 """Two-stage ANN retrieval: IVF-Flat / IVF-PQ over padded-CSR device
-storage, versioned snapshots, an online delta tier, and the service."""
+storage, versioned snapshots, an online delta tier, the service with its
+degraded mode, and the continuous-batching request front end
+(RequestScheduler + the open-loop Poisson load harness in loadgen)."""
+from . import loadgen
 from .builder import IndexBuilder
 from .index import (PAD_ID, FlatIndex, IVFConfig, IVFFlatIndex, IVFPQIndex,
                     make_index)
-from .online import DeltaBuffer, DeltaView, hybrid_search, merge_topk_dedup
+from .online import (DeltaBuffer, DeltaOverflowError, DeltaView, hybrid_search,
+                     ingest_from_cache, merge_topk_dedup)
 from .pq import (PQCodebook, PQConfig, fit_kmeans, kmeans, kmeans_minibatch,
-                 pq_decode, pq_encode, pq_lut, pq_search, pq_train,
+                 opq_train, pq_decode, pq_encode, pq_lut, pq_search, pq_train,
                  sample_rows)
-from .service import RetrievalService, ServiceView
+from .scheduler import (DeadlineExceededError, RequestCancelledError,
+                        RequestScheduler, ScheduledRequest, bucket_for,
+                        pow2_buckets)
+from .service import BackpressureError, RetrievalService, ServiceView
 from .snapshot import IndexSnapshot, empty_snapshot, snapshot_from_index
 from .store import EmbeddingStore
+from .tune import TuneResult, autotune, tune_service
 
-__all__ = ["IndexBuilder", "PAD_ID", "FlatIndex", "IVFConfig",
+__all__ = ["loadgen", "IndexBuilder", "PAD_ID", "FlatIndex", "IVFConfig",
            "IVFFlatIndex", "IVFPQIndex", "make_index", "DeltaBuffer",
-           "DeltaView", "hybrid_search", "merge_topk_dedup", "PQCodebook",
+           "DeltaOverflowError", "DeltaView", "hybrid_search",
+           "ingest_from_cache", "merge_topk_dedup", "PQCodebook",
            "PQConfig", "fit_kmeans", "kmeans", "kmeans_minibatch",
-           "pq_decode", "pq_encode", "pq_lut", "pq_search", "pq_train",
-           "sample_rows", "RetrievalService", "ServiceView",
-           "IndexSnapshot", "empty_snapshot", "snapshot_from_index",
-           "EmbeddingStore"]
+           "opq_train", "pq_decode", "pq_encode", "pq_lut", "pq_search",
+           "pq_train", "sample_rows", "DeadlineExceededError",
+           "RequestCancelledError", "RequestScheduler", "ScheduledRequest",
+           "bucket_for", "pow2_buckets", "BackpressureError",
+           "RetrievalService", "ServiceView", "IndexSnapshot",
+           "empty_snapshot", "snapshot_from_index", "EmbeddingStore",
+           "TuneResult", "autotune", "tune_service"]

@@ -29,8 +29,8 @@ import torch
 
 from repro_torch.kernels import ops
 
-from .pq import (PQCodebook, PQConfig, fit_kmeans, fork, pq_encode, pq_lut,
-                 pq_train, sample_rows)
+from .pq import (PQCodebook, PQConfig, fit_kmeans, fork, opq_train,
+                 pq_encode, pq_lut, pq_train, sample_rows)
 
 PAD_ID = -1
 MIN_CAP = 8            # smallest per-list capacity bucket
@@ -394,8 +394,6 @@ class IVFPQIndex(IVFFlatIndex):
 
     def __init__(self, dim: int, cfg: IVFConfig = IVFConfig(),
                  pq_cfg: PQConfig = PQConfig(), device="cuda"):
-        if pq_cfg.opq_iters > 0:
-            raise NotImplementedError("OPQ training is not ported yet")
         self.pq_cfg = pq_cfg
         self.codebook: PQCodebook | None = None
         super().__init__(dim, cfg, device)
@@ -406,7 +404,8 @@ class IVFPQIndex(IVFFlatIndex):
 
     def _post_train(self, gen, vectors, assign):
         residuals = vectors - self._cent_raw_dev[assign]
-        self.codebook = pq_train(fork(gen), residuals, self.pq_cfg)
+        fit = opq_train if self.pq_cfg.opq_iters > 0 else pq_train
+        self.codebook = fit(fork(gen), residuals, self.pq_cfg)
 
     def _encode_payload_dev(self, vectors, assign):
         residuals = vectors - self._cent_raw_dev[assign]

@@ -9,6 +9,11 @@ absorbed, and the post-swap ``prune(watermark)`` drops exactly the
 absorbed entries — an id re-published during the build keeps its newer
 stamp and keeps overriding the stale row the build captured. Queries see
 the buffer only through frozen ``DeltaView``s.
+
+Embeddings enter either straight from the training cache
+(``ingest_from_cache`` reads ``core.cache.CacheState`` rows the trainer
+already paid to encode) or from a fresh encoder call (``add``). A
+``max_size`` hard cap bounds the tier for degraded-mode serving.
 """
 from __future__ import annotations
 
@@ -17,7 +22,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.cache import NEVER, CacheState
+
 from .index import PAD_ID, FlatIndex, _topk_padded
+
+
+class DeltaOverflowError(RuntimeError):
+    """An ``add`` would grow the delta tier past its ``max_size`` hard cap.
+
+    The cap exists for degraded-mode serving: when index rebuilds keep
+    failing, the delta must not grow unboundedly (its exact scan is on
+    every query's critical path); the service surfaces this as
+    backpressure on ``publish`` while queries keep serving the last good
+    snapshot (see ``RetrievalService.health``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +71,10 @@ class DeltaBuffer:
     """
 
     def __init__(self, dim: int, *, compact_threshold: int = 512,
-                 device="cuda"):
+                 max_size: int | None = None, device="cuda"):
         self.dim = dim
         self.compact_threshold = compact_threshold
+        self.max_size = max_size       # hard cap; None = unbounded
         self.device = torch.device(device)
         self._flat = FlatIndex(dim, self.device)
         self._seq = 0                  # bumps once per add() batch
@@ -73,8 +91,23 @@ class DeltaBuffer:
     def emb(self):
         return self._flat._vecs
 
+    def would_overflow(self, ids) -> bool:
+        """Would upserting ``ids`` grow the buffer past ``max_size``?
+        (Re-published ids overwrite in place and never grow it.)"""
+        if self.max_size is None:
+            return False
+        fresh = sum(1 for i in np.unique(np.asarray(ids, np.int64))
+                    if int(i) not in self._id_seq)
+        return len(self) + fresh > self.max_size
+
     def add(self, ids, emb):
-        """Upsert fresh embeddings (re-published ids overwrite in place)."""
+        """Upsert fresh embeddings (re-published ids overwrite in place).
+        Raises ``DeltaOverflowError`` past the ``max_size`` hard cap."""
+        if self.would_overflow(ids):
+            raise DeltaOverflowError(
+                f"delta tier at hard cap ({len(self)}/{self.max_size}); "
+                f"a rebuild/compaction must absorb it before more "
+                f"publishes are accepted")
         self._seq += 1
         ids = np.asarray(ids, np.int64)
         self._flat.add(ids, emb)
@@ -101,6 +134,30 @@ class DeltaBuffer:
     @property
     def should_compact(self) -> bool:
         return len(self) >= self.compact_threshold
+
+    def compact_into(self, index):
+        """Bulk-add the buffered embeddings into ``index`` and clear.
+
+        Low-level escape hatch (tests, offline tools): the service
+        compacts through ``IndexBuilder.compact`` + swap instead, keeping
+        the encode work off the request path."""
+        if len(self):
+            index.add(self.ids, self.emb)
+        self._flat = FlatIndex(self.dim, self.device)
+        self._id_seq.clear()
+
+
+def ingest_from_cache(delta: DeltaBuffer, state: CacheState, ids):
+    """Pull rows the trainer already encoded (``core.cache.CacheState``,
+    gathered on the state's device) into the delta tier; rows never
+    written (written_step == NEVER) are skipped. Returns the number
+    ingested."""
+    ids = np.asarray(ids, np.int64)
+    written = state.written_step.cpu().numpy()[ids] != NEVER
+    if written.any():
+        rows = torch.as_tensor(ids[written], device=state.emb.device)
+        delta.add(ids[written], state.emb[rows].cpu().numpy())
+    return int(written.sum())
 
 
 def merge_topk_dedup(scores, ids, k: int):

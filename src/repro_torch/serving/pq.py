@@ -10,8 +10,10 @@ Training draws from explicit ``torch.Generator``s on the data's device;
 ``fork`` derives an independent child generator where the JAX package
 splits or folds a key. The two frameworks draw different streams, so
 quantizers trained here are held to the JAX package by recall, not id
-for id. ``PQCodebook.rot`` (an OPQ rotation) is applied wherever it is
-set; training one (``opq_train``) belongs to a later slice.
+for id. ``opq_train`` adds the OPQ rotation: an orthogonal ``R``
+learned by alternating PQ training with a Procrustes solve, carried in
+``PQCodebook.rot`` so every encode/decode/LUT path applies it (``rot=None``
+means identity).
 """
 from __future__ import annotations
 
@@ -199,6 +201,24 @@ def pq_train(gen: torch.Generator, x, cfg: PQConfig) -> PQCodebook:
                         iters=cfg.train_iters, batch=cfg.train_batch)[0]
              for m in range(cfg.n_subvec)]
     return PQCodebook(torch.stack(cents))
+
+
+def opq_train(gen: torch.Generator, x, cfg: PQConfig) -> PQCodebook:
+    """OPQ: learn an orthogonal rotation R minimizing quantization error by
+    alternating (train PQ on x@R) with the Procrustes solve R = U V^T from
+    svd(x^T rec), then train the final codebooks in the rotated space.
+    The codebook carries ``rot``; scores are invariant because <q@R, r@R>
+    == <q, r> for orthogonal R."""
+    x = sample_rows(fork(gen), x, cfg.train_sample)
+    rot = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    for _ in range(cfg.opq_iters):
+        xr = x @ rot
+        cb = pq_train(fork(gen), xr, cfg)
+        rec = pq_decode(cb, pq_encode(cb, xr))        # rot=None: rotated space
+        u, _, vt = torch.linalg.svd(x.T @ rec, full_matrices=False)
+        rot = u @ vt
+    cb = pq_train(fork(gen), x @ rot, cfg)
+    return PQCodebook(cb.centers, rot)
 
 
 def pq_encode(cb: PQCodebook, x):

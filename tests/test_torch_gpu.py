@@ -489,8 +489,9 @@ def test_serving_slice_on_the_card_goes_through_both_kernels(cuda):
     ops.reset_launch_counts()
     emb = rec._encode_corpus()
     rec.build_index_from(emb)
-    results, n_batches, _ = serve.micro_batch_loop(rec, log.histories[:32],
-                                                   max_batch=16)
+    # a 50 ms flush window: the 32 submissions gather into 2 batches
+    results, n_batches = serve.micro_batch_loop(rec, log.histories[:32],
+                                                max_batch=16, max_wait_ms=50)
     counts = ops.launch_counts()
     assert counts["bus_attention"] == cfg.plm.n_layers * 3    # 601 rows
     assert counts["pq_lut_scores"] == n_batches == 2
@@ -546,6 +547,56 @@ def test_background_rebuild_on_the_card_while_queries_run(cuda):
     assert svc.version == 2 and svc.ntotal == 3000 and svc.n_pending == 0
     exact = ids[np.argsort(-(q @ x.T), axis=1)[:, :10]]
     _, got = svc.query(q)
+    hits = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)])
+    assert hits >= 0.5
+
+
+def test_scheduler_serves_on_the_card_while_a_rebuild_runs(cuda):
+    """The request scheduler's worker thread answers from the card (a bare
+    "cuda", resolved on that thread) while a full rebuild runs on the
+    service's rebuild thread; every scan on the tiled PQ kernel."""
+    from repro_torch import serving
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    ids = np.arange(1, 3001)
+    svc = serving.RetrievalService(
+        serving.IndexBuilder("ivf-pq", 32, device="cuda",
+                             ivf=serving.IVFConfig(nlist=16, nprobe=16)),
+        np.zeros((1, 32), np.float32), k=10, auto_compact=False,
+        device="cuda")
+    svc.publish(ids, x)
+    svc.rebuild(mode="full", block=True)
+    devices = []
+
+    def execute(payloads, pad_to):
+        q = np.zeros((pad_to, 32), np.float32)
+        q[:len(payloads)] = np.stack(payloads)
+        devices.append(torch.cuda.current_device())
+        _, got = svc.query(q)            # host ids: the launches are done
+        return [got[i] for i in range(len(payloads))]
+
+    sched = serving.RequestScheduler(execute, max_batch=8, max_wait_ms=1.0)
+    ops.reset_launch_counts()
+    try:
+        sched.warmup(x[0])
+        svc.publish(ids[:64], x[:64] + 0.01)
+        thread = svc.rebuild(mode="full", block=False)
+        handles = []
+        while thread.is_alive() or len(handles) < 64:
+            handles += [sched.submit(x[i]) for i in rng.integers(0, 3000, 8)]
+            handles[-1].wait(10.0)
+        got = [h.result(timeout=30.0) for h in handles]
+        svc.wait_for_build()
+    finally:
+        sched.stop()
+    assert svc.version == 2 and svc.n_pending == 0
+    assert all(g.shape == (10,) and (g > 0).all() for g in got)
+    assert set(devices) == {torch.cuda.current_device()}
+    counts = ops.launch_counts()
+    assert counts["pq_lut_scores"] >= sched.n_batches + len(sched.buckets)
+    assert counts["pq_lut_scores_general"] == 0
+    exact = ids[np.argsort(-(x[:8] @ x.T), axis=1)[:, :10]]
+    _, got = svc.query(x[:8])
     hits = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)])
     assert hits >= 0.5
 

@@ -42,7 +42,8 @@ def test_the_walk_covers_the_package():
             "recsys_synth.py", "recsys_family.py", "ckpt.py", "faults.py",
             "supervise.py", "registry.py", "span.py", "export.py",
             "_default.py", "base.py", "state.py", "bridge.py", "news.py",
-            "tables.py"} <= names
+            "tables.py", "scheduler.py", "loadgen.py", "tune.py",
+            "online.py", "service.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "embedding_bag.cu").is_file()
     # both embedding_bag.py files: the kernel's module and nn's plain one
