@@ -141,6 +141,35 @@ Phases, each of which exits non-zero on failure:
               then with the weights cast to f32 in place, each within
               TOL_LM_REL_F32 of the largest logit; bf16 goes through the
               Hopper flash forward, f32 through the 3xTF32 one.
+  9b. lm-moe  the MoE members of the LM family, after the lm phase's
+              weights are freed: (a) first the chunked-local route
+              (``nn.attention.chunked_flash``, one flash launch over the
+              hard chunks) against plain at Scout's 40/8 heads of 128,
+              B=1, S=16,384, chunk 8,192, in f32 and bf16, plain taken a
+              chunk at a time in query blocks of 512 (TOL_FLASH; bf16
+              also element-wise, beside the dropped-key-tile control).
+              Then DBRX-132B and Llama-4-Scout, each at full width and its
+              ``lm_family.ONE_CARD_SERVE`` depth (6 of 40 layers; 8 of 48,
+              two super-blocks of 3 chunked-local and 1 global NoPE
+              layer), bf16, seeded random weights, through ``make_fn``:
+              init seconds and parameter GB; a warm-up and a timed
+              prefill at B=1, S=32,768 (tokens/s, peak GB, finite
+              last-row logits; exactly L Hopper flash forward launches, 6
+              and 8, Scout's 6 local ones on [4, 8,192] views; the dropped
+              assignments per layer, from ``_route``'s experts and
+              ``capacity_for``); decode, no flash launch: DBRX 32 greedy
+              steps at B=16 on 8,192 slots, Scout 8 steps at B=16 on a
+              seeded 16,384-slot cache from slot 12,288 and 8 at
+              long_500k's B=1 on 524,288 slots from slot 524,280 (17.2 GB
+              of cache), each under 80 GB. (d) Layer by layer in bf16 at
+              the cut, S=2,048: each layer's attention output, kernel vs
+              plain on the same input, within TOL_ATTN_BF16, the carried
+              gap read. Then the first MOE_CHECK_DEPTH layers cast to f32
+              (DBRX 2, Scout 4): (b) prefill of B=1, T=8 against the 8th
+              decode step from an empty cache and (c) prefill at S=2,048
+              through the kernel against ``impl="plain"``, each within
+              TOL_LM_REL_F32 of the largest logit, with the (layer,
+              token) expert sets that differ between (c)'s two runs read.
   10. lm-train the LM family's training path: Qwen3-14B at full width, 8
               of its 40 layers, bf16 parameters and f32 Adam moments
               (seeded), B=2 at train_4k's S=4,096 (labels the tokens
@@ -279,7 +308,10 @@ Phases, each of which exits non-zero on failure:
               head dim 96 (timed) and bf16 at 80; the Hopper kernel in
               bf16 at S=4,096 (Sq = Sk and Sq = S/4), at the prefill shape
               (the launch held to plain on its first, a middle and its
-              last FLASH_ROWS rows) and timed at the train shape; the bf16
+              last FLASH_ROWS rows), at the lm-moe prefills' shapes (DBRX's
+              48/8 heads over S=32,768; Scout's chunked route, [4, 8,192]
+              at 40/8 heads; held the same way on the last chunk, timed
+              beside SDPA) and timed at the train shape; the bf16
               checks are element-wise, each beside a control that must
               fail them. Every flash forward launch is expected on the
               route ``forward_route`` picks. The main paths are bf16 at
@@ -406,6 +438,24 @@ LM_PREFILL_SEQ = 32768           # prefill_32k's sequence; batch cut 32 -> 1
 LM_DECODE_BATCH, LM_DECODE_SLOTS = 16, 8192   # decode_32k cut: 128, 32,768
 LM_DECODE_STEPS, LM_Q8_STEPS = 32, 8
 LM_CHECK_B, LM_CHECK_T, LM_PLAIN_SEQ, FLASH_CHECK_SEQ = 4, 64, 2048, 4096
+# the lm-moe phase, the MoE configs at lm_family.ONE_CARD_SERVE's depths.
+# Scout's decode runs (batch, slots, first slot, steps, cache filled from
+# a seeded generator): decode_32k's B cut 128 -> 16 over 16,384 slots from
+# slot 12,288 (its local layers read a trailing window of 8,192, its
+# global ones 12,289 entries), and long_500k whole (B=1, 524,288 slots,
+# 17.2 GB of cache) from slot 524,280. The chunked route is held to plain
+# at S=16,384 (two chunks of 8,192) in query blocks of 512 (the whole
+# chunked logits would be three 21.5 GB copies). Prefill against decode
+# at B=1, T=8 stays inside the first chunk with at most 8 tokens a call,
+# where no expert can overflow its 8 slots: past the chunk the prefill's
+# hard chunks and the decode's trailing window are different functions,
+# and a call's capacity depends on its token count (both as in the JAX
+# package). Those checks and kernel vs plain at S=2,048 run in f32 at
+# the first MOE_CHECK_DEPTH layers (31 and 43.5 GB of f32 weights).
+MOE_SCOUT_DECODE = (16, 16384, 12288, 8, True)
+MOE_LONG_DECODE = (1, 524288, 524280, 8, True)
+MOE_CHUNK_CHECK_SEQ, MOE_PLAIN_BLOCK, MOE_CHECK_T = 16384, 512, 8
+MOE_CHECK_DEPTH = {"dbrx-132b": 2, "llama4-scout-17b-a16e": 4}
 # recsys: timed calls per cell; kernel vs plain forward logits within
 # TOL_RS_LOGITS of the largest |logit| (f32 products and sums reordered);
 # the bulk lookups (nnz <= 2, f32, products rounded then added in order
@@ -1534,6 +1584,382 @@ def lm_train_phase(torch, np, dev):
     return rep, launches
 
 
+def cast_(torch, tree, dtype):
+    """Cast every tensor of a nested dict/list in place, one at a time
+    (the peak is the new tree plus one old leaf)."""
+    keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+    for key in list(keys):
+        if torch.is_tensor(tree[key]):
+            tree[key] = tree[key].to(dtype)
+        else:
+            cast_(torch, tree[key], dtype)
+
+
+def routed(fn):
+    """Run fn() with ``moe._route`` spied on: returns (fn's result, the
+    experts [T, k] of every MoE call in order)."""
+    from repro_torch.nn import moe
+    real, seen = moe._route, []
+
+    def spy(p, x2d, mcfg):
+        out = real(p, x2d, mcfg)
+        seen.append(out[1])
+        return out
+
+    moe._route = spy
+    try:
+        return fn(), seen
+    finally:
+        moe._route = real
+
+
+def lm_by_layer(torch, params, cfg, toks) -> dict:
+    """Layer by layer at S=toks' length, in cfg's dtype: each layer's
+    attention output (chunked-local or global, as ``cfg.is_local``)
+    through the kernel against plain on the plain path's hidden state
+    (``local``), and the gap between the hidden states the two paths
+    carry to the next layer (``carried``), each relative to the plain
+    value's largest magnitude. Two flash launches a layer. For an MoE
+    config also the tokens whose expert set differs between the two
+    paths' layers (``expert_sets_differ``): a hard top-k turns a
+    rounding-sized gap into a different expert."""
+    from repro_torch.models import lm
+    from repro_torch.nn import attention, embed, rmsnorm
+    local, carried = [], []
+
+    def run():
+        with torch.no_grad():
+            x = embed(params["embed"], toks, dtype=cfg.torch_dtype)
+            x_k = x
+            for i, layer in enumerate(params["layers"]):
+                acfg = cfg.attn_cfg(local=cfg.is_local(i))
+                h = rmsnorm(layer["ln1"], x)
+                a_k = attention(layer["attn"], h, acfg,
+                                impl="kernel").float()
+                a_p = attention(layer["attn"], h, acfg,
+                                impl="plain").float()
+                local.append(float((a_k - a_p).abs().max()
+                                   / a_p.abs().max()))
+                x_k = lm._block(layer, x_k, cfg, "kernel",
+                                cfg.is_local(i))[0]
+                x = lm._block(layer, x, cfg, "plain", cfg.is_local(i))[0]
+                carried.append(float((x_k.float() - x.float()).abs().max()
+                                     / x.float().abs().max()))
+
+    # an MoE layer routes twice: the kernel path's block, then the plain's
+    _, seen = routed(run)
+    out = {"seq": toks.shape[1], "attn_local_max_rel_err": local,
+           "hidden_carried_max_rel_err": carried}
+    if cfg.is_moe:
+        out["expert_sets_differ"] = [
+            int((e_k.sort(-1)[0] != e_p.sort(-1)[0]).any(-1).sum())
+            for e_k, e_p in zip(seen[0::2], seen[1::2])]
+    return out
+
+
+def chunked_plain(torch, q, k, v, chunk: int, block: int):
+    """The chunked-local function in plain PyTorch without its whole
+    logits: each hard chunk a causal sequence of its own, ``block`` query
+    rows at a time through the flash kernel's plain version (rows i..i +
+    block of a chunk see the chunk's keys up to i + block, the causal
+    diagonal at the end). Returns (o, lse)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
+    B, S, H, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    for c0 in range(0, S, chunk):
+        for i in range(0, chunk, block):
+            rows, keys = slice(c0 + i, c0 + i + block), slice(c0,
+                                                              c0 + i + block)
+            o[:, rows], lse[:, :, rows] = flash_attention_fwd_plain(
+                q[:, rows], k[:, keys], v[:, keys], True)
+    return o, lse
+
+
+def chunked_route_check(torch, dev, cfg) -> tuple:
+    """Check (a) of the lm-moe phase: ``nn.attention.chunked_flash`` (the
+    chunked-local route, one flash launch over the B S/chunk hard chunks)
+    against ``chunked_plain`` at cfg's heads, B=1, S=MOE_CHUNK_CHECK_SEQ,
+    in f32 and bf16, with the flash checks' limits (bf16 also
+    element-wise, beside the dropped-key-tile control that must miss).
+    Returns (errors by dtype, the launches by route, each counted from
+    0)."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import chunked_flash
+    c, S = cfg.chunk_size, MOE_CHUNK_CHECK_SEQ
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs, launches = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q = torch.randn(1, S, cfg.n_heads, cfg.hd, generator=g,
+                        device=dev).to(dtype)
+        k, v = (torch.randn(1, S, cfg.n_kv, cfg.hd, generator=g,
+                            device=dev).to(dtype) for _ in range(2))
+        ops.reset_launch_counts()
+        o = chunked_flash(q, k, v, chunk=c)
+        torch.cuda.synchronize()
+        now = ops.launch_counts()
+        launches[name] = {n: now[n] for n in FLASH_FWD}
+        check(launches[name] == flash_fwd_launches(dtype, cfg.hd, 1),
+              f"the chunked route in {name} launched {launches[name]}")
+        o_p, _ = chunked_plain(torch, q, k, v, c, MOE_PLAIN_BLOCK)
+        e = {"o": float((o.float() - o_p.float()).abs().max()),
+             "shape": [1, S, cfg.n_heads, cfg.n_kv, cfg.hd], "chunk": c}
+        ok = e["o"] <= TOL_FLASH[name]
+        if dtype == torch.bfloat16:
+            e["o_over_limit"] = flash_miss(o, o_p)
+            # the control: chunk 0's last key tile dropped, which only that
+            # chunk's last 64 rows see
+            o_c, _ = chunked_plain(torch, q, k, dropped_tile(v, c - 64), c,
+                                   MOE_PLAIN_BLOCK)
+            e["control_o_over_limit"] = flash_miss(o_c, o_p)
+            ok = ok and e["o_over_limit"] <= 1
+            check(e["control_o_over_limit"] > 1,
+                  f"chunked route: the bf16 limit misses a dropped key "
+                  f"tile: {e}")
+            del o_c
+        errs[name] = e
+        check(ok, f"the chunked route in {name} differs from plain: {e}")
+        del q, k, v, o, o_p
+    return errs, launches
+
+
+def lm_moe_phase(torch, np, dev):
+    """The MoE members of the LM family (see the module docstring, phase
+    9b). Returns (report, the flash forward launches by route of each
+    config's timed prefill and decode runs)."""
+    import dataclasses
+
+    from repro_torch.configs import lm_family
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.nn import moe as moe_mod
+
+    bf16 = torch.bfloat16
+    rep = {}
+    t_phase = time.perf_counter()
+    # (a) the chunked route against plain, at Scout's heads
+    rep["chunked_route"], chunk_launches = chunked_route_check(
+        torch, dev, lm_family.LLAMA4_SCOUT)
+    rep["chunked_route"]["launches"] = chunk_launches
+    print("lm-moe chunked route: " + json.dumps(rep["chunked_route"]),
+          flush=True)
+    main_launches = {}
+
+    def flash_shapes(fn):
+        """Run fn() with ``ops.flash_attention`` spied on: returns (fn's
+        result, [B, S] of q in each call)."""
+        real, seen = ops.flash_attention, []
+
+        def spy(q, k, v, *, causal=True):
+            seen.append(list(q.shape[:2]))
+            return real(q, k, v, causal=causal)
+
+        ops.flash_attention = spy
+        try:
+            return fn(), seen
+        finally:
+            ops.flash_attention = real
+
+    for base in (lm_family.DBRX_132B, lm_family.LLAMA4_SCOUT):
+        cfg = lm_family.one_card_serve(base)
+        mcfg = cfg.moe_cfg()
+        L, V = cfg.n_layers, cfg.vocab
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         bf16)
+        torch.cuda.synchronize()
+        r = {"config": dataclasses.asdict(cfg),
+             "full_depth": base.n_layers,
+             "params": cfg.param_count(),
+             "active_params": cfg.active_param_count(),
+             "params_gb": torch.cuda.memory_allocated() / 1e9,
+             "init_s": time.perf_counter() - t0}
+        prefill = lm_family.make_fn(cfg, "prefill")
+        decode = lm_family.make_fn(cfg, "decode")
+        gl = torch.Generator(device=dev).manual_seed(2)
+
+        # ---- prefill at B=1, S=32,768: a warm-up (its routing read back
+        # for the dropped assignments), then the timed one
+        toks = torch.randint(0, V, (1, LM_PREFILL_SEQ), generator=gl,
+                             device=dev)
+        t0 = time.perf_counter()
+        _, experts = routed(lambda: prefill(params, toks))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        C = moe_mod.capacity_for(LM_PREFILL_SEQ, mcfg)
+        dropped = []
+        for e in experts:
+            counts = torch.bincount(e.reshape(-1), minlength=mcfg.n_experts)
+            dropped.append(int((counts - C).clamp_min(0).sum()))
+        del experts
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        last, shapes = flash_shapes(lambda: prefill(params, toks))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        now = ops.launch_counts()
+        flash_n = {n: now[n] for n in FLASH_FWD}
+        n_chunked = sum(s == [LM_PREFILL_SEQ // cfg.chunk_size,
+                              cfg.chunk_size] for s in shapes) \
+            if cfg.chunk_size else 0
+        n_local = sum(cfg.is_local(i) for i in range(L)) \
+            if cfg.chunk_size else 0
+        r["prefill"] = {
+            "batch": 1, "seq": LM_PREFILL_SEQ, "warmup_s": warm_s,
+            "s": prefill_s, "tokens_per_s": LM_PREFILL_SEQ / prefill_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": flash_n, "flash_q_shapes": shapes,
+            "chunked_launches": n_chunked, "capacity": C,
+            "assignments_per_layer": LM_PREFILL_SEQ * mcfg.top_k,
+            "dropped_per_layer": dropped}
+        print(f"lm-moe {cfg.name} prefill: " + json.dumps(r["prefill"]),
+              flush=True)
+        check(tuple(last.shape) == (1, V), f"{cfg.name} prefill logits "
+              f"{tuple(last.shape)}")
+        check(bool(torch.isfinite(last).all()),
+              f"non-finite {cfg.name} prefill logits")
+        want = flash_fwd_launches(bf16, cfg.hd, L)
+        check(flash_n == want, f"{cfg.name} prefill flash launches "
+              f"{flash_n}, expected {want}")
+        check(len(shapes) == L and n_chunked == n_local,
+              f"{cfg.name}: {n_chunked} chunked flash launches of "
+              f"{len(shapes)} ({shapes}), expected {n_local}")
+        check(r["prefill"]["peak_gb"] < 80, f"{cfg.name} prefill peak "
+              f"{r['prefill']['peak_gb']} GB")
+        del toks, last
+        gc_collect(torch)
+
+        # ---- decode: greedy steps from a given slot, synchronised
+        def run_decode(batch, slots, start, steps, fill):
+            torch.cuda.reset_peak_memory_stats()
+            cache = lm.init_cache(cfg, batch, slots, bf16, device=dev)
+            if fill:                     # the slots before start, seeded
+                gf = torch.Generator(device=dev).manual_seed(5)
+                for t in cache.values():
+                    t.normal_(generator=gf)
+            tok = torch.randint(0, V, (batch, 1), generator=gl, device=dev)
+            ops.reset_launch_counts()
+            ms = []
+            for t in range(start, start + steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = decode(params, tok, cache, t)
+                tok = logits.argmax(dim=-1, keepdim=True)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            now = ops.launch_counts()
+            d = {"batch": batch, "slots": slots, "start": start,
+                 "steps": steps, "cache_gb": sum(
+                     nbytes(t) for t in cache.values()) / 1e9,
+                 "filled": fill, "first_step_ms": ms[0],
+                 "ms_per_step": float(np.mean(ms[1:])),
+                 "ms_per_step_median": float(np.median(ms[1:])),
+                 "tokens_per_s": batch * 1e3 / float(np.mean(ms[1:])),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "flash_launches": {n: now[n] for n in FLASH_FWD}}
+            check(bool(torch.isfinite(logits).all()),
+                  f"non-finite {cfg.name} decode logits")
+            check(not any(d["flash_launches"].values()),
+                  f"{cfg.name} decode launched the flash forward "
+                  f"{d['flash_launches']}")
+            check(d["peak_gb"] < 80, f"{cfg.name} decode peak "
+                  f"{d['peak_gb']} GB")
+            del cache, logits
+            gc_collect(torch)
+            return d
+
+        runs = ({"decode": (LM_DECODE_BATCH, LM_DECODE_SLOTS, 0,
+                            LM_DECODE_STEPS, False)} if not cfg.chunk_size
+                else {"decode": MOE_SCOUT_DECODE,
+                      "long_500k": MOE_LONG_DECODE})
+        for name, args in runs.items():
+            r[name] = run_decode(*args)
+            print(f"lm-moe {cfg.name} {name}: " + json.dumps(r[name]),
+                  flush=True)
+        main_launches[cfg.name] = {"prefill": flash_n, **{
+            name: r[name]["flash_launches"] for name in runs}}
+
+        # ---- (d) layer by layer in bf16 at the serving cut
+        plain_toks = torch.randint(0, V, (1, LM_PLAIN_SEQ), generator=gl,
+                                   device=dev)
+        dec_toks = torch.randint(0, V, (1, MOE_CHECK_T), generator=gl,
+                                 device=dev)
+        ops.reset_launch_counts()
+        r["by_layer"] = lm_by_layer(torch, params, cfg, plain_toks)
+        now = ops.launch_counts()
+        r["by_layer"]["flash_launches"] = {n: now[n] for n in FLASH_FWD}
+        print(f"lm-moe {cfg.name} by_layer: " + json.dumps(r["by_layer"]),
+              flush=True)
+        local = r["by_layer"]["attn_local_max_rel_err"]
+        worst = int(np.argmax(local))
+        check(local[worst] <= TOL_ATTN_BF16,
+              f"{cfg.name}: bf16 attention of layer {worst}, kernel vs "
+              f"plain on the same input, differs by {local[worst]}")
+        check(r["by_layer"]["flash_launches"]
+              == flash_fwd_launches(bf16, cfg.hd, 2 * L),
+              f"{cfg.name} by-layer flash launches "
+              f"{r['by_layer']['flash_launches']}")
+
+        # ---- (b), (c) in f32 at a reduced depth: the first layers, cast
+        depth = MOE_CHECK_DEPTH[cfg.name]
+        del params["layers"][depth:]
+        gc_collect(torch)
+        cast_(torch, params, torch.float32)
+        c32 = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            ref = lm.prefill(params, c32, dec_toks).float()
+            cache = lm.init_cache(c32, 1, MOE_CHECK_T, torch.float32,
+                                  device=dev)
+            for t in range(MOE_CHECK_T):
+                logits, cache = lm.decode_step(params, c32,
+                                               dec_toks[:, t:t + 1], cache, t)
+            kern, e_k = routed(lambda: lm.prefill(params, c32, plain_toks))
+            plain_l, e_p = routed(lambda: lm.prefill(params, c32, plain_toks,
+                                                     impl="plain"))
+        now = ops.launch_counts()
+        differ = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                     for a, b in zip(e_k, e_p))
+        r["check"] = {
+            "depth": depth, "tol_rel_f32": TOL_LM_REL_F32,
+            "prefill_vs_decode": {
+                "batch": 1, "T": MOE_CHECK_T,
+                "max_rel_err": float((logits.float() - ref).abs().max()
+                                     / ref.abs().max()),
+                "argmax_agree": bool((logits.argmax(-1)
+                                      == ref.argmax(-1)).all())},
+            "kernel_vs_plain": {
+                "seq": LM_PLAIN_SEQ,
+                "max_rel_err": float((kern.float() - plain_l.float())
+                                     .abs().max() / plain_l.abs().max()),
+                "expert_sets_differ": differ,
+                "expert_sets": depth * LM_PLAIN_SEQ},
+            "flash_launches": {n: now[n] for n in FLASH_FWD}}
+        print(f"lm-moe {cfg.name} check: " + json.dumps(r["check"]),
+              flush=True)
+        check(len(e_k) == len(e_p) == depth, f"{cfg.name}: {len(e_k)}, "
+              f"{len(e_p)} MoE calls, expected {depth}")
+        for name in ("prefill_vs_decode", "kernel_vs_plain"):
+            err = r["check"][name]["max_rel_err"]
+            check(err <= TOL_LM_REL_F32, f"{cfg.name} f32 {name} logits "
+                  f"differ by {err} of the largest")
+        # two kernel prefills (T=8, S=2,048), each a launch a layer, on
+        # the f32 route
+        check(r["check"]["flash_launches"]
+              == flash_fwd_launches(torch.float32, cfg.hd, 2 * depth),
+              f"{cfg.name} f32 check flash launches "
+              f"{r['check']['flash_launches']}")
+        del params, ref, cache, logits, kern, plain_l, e_k, e_p
+        gc_collect(torch)
+        rep[cfg.name] = r
+    rep["s"] = time.perf_counter() - t_phase
+    print(f"lm-moe: {rep['s']:.1f} s", flush=True)
+    return rep, main_launches
+
+
 def ebag_kernel(symbol: str):
     """``embedding_bag_kernel<dtype,VEC>`` or ``ebag_bwd_*_kernel<...>``
     for a mangled EmbeddingBag symbol, else None."""
@@ -2600,7 +3026,6 @@ def main() -> int:
     from repro_torch.serving.scheduler import pow2_buckets
     from repro_torch.launch.train import first_batch_of_bucket, make_loader
     from repro_torch.models import lm
-    from repro_torch.nn import attention, embed, rmsnorm
     from repro_torch.optim.adam import leaves
     from repro_torch.serving.index import (_masked_topk, _pq_scan_inputs,
                                            _topk_padded)
@@ -3042,40 +3467,6 @@ def main() -> int:
         del cache, logits
         torch.cuda.empty_cache()
 
-    def cast_(tree, dtype):
-        """Cast every tensor of a nested dict/list in place, one at a time
-        (the peak is the new tree plus one old leaf)."""
-        keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
-        for key in list(keys):
-            if torch.is_tensor(tree[key]):
-                tree[key] = tree[key].to(dtype)
-            else:
-                cast_(tree[key], dtype)
-
-    def by_layer(ccfg, toks):
-        """Layer by layer at S=toks' length, in ccfg's dtype: each layer's
-        attention output through the kernel against plain on the plain
-        path's hidden state (``local``), and the gap between the hidden
-        states the two paths carry to the next layer (``carried``), each
-        relative to the plain value's largest magnitude."""
-        acfg = ccfg.attn_cfg(local=True)
-        local, carried = [], []
-        with torch.no_grad():
-            x = embed(lm_params["embed"], toks, dtype=ccfg.torch_dtype)
-            x_k = x
-            for layer in lm_params["layers"]:
-                h = rmsnorm(layer["ln1"], x)
-                a_k = attention(layer["attn"], h, acfg, impl="kernel").float()
-                a_p = attention(layer["attn"], h, acfg, impl="plain").float()
-                local.append(float((a_k - a_p).abs().max()
-                                   / a_p.abs().max()))
-                x_k = lm._block(layer, x_k, ccfg, "kernel")
-                x = lm._block(layer, x, ccfg, "plain")
-                carried.append(float((x_k.float() - x.float()).abs().max()
-                                     / x.float().abs().max()))
-        return {"seq": toks.shape[1], "attn_local_max_rel_err": local,
-                "hidden_carried_max_rel_err": carried}
-
     # prefill through the kernel against the T-th decode step's logits,
     # and the prefill through the kernel against its plain version; in
     # bf16 (with the layer-by-layer reading), then with the weights cast
@@ -3088,7 +3479,7 @@ def main() -> int:
                        "tol_attn_bf16": TOL_ATTN_BF16}
     for dt in ("bfloat16", "float32"):
         ccfg = dataclasses.replace(qcfg, dtype=dt)
-        cast_(lm_params, ccfg.torch_dtype)
+        cast_(torch, lm_params, ccfg.torch_dtype)
         ops.reset_launch_counts()
         ref = lm_family.make_fn(ccfg, "prefill")(lm_params, dec_toks).float()
         step = lm_family.make_fn(ccfg, "decode")
@@ -3117,7 +3508,8 @@ def main() -> int:
               f"non-finite {dt} check logits")
         del ref, cache, logits, kern, plain_l
         if dt == "bfloat16":
-            lm_rep["check"][dt]["by_layer"] = by_layer(ccfg, plain_toks)
+            lm_rep["check"][dt]["by_layer"] = lm_by_layer(
+                torch, lm_params, ccfg, plain_toks)
         now = ops.launch_counts()
         lm_rep["check"][dt]["flash_launches"] = {n: now[n]
                                                  for n in FLASH_FWD}
@@ -3146,6 +3538,9 @@ def main() -> int:
     del lm_params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- lm-moe
+    report["lm_moe"], moe_launches = lm_moe_phase(torch, np, dev)
 
     # --------------------------------------------------------- lm-train
     report["lm_train"], lm_train_launches = lm_train_phase(torch, np, dev)
@@ -3513,9 +3908,70 @@ def main() -> int:
     sdpa_ms = sdpa_fwd_ms(q, k, v, iters=5, warmup=2)
     b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), fwd_flop(1, S),
                           BF16_FLOP_PER_S)
+    del q, k, v, o, lse
+    # the lm-moe prefills' own launches: DBRX's global layers at 48/8
+    # heads over S=32,768, and Scout's chunked-local ones, the route's
+    # one launch over its four hard chunks of 8,192 at 40/8 heads ([4,
+    # 8,192] views of the [1, 32,768] projections); each held to plain on
+    # the first, a middle and the last FLASH_ROWS rows (of the last
+    # chunk), and timed beside SDPA's causal GQA forward on the same data
+    moe_shapes = {}
+    for label, mcfg_l in (("dbrx_global", lm_family.DBRX_132B),
+                          ("scout_chunked", lm_family.LLAMA4_SCOUT)):
+        Hm, c = mcfg_l.n_heads, mcfg_l.chunk_size or S
+        q = torch.randn(1, S, Hm, Dh, generator=g, device=dev).to(bf16)
+        k, v = (torch.randn(1, S, Hkv, Dh, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        qc, kc, vc = (t.view(S // c, c, t.shape[2], Dh) for t in (q, k, v))
+        o, lse = launch_on(qc, kc, vc)
+        j = S // c - 1
+        for name, r0 in (("first", 0), ("middle", c // 2), ("last", c - R)):
+            hold(f"{label}_rows_{name}", o[j:, r0:r0 + R],
+                 lse[j:, :, r0:r0 + R], qc[j:, r0:r0 + R], kc[j:, :r0 + R],
+                 vc[j:, :r0 + R], bf16)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (qc, kc, vc))
+        m_ms = time_ms(torch, lambda: flash_attention_cuda(qc, kc, vc, True),
+                       iters=10, warmup=2)
+        flop = 4 * Dh * Hm * (S // c) * c * (c + 1) // 2
+        moe_shapes[label] = {
+            "ms": m_ms, "library_ms": time_ms(
+                torch, lambda: sdpa(qs, ks, vs, is_causal=True,
+                                    enable_gqa=True), iters=5, warmup=2),
+            "shape": [S // c, c, c, Hm, Hkv, Dh], "dtype": "bfloat16",
+            "tflop_per_s": flop / m_ms / 1e9}
+        moe_shapes[label]["bound_ms"], moe_shapes[label]["bound_by"] = \
+            bound_ms(nbytes(q, k, v, o, lse), flop, BF16_FLOP_PER_S)
+        del q, k, v, qc, kc, vc, o, lse, qs, ks, vs
+    report["lm_moe"]["flash_shapes"] = moe_shapes
+    print("lm-moe flash shapes: " + json.dumps(moe_shapes), flush=True)
+
+    def moe_main(sym):
+        """The lm-moe phase's main-path launches of ``sym``, by config and
+        run (timed prefill, decode runs)."""
+        return {name: {run: n[sym] for run, n in runs.items()}
+                for name, runs in moe_launches.items()}
+
+    def moe_sum(sym):
+        return sum(sum(r.values()) for r in moe_main(sym).values())
+
+    def moe_checks(sym):
+        """The lm-moe phase's check launches of ``sym``, each counted from
+        0: the chunked route against plain, layer by layer (bf16) and the
+        f32 prefills at the reduced depth."""
+        lmm = report["lm_moe"]
+        out = {f"chunked_route_{dt}": n[sym] for dt, n in
+               lmm["chunked_route"]["launches"].items()}
+        for name in moe_launches:
+            out[f"{name}_by_layer"] = \
+                lmm[name]["by_layer"]["flash_launches"][sym]
+            out[f"{name}_check_float32"] = \
+                lmm[name]["check"]["flash_launches"][sym]
+        return out
+
     def fwd_launches(sym):
         return {"prefill": prefill_launches[sym],
                 "decode": lm_rep["decode"]["flash_launches"][sym],
+                "lm_moe": moe_main(sym),
                 "lm_train": lm_train_launches[sym],
                 "serve": launches[sym], "train": train_launches[sym]}
 
@@ -3527,12 +3983,14 @@ def main() -> int:
         # route, so this is 0; the f32 checks' launches, each counted from
         # 0, are apart under check_launches
         "launches": prefill_launches["flash_attention_tf32"]
-        + lm_train_launches["flash_attention_tf32"],
+        + lm_train_launches["flash_attention_tf32"]
+        + moe_sum("flash_attention_tf32"),
         "check_launches": {
             "lm_check_float32": lm_rep["check"]["float32"]["flash_launches"]
             ["flash_attention_tf32"],
             "lm_train_float32_depth2": report["lm_train"]["plain"]
-            ["launches_kernel"]["flash_attention_tf32"]},
+            ["launches_kernel"]["flash_attention_tf32"],
+            "lm_moe": moe_checks("flash_attention_tf32")},
         "launches_by_path": fwd_launches("flash_attention_tf32"),
         "max_abs_err": flash_err["float32"]["o"],
         "errors": {"float32": flash_err["float32"]},
@@ -3548,7 +4006,8 @@ def main() -> int:
         # config's head dim is 128); its own checks' launches, counted
         # from 0, are apart under check_launches
         "launches": prefill_launches["flash_attention"]
-        + lm_train_launches["flash_attention"],
+        + lm_train_launches["flash_attention"]
+        + moe_sum("flash_attention"),
         "check_launches": {"simt_checks": simt_check_launches},
         "launches_by_path": fwd_launches("flash_attention"),
         "max_abs_err": max(e["o"] for e in simt_err.values()),
@@ -3558,14 +4017,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:146",
         "launches": prefill_launches["flash_attention_wgmma"]
-        + lm_train_launches["flash_attention_wgmma"],
-        "launches_by_path": {
-            "prefill": prefill_launches["flash_attention_wgmma"],
-            "lm_train": lm_train_launches["flash_attention_wgmma"],
-            "decode":
-            lm_rep["decode"]["flash_launches"]["flash_attention_wgmma"],
-            "serve": launches["flash_attention_wgmma"],
-            "train": train_launches["flash_attention_wgmma"]},
+        + lm_train_launches["flash_attention_wgmma"]
+        + moe_sum("flash_attention_wgmma"),
+        "launches_by_path": fwd_launches("flash_attention_wgmma"),
+        "check_launches": {"lm_moe": moe_checks("flash_attention_wgmma")},
         "max_abs_err": max(e["o"] for n, e in flash_err.items()
                            if n != "float32"),
         "errors": {n: e for n, e in flash_err.items() if n != "float32"},
@@ -3574,13 +4029,12 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
         "tflop_per_s": fwd_flop(1, S) / flash_ms / 1e9,
         "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16",
-        "causal": True,
+        "causal": True, "lm_moe_shapes": moe_shapes,
         **report["hopper"]["flash_attention_wgmma"]})
     flash_row = kernels[-1]
     report["lm"]["flash_ms_per_prefill"] = qcfg.n_layers * flash_ms
     report["lm"]["flash_share_of_prefill"] = (
         qcfg.n_layers * flash_ms / 1e3 / report["lm"]["prefill"]["s"])
-    del q, k, v, o, lse
 
     # the flash backward at the LM training shape (B=2, S=4,096), against
     # plain on the same saved o/lse, on each route (backward_route): f32 on

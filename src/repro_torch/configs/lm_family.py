@@ -1,11 +1,19 @@
 """The LM family's configurations and its train and serving entry points.
 
 The five configs carry the exact widths of the JAX package's
-``configs/lm_family.py``. The dense three (Qwen3-14B, ChatGLM3-6B,
-Qwen2-72B) train and serve here; DBRX and Llama-4-Scout need MoE and
-chunked-local iRoPE, and ``models.lm`` raises for them. ``make_fn`` is
-the counterpart of a JAX ``Cell.make_fn`` with no mesh; the XLA dry-run
-machinery (``Cell``, ``abstract_args``) has no counterpart in the port.
+``configs/lm_family.py``, and all five train and serve through
+``make_fn``: the dense three (Qwen3-14B, ChatGLM3-6B, Qwen2-72B), and
+the MoE two (DBRX-132B; Llama-4-Scout with its chunked-local iRoPE),
+whose ``moe_impl="ep"`` runs ``nn.moe_gather`` on one card, as the JAX
+package does with no mesh. ``make_fn`` is the counterpart of a JAX
+``Cell.make_fn`` with no mesh; the XLA dry-run machinery (``Cell``,
+``abstract_args``) has no counterpart in the port.
+
+One 80 GB card holds neither MoE config whole (264 and 218 GB of bf16
+weights), so each serves on the card at a cut depth
+(``ONE_CARD_SERVE``), at full width; training them waits for more than
+one card (an Adam step keeps 12 bytes a parameter: 39 GB for one DBRX
+layer, 106 GB for one Scout super-block).
 """
 from __future__ import annotations
 
@@ -29,6 +37,15 @@ TRAIN_SCHEDULE = optim.linear_warmup_cosine(3e-4, 200, 10000)
 # full Qwen3-14B's 177 GB of bf16 parameters and gradients and f32
 # moments do not fit); the shape chip_smoke.py and profile --lm-train run
 ONE_CARD_TRAIN = dict(n_layers=8, batch=2)
+# the MoE configs' serving cuts for one 80 GB card, in bf16 (full width):
+#   dbrx-132b 40 -> 6 layers: 6 x 6.52 GB + 2.47 GB of embedding and head
+#     = 41.6 GB. A prefill at B=1, S=32,768 adds 6.6 GB of logits and
+#     the MoE transients at C = 10,240 (E C = 163,840 rows): 2.0 GB for
+#     x_e and 3.5 GB each for h1, h3 and their product.
+#   llama4-scout 48 -> 8 layers, two super-blocks (6 chunked-local, 2
+#     global): 8 x 4.40 GB + 4.14 GB = 39.4 GB; its prefill logits are
+#     13.2 GB.
+ONE_CARD_SERVE = {"dbrx-132b": 6, "llama4-scout-17b-a16e": 8}
 
 QWEN3_14B = lm.LMConfig(
     name="qwen3-14b", n_layers=40, d_model=5120, n_heads=40, n_kv=8,
@@ -72,6 +89,12 @@ def reduced_lm(cfg: lm.LMConfig) -> lm.LMConfig:
         chunk_size=8 if cfg.chunk_size else None,
         moe_impl="gather" if cfg.is_moe else cfg.moe_impl,
         remat=False, loss_chunk=0, dtype="float32")
+
+
+def one_card_serve(cfg: lm.LMConfig) -> lm.LMConfig:
+    """An MoE config at its one-card serving depth (``ONE_CARD_SERVE``),
+    every width kept."""
+    return dataclasses.replace(cfg, n_layers=ONE_CARD_SERVE[cfg.name])
 
 
 def train_batch(cfg: lm.LMConfig, batch: int, seq: int,

@@ -4,7 +4,7 @@ the serve slice's recall goes.
     python -m repro_torch.launch.profile [--news 16384] \
         [--out chiprun_out/profile_serve.json]
     python -m repro_torch.launch.profile --train [--out PATH]
-    python -m repro_torch.launch.profile --lm [--out PATH]
+    python -m repro_torch.launch.profile --lm [--lm-config NAME] [--out PATH]
     python -m repro_torch.launch.profile --lm-train [--out PATH]
     python -m repro_torch.launch.profile --recsys [--out PATH]
     python -m repro_torch.launch.profile --recsys-train [--out PATH]
@@ -28,12 +28,17 @@ seg-length bucket that the DynamicBatcher builds at the paper's token
 budget: device time by kernel name and the device's busy share, printed
 (and written to ``--out`` when it is given).
 
-With ``--lm`` it instead profiles the LM family's serving path: Qwen3-14B
-at full width and depth in bf16 with seeded random weights, one prefill
-of B=1, S=32,768 and one decode step at B=16 against an 8,192-slot
-bf16 KV cache (after one warm call each): device time by kernel name and
-the device's busy share, printed and written to ``--out`` (default
-``chiprun_out/profile_lm.json``).
+With ``--lm`` it instead profiles the LM family's serving path:
+``--lm-config`` (default Qwen3-14B at full depth; DBRX-132B and
+Llama-4-Scout at their one-card serving depths, ``ONE_CARD_SERVE``) at
+full width in bf16 with seeded random weights, one prefill of B=1,
+S=32,768 and one decode step at B=16 against an 8,192-slot bf16 KV
+cache (after one warm call each): device time by kernel name and the
+device's busy share, and the prefill's device time split into the MoE's
+stages (``nn.moe``'s ranges: router and top-k, sort and dispatch,
+grouped GEMMs, combine), the flash kernels and the head, printed and
+written to ``--out`` (default ``chiprun_out/profile_lm.json``, or
+``profile_lm_<config>.json``).
 
 With ``--lm-train`` it instead profiles the LM family's training path:
 one train step of Qwen3-14B at full width and 8 of its 40 layers (bf16
@@ -104,6 +109,12 @@ FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
 # the EmbeddingBag's: the forward, and the backward's three passes
 EBAG_NAMES = ("embedding_bag_kernel", "ebag_bwd_keys_kernel",
               "ebag_bwd_chunk_kernel", "ebag_bwd_combine_kernel")
+# the ranges the LM path opens with torch.profiler.record_function: the
+# MoE's stages (nn/moe.py) and the head (models/lm.py). Their rows hold
+# the device time of the kernels launched inside them; they are kept out
+# of the by-kernel rows and the busy sum
+SPLIT_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+                "lm.head")
 
 
 def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
@@ -111,8 +122,19 @@ def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
     each flash or EmbeddingBag kernel that ran (FLASH_NAMES, EBAG_NAMES)
     also apart, with its calls, device ms and share of the wall time,
     whether or not it is among the ``top``."""
-    rows = []
+    rows, split = [], {}
     for e in prof.key_averages():
+        if e.key in SPLIT_RANGES:
+            # by device type: the host range's row holds the device time
+            # of the kernels launched inside it; the device lane's row
+            # (where the profiler draws one) spans its first kernel's
+            # start to its last one's end, gaps included
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            split.setdefault(e.key, {})[str(e.device_type).split(".")[-1]] \
+                = {"calls": e.count, "device_ms": us / 1e3}
+            continue
         if "CUDA" not in str(e.device_type):
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -125,6 +147,7 @@ def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
            "busy_share": busy_us / 1e6 / wall_s if wall_s else 0.0,
            "kernels": [{"name": k[:90], "calls": n, "device_ms": us / 1e3}
                        for us, n, k in rows[:top]]}
+    out["split"] = split
     out["named"] = {}
     for part in FLASH_NAMES + EBAG_NAMES:
         hit = [(us, n) for us, n, k in rows
@@ -170,12 +193,13 @@ def profile_train_step(log, store, lcfg, dev) -> dict:
     return out
 
 
-def profile_lm(dev) -> dict:
-    """``torch.profiler`` over one Qwen3-14B prefill of B=1 at
-    ``prefill_32k``'s sequence and one decode step at B=16 against an
-    8,192-slot bf16 cache (the smoke's shapes), each after one warm
-    call."""
-    cfg = lm_family.QWEN3_14B
+def profile_lm(dev, cfg=lm_family.QWEN3_14B) -> dict:
+    """``torch.profiler`` over one prefill of B=1 at ``prefill_32k``'s
+    sequence and one decode step at B=16 against an 8,192-slot bf16 cache
+    (the smoke's shapes), each after one warm call; an MoE config at its
+    one-card serving depth."""
+    if cfg.is_moe:
+        cfg = lm_family.one_card_serve(cfg)
     seq = lm_family.LM_SHAPES["prefill_32k"]["seq"]
     decode_batch, slots = 16, 8192
     params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -184,8 +208,10 @@ def profile_lm(dev) -> dict:
     prefill = lm_family.make_fn(cfg, "prefill")
     decode = lm_family.make_fn(cfg, "decode")
     toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
-    out = {"prefill": _profiled(lambda: prefill(params, toks))}
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "prefill": _profiled(lambda: prefill(params, toks))}
     out["prefill"].update(batch=1, seq=seq)
+    out["prefill"]["breakdown_ms"] = prefill_breakdown(out["prefill"])
     del toks
     cache = lm.init_cache(cfg, decode_batch, slots, torch.bfloat16,
                           device=dev)
@@ -194,6 +220,20 @@ def profile_lm(dev) -> dict:
     out["decode_step"] = _profiled(lambda: decode(params, tok, cache, 0))
     out["decode_step"].update(batch=decode_batch, slots=slots)
     return out
+
+
+def prefill_breakdown(table: dict) -> dict:
+    """A prefill's device ms by part: the MoE's stages and the head (the
+    device time of the kernels launched inside their ranges), the flash
+    forward (its kernels), and the rest (attention projections, norms,
+    rope, the shared expert or the dense FFN, the embedding). The parts
+    sum to the device's busy time."""
+    parts = {name: table["split"].get(name, {}).get("CPU", {}).get(
+        "device_ms", 0.0) for name in SPLIT_RANGES}
+    parts["flash"] = sum(table["named"].get(n, {}).get("device_ms", 0.0)
+                         for n in FLASH_NAMES)
+    parts["other"] = table["device_busy_ms"] - sum(parts.values())
+    return parts
 
 
 def profile_lm_train(dev) -> dict:
@@ -439,7 +479,11 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="profile one PROD train step instead")
     ap.add_argument("--lm", action="store_true",
-                    help="profile one Qwen3-14B prefill and decode step")
+                    help="profile one LM prefill and decode step")
+    ap.add_argument("--lm-config", default=lm_family.QWEN3_14B.name,
+                    choices=sorted(lm_family.CONFIGS),
+                    help="the --lm config (MoE ones at their one-card "
+                         "depth)")
     ap.add_argument("--lm-train", action="store_true",
                     help="profile one Qwen3-14B train step (8 layers)")
     ap.add_argument("--recsys", action="store_true",
@@ -466,10 +510,15 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     if args.lm:
-        report = {"card": card, **profile_lm(dev)}
-        _write(args.out or "chiprun_out/profile_lm.json", report)
+        cfg = lm_family.CONFIGS[args.lm_config]
+        report = {"card": card, **profile_lm(dev, cfg)}
+        default = ("chiprun_out/profile_lm.json" if cfg is lm_family.QWEN3_14B
+                   else f"chiprun_out/profile_lm_{cfg.name}.json")
+        _write(args.out or default, report)
         for name in ("prefill", "decode_step"):
-            _print_table(name, report[name])
+            _print_table(f"{cfg.name} {name}", report[name])
+        print("prefill by part (device ms): "
+              + json.dumps(report["prefill"]["breakdown_ms"]))
         print(card)
         return report
     if args.lm_train:

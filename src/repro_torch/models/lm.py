@@ -1,22 +1,28 @@
-"""Generic transformer LM, the dense members of the LM family:
+"""Generic transformer LM covering the LM family's five configs:
 
   qwen3-14b    dense, GQA(kv=8), qk_norm, RoPE
   chatglm3-6b  dense, GQA(kv=2), partial (2D) RoPE, QKV bias
   qwen2-72b    dense, GQA(kv=8), QKV bias
+  dbrx-132b    MoE 16e top-4, GQA(kv=8)
+  llama4-scout MoE 16e top-1 + shared expert, iRoPE (3 chunked-local layers
+               + 1 global NoPE layer per super-block)
 
-Pre-norm blocks (rmsnorm), SwiGLU FFN, a Python loop over the layers
-(``params["layers"]`` is a list of per-layer dicts, the layout
-``bridge.params_from_jax`` makes of the JAX package's stacked layers).
-The MoE members (dbrx-132b, llama4-scout with its chunked-local iRoPE)
-need ``nn/moe.py`` and are not ported yet: their configs raise.
+Pre-norm blocks (rmsnorm), SwiGLU FFN or MoE (``nn.moe``), a Python loop
+over the layers (``params["layers"]`` is a list of per-layer dicts, the
+layout ``bridge.params_from_jax`` makes of the JAX package's stacked
+layers). With ``global_every = ge`` layer i is chunked-local with rope
+unless ``i % ge == ge - 1``, which is global and NoPE: the JAX package's
+super-blocks of ge layers, laid flat.
 
 Entry points: ``init``, ``forward``, ``lm_loss`` (train), and for
 serving ``prefill``, ``init_cache`` and ``decode_step``. Causal
-self-attention over the whole sequence goes through the flash kernel
-(``nn.attention``), forward and backward; a decode step attends over the
-KV cache in plain PyTorch. With ``cfg.remat`` each layer runs under
-``torch.utils.checkpoint`` when gradients are on: only its input is kept,
-and the backward runs it again.
+self-attention goes through the flash kernel (``nn.attention``), forward
+and backward, over the whole sequence on a global layer and chunk by
+chunk on a chunked-local one; a decode step attends over the KV cache in
+plain PyTorch (a local layer over the trailing ``chunk_size`` slots).
+With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` when
+gradients are on: only its input is kept, and the backward runs it again
+(the JAX package remats a super-block at a time: the same values).
 """
 from __future__ import annotations
 
@@ -25,13 +31,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import check_device
-from repro_torch.nn import (AttnConfig, attention, decode_attention, dense,
-                            embed, init_attention, init_dense,
-                            init_embedding, init_kv_cache, init_kv_cache_q8,
-                            init_rmsnorm, rmsnorm)
+from repro_torch.nn import (AttnConfig, MoEConfig, attention,
+                            decode_attention, dense, embed, init_attention,
+                            init_dense, init_embedding, init_kv_cache,
+                            init_kv_cache_q8, init_moe, init_rmsnorm,
+                            moe_dense, moe_gather, rmsnorm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +56,12 @@ class LMConfig:
     qkv_bias: bool = False
     rope_fraction: float = 1.0
     rope_theta: float = 1e6
-    # MoE (not ported yet)
+    # MoE
     n_experts: int = 0
     top_k: int = 0
     n_shared_experts: int = 0
-    moe_impl: str = "gather"
-    # iRoPE / chunked-local attention (llama4; not ported yet)
+    moe_impl: str = "gather"          # dense | gather | ep (gather here)
+    # iRoPE / chunked-local attention (llama4)
     chunk_size: Optional[int] = None
     global_every: Optional[int] = None
     attn_block_q: Optional[int] = None
@@ -83,6 +91,18 @@ class LMConfig:
             chunk_size=self.chunk_size if local else None,
             block_q=self.attn_block_q)
 
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.n_experts, top_k=self.top_k)
+
+    def is_local(self, i: int) -> bool:
+        """Whether layer i is chunked-local (rope, ``chunk_size``): every
+        layer but the last of each ``global_every`` super-block, which is
+        global and NoPE. Without ``global_every``, every layer (and with
+        no ``chunk_size`` a local layer attends globally)."""
+        ge = self.global_every
+        return not ge or i % ge != ge - 1
+
     def param_count(self) -> int:
         d, f, L, hd = self.d_model, self.d_ff, self.n_layers, self.hd
         attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv * hd) \
@@ -105,14 +125,6 @@ class LMConfig:
         return L * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
 
 
-def _require_dense(cfg: LMConfig):
-    if cfg.is_moe or cfg.global_every:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers and chunked-local iRoPE (nn/moe.py) "
-            f"are not ported yet; they come after LM training and the "
-            f"recsys family (ROADMAP Queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -124,16 +136,23 @@ def _init_swiglu(gen, d, f, param_dtype):
 
 
 def _init_layer(gen, cfg: LMConfig, param_dtype):
-    return {"attn": init_attention(gen, cfg.attn_cfg(local=True), param_dtype),
-            "ln1": init_rmsnorm(gen, cfg.d_model, param_dtype),
-            "ln2": init_rmsnorm(gen, cfg.d_model, param_dtype),
-            "ffn": _init_swiglu(gen, cfg.d_model, cfg.d_ff, param_dtype)}
+    p = {"attn": init_attention(gen, cfg.attn_cfg(local=True), param_dtype),
+         "ln1": init_rmsnorm(gen, cfg.d_model, param_dtype),
+         "ln2": init_rmsnorm(gen, cfg.d_model, param_dtype)}
+    if cfg.is_moe:
+        p["moe"] = init_moe(gen, cfg.moe_cfg(), param_dtype)
+        if cfg.n_shared_experts:
+            p["shared"] = _init_swiglu(gen, cfg.d_model,
+                                       cfg.d_ff * cfg.n_shared_experts,
+                                       param_dtype)
+    else:
+        p["ffn"] = _init_swiglu(gen, cfg.d_model, cfg.d_ff, param_dtype)
+    return p
 
 
 def init(gen: torch.Generator, cfg: LMConfig, param_dtype=torch.float32):
     """Parameters drawn from ``gen`` on its device (the generator's device
     is where they live)."""
-    _require_dense(cfg)
     return {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
                                 dtype=param_dtype),
@@ -153,24 +172,39 @@ def _swiglu(p, x):
     return dense(p["down"], F.silu(dense(p["gate"], x)) * dense(p["up"], x))
 
 
-def _block(layer, x, cfg: LMConfig, impl: str):
+def _ffn_or_moe(layer, hn, cfg: LMConfig):
+    """The layer's FFN on hn -> (y, aux): the SwiGLU (aux 0.0), or the
+    MoE (``moe_dense`` with ``moe_impl="dense"``, else ``moe_gather``:
+    the JAX package's ``"ep"`` with no mesh) plus the shared expert."""
+    if not cfg.is_moe:
+        return _swiglu(layer["ffn"], hn), 0.0
+    moe = moe_dense if cfg.moe_impl == "dense" else moe_gather
+    y, aux = moe(layer["moe"], hn, cfg.moe_cfg())
+    if cfg.n_shared_experts:
+        y = y + _swiglu(layer["shared"], hn)
+    return y, aux
+
+
+def _block(layer, x, cfg: LMConfig, impl: str, local: bool = True):
+    """One pre-norm layer -> (x, aux); ``local`` as ``cfg.is_local``."""
     x = x + attention(layer["attn"], rmsnorm(layer["ln1"], x),
-                      cfg.attn_cfg(local=True), impl=impl)
-    return x + _swiglu(layer["ffn"], rmsnorm(layer["ln2"], x))
+                      cfg.attn_cfg(local=local), impl=impl)
+    y, aux = _ffn_or_moe(layer, rmsnorm(layer["ln2"], x), cfg)
+    return x + y, aux
 
 
 def backbone(params, cfg: LMConfig, tokens, *, impl: str = "kernel"):
     """tokens: [B, S] -> (hidden [B, S, d] before the head, aux). ``aux``
-    is the MoE balance loss of the JAX package, 0 for a dense config."""
-    _require_dense(cfg)
+    is the MoE balance loss summed over the layers (f32), 0 for a dense
+    config."""
     x = embed(params["embed"], tokens, dtype=cfg.torch_dtype)
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in params["layers"]:
-        if remat:
-            x = checkpoint(_block, layer, x, cfg, impl, use_reentrant=False)
-        else:
-            x = _block(layer, x, cfg, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(params["layers"]):
+        args = (layer, x, cfg, impl, cfg.is_local(i))
+        x, a = (checkpoint(_block, *args, use_reentrant=False) if remat
+                else _block(*args))
+        aux = aux + a
     return rmsnorm(params["ln_f"], x), aux
 
 
@@ -178,7 +212,9 @@ def forward(params, cfg: LMConfig, tokens, *, impl: str = "kernel"):
     """tokens: [B, S] -> (logits [B, S, V] in the config's dtype, aux).
     ``impl`` as in ``nn.attention``: ``"plain"`` only for reference runs."""
     x, aux = backbone(params, cfg, tokens, impl=impl)
-    return dense(params["head"], x, dtype=cfg.torch_dtype), aux
+    with record_function("lm.head"):
+        logits = dense(params["head"], x, dtype=cfg.torch_dtype)
+    return logits, aux
 
 
 def _nll(head, x, labels):
@@ -258,16 +294,19 @@ def decode_step(params, cfg: LMConfig, token, cache, cache_index):
     [L, ...] tensors; cache_index: the number of valid entries (int).
     Returns (logits [B, V], cache). Each layer writes its new k/v into
     its slice of ``cache`` in place, so the returned cache is the same
-    tensors, updated: no step copies the cache."""
-    _require_dense(cfg)
+    tensors, updated: no step copies the cache. A chunked-local layer
+    (``cfg.is_local``) attends over the trailing ``chunk_size`` slots, a
+    global one over the whole cache, as in the JAX package; the MoE
+    routes the step's B tokens as one call (its own capacity)."""
     x = embed(params["embed"], token, dtype=cfg.torch_dtype)
-    acfg = cfg.attn_cfg(local=True)
     for i, layer in enumerate(params["layers"]):
         cache_l = {name: t[i] for name, t in cache.items()}
         h, _ = decode_attention(layer["attn"], rmsnorm(layer["ln1"], x),
-                                cache_l, cache_index, acfg)
+                                cache_l, cache_index,
+                                cfg.attn_cfg(local=cfg.is_local(i)))
         x = x + h
-        x = x + _swiglu(layer["ffn"], rmsnorm(layer["ln2"], x))
+        y, _ = _ffn_or_moe(layer, rmsnorm(layer["ln2"], x), cfg)
+        x = x + y
     x = rmsnorm(params["ln_f"], x)
     logits = dense(params["head"], x, dtype=cfg.torch_dtype)
     return logits[:, -1], cache

@@ -8,8 +8,11 @@ row then averages V uniformly, as the JAX reference does, where
 ``attention`` routes an unmasked, unwindowed call whose length
 ``kernels.ops.flash_attention_supported`` accepts to the flash kernel
 (the CUDA kernel on the card, its plain version on the CPU), as the JAX
-package routes it to its Pallas kernel; every other call, and every
-decode step, is plain PyTorch.
+package routes it to its Pallas kernel. An unmasked chunked-local call
+(iRoPE's local layers) goes to the same kernel, each hard chunk a causal
+sequence of its own (``chunked_flash``), where the JAX package runs XLA's
+``chunked_sdpa``: the same function. Every other call, and every decode
+step, is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -114,6 +117,21 @@ def chunked_sdpa(q, k, v, *, chunk: int, mask=None):
     return out.reshape(B, S, Hq, D)
 
 
+def chunked_flash(q, k, v, *, chunk: int):
+    """``chunked_sdpa``'s function on the flash kernel: the B x S/chunk
+    hard chunks as a batch of causal sequences [B S/chunk, chunk, H, D]
+    (views: the projections are contiguous), rope already applied at
+    absolute positions. Requires S % chunk == 0; takes no mask."""
+    B, S, Hq, D = q.shape
+    n = S // chunk
+
+    def split(t):
+        return t.reshape(B * n, chunk, t.shape[2], D)
+
+    return ops.flash_attention(split(q), split(k), split(v),
+                               causal=True).reshape(B, S, Hq, D)
+
+
 def _project(params, x, cfg: AttnConfig, positions):
     """q [B, S, Hq, D], k/v [B, S, Hkv, D]: projections, qk-norm, rope."""
     B, S, _ = x.shape
@@ -142,8 +160,11 @@ def attention(params, x, cfg: AttnConfig, *, positions=None, mask=None,
     ``impl="kernel"`` through the device dispatch of ``kernels.ops``,
     with ``impl="plain"`` to the kernel's plain version on whatever device
     x is on (only as the reference a card run holds the kernel against).
-    Masked calls, chunked-local layers and other lengths take plain
-    attention under either impl, as in the JAX package.
+    An unmasked chunked-local call (S a multiple of the chunk and longer)
+    goes to the flash kernel chunk by chunk (``chunked_flash``) with
+    ``impl="kernel"``, and to ``chunked_sdpa`` with ``impl="plain"``.
+    Masked calls and other lengths take plain attention under either
+    impl, as in the JAX package.
     """
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown attn impl: {impl!r}")
@@ -159,6 +180,8 @@ def attention(params, x, cfg: AttnConfig, *, positions=None, mask=None,
         out = ops.flash_attention(q, k, v, causal=cfg.causal)
     elif flash:
         out = flash_attention_fwd_plain(q, k, v, cfg.causal)[0]
+    elif chunked_local and mask is None and impl == "kernel":
+        out = chunked_flash(q, k, v, chunk=cfg.chunk_size)
     elif chunked_local:
         out = chunked_sdpa(q, k, v, chunk=cfg.chunk_size, mask=mask)
     elif (cfg.block_q is not None and S > cfg.block_q

@@ -1141,7 +1141,12 @@ def test_attention_on_cuda_launches_the_flash_kernel_only_unmasked(
     assert flash_launches() == 1
     assert flash_launches(mask=torch.ones(2, 32, dtype=torch.bool,
                                           device=cuda)) == 0
-    assert flash_launches(cfg=dataclasses.replace(cfg, chunk_size=8)) == 0
+    # a chunked-local layer: the flash kernel once over the S/chunk hard
+    # chunks (a batch of causal sequences), plain attention when masked
+    local = dataclasses.replace(cfg, chunk_size=8)
+    assert flash_launches(cfg=local) == 1
+    assert flash_launches(cfg=local, mask=torch.ones(
+        2, 32, dtype=torch.bool, device=cuda)) == 0
 
 
 def _to(node, dev):
@@ -1167,6 +1172,34 @@ def test_lm_prefill_and_decode_on_cuda_match_the_cpu(cuda):
         return node.to(cuda)
 
     params_d = to_card(params)
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = lm_family.make_fn(cfg, "prefill")
+    decode = lm_family.make_fn(cfg, "decode")
+    before = ops.launch_counts()["flash_attention"]
+    got = prefill(params_d, toks.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
+    exp = prefill(params, toks)
+    assert float((got.cpu() - exp).abs().max()) <= 1e-4
+    cache_d = lm.init_cache(cfg, 2, 16, torch.float32, device=cuda)
+    cache = lm.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    for t in range(8):
+        got, cache_d = decode(params_d, toks[:, t:t + 1].to(cuda), cache_d, t)
+        exp, cache = decode(params, toks[:, t:t + 1], cache, t)
+        assert float((got.cpu() - exp).abs().max()) <= 1e-4
+    assert ops.launch_counts()["flash_attention"] == before + cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "llama4-scout-17b-a16e"])
+def test_moe_lm_prefill_and_decode_on_cuda_match_the_cpu(cuda, name):
+    """The reduced MoE configs (4 experts; Scout's chunk 8) on the card
+    against the CPU: a prefill at S=64 through the flash kernel (Scout's
+    three local layers chunk by chunk) and 8 decode steps, f32."""
+    from repro_torch.configs import lm_family
+    from repro_torch.models import lm
+    cfg = lm_family.reduced_lm(lm_family.CONFIGS[name])
+    params = lm.init(torch.Generator().manual_seed(0), cfg)
+    params_d = _to(params, cuda)
     toks = torch.randint(0, cfg.vocab, (2, 64),
                          generator=torch.Generator().manual_seed(1))
     prefill = lm_family.make_fn(cfg, "prefill")

@@ -282,11 +282,29 @@ def test_configs_carry_the_jax_widths():
     assert lm_family.QWEN3_14B.param_count() == 14_768_296_960
 
 
-def test_moe_configs_and_lm_training_raise():
+def test_moe_configs_initialise_as_jax_and_make_fn_refuses_unknown_kinds():
+    """The MoE configs, once refused, initialise with the JAX package's
+    tree: the reduced DBRX and Scout's leaves have the reference's keys
+    and shapes, layer by layer. ``make_fn`` builds the train step and
+    raises for an unknown kind."""
     gen = torch.Generator().manual_seed(0)
-    for cfg in (lm_family.DBRX_132B, lm_family.LLAMA4_SCOUT):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            lm.init(gen, lm_family.reduced_lm(cfg))
+    for pcfg, jcfg in ((lm_family.DBRX_132B, jax_family.DBRX_132B),
+                       (lm_family.LLAMA4_SCOUT, jax_family.LLAMA4_SCOUT)):
+        got = lm.init(gen, lm_family.reduced_lm(pcfg))
+        exp = jax.eval_shape(lambda k: jax_lm.init(
+            k, jax_family.reduced_lm(jcfg)), jax.random.PRNGKey(0))
+        exp = bridge.split_layers(jax.tree.map(
+            lambda a: np.zeros(a.shape, a.dtype), exp))
+
+        def shapes(node):
+            if isinstance(node, dict):
+                return {k: shapes(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [shapes(v) for v in node]
+            return tuple(node.shape)
+
+        assert shapes(got) == shapes(exp)
+        assert "moe" in got["layers"][0] and "ffn" not in got["layers"][0]
     assert callable(lm_family.make_fn(lm_family.QWEN3_14B, "train"))
     with pytest.raises(ValueError):
         lm_family.make_fn(lm_family.QWEN3_14B, "serve")
