@@ -24,6 +24,44 @@ Phases, each of which exits non-zero on failure:
               instantiations; the EmbeddingBag's 13 kernels (the
               forward; the backward's keys, chunk and combine passes) no
               spills.
+  1b. gnn     DimeNet (the GNN family) at the width of ``DIMENET`` (6
+              blocks, d 128, 8 bilinear, 7 spherical, 6 radial, cutoff
+              5.0), f32, TF32 off, seeded random weights, through
+              the registry's cells (``configs.get_arch("dimenet")
+              .cells[shape]``: ``make_fn()``, ``meta["model_flops"]``) on
+              ``gnn_family.train_batch`` at molecule (128 graphs, N 3,840,
+              E 8,192, T 16,384), full_graph_sm (N 2,708, E 10,752, T
+              32,768, 1,433 features) and minibatch_lg (fanouts 15, 10 on
+              a random graph of Reddit's size: N 169,984, E 168,960, T
+              262,144, 602 features): 1 warm-up and GNN_TIMED synchronised
+              steps each (s/step, valid edges/s and triplets/s, model
+              TFLOP/s as the JAX cell counts them, peak memory, finite
+              losses, Adam's count). At molecule and full_graph_sm the
+              loss and every gradient leaf on the card are first held to
+              the port on the CPU on the same weights and batch
+              (TOL_GNN_LOSS, TOL_GNN_GRAD). ogb_products must be refused
+              by name. No kernel counter may move across the phase: no
+              hand-written kernel lies on this path (gathers, scatter-adds
+              and GEMMs are PyTorch's own).
+  1c. registry every arch of ``configs`` (the ten assigned and
+              speedyfeed) runs its reduced smoke on the card, dimenet
+              through ``launch.train.main(["--arch", "dimenet"])``; each
+              must launch exactly the kernels REGISTRY_KERNELS names for
+              its family, which the ``kernels`` line adds under each
+              row's ``launches_by_path["registry"]``, by arch. Spies on
+              the kernel wrappers (REGISTRY_WRAPPERS) keep the inputs of
+              the first call at each shape the smokes give them (the SIMT
+              flash pair at the reduced LMs' [4, 32, H, 16] f32 and
+              Scout's chunks, the SIMT bus pair at the speedyfeed PLM's
+              head dim 8, the EmbeddingBag and its backward at the
+              reduced CTR widths); after the smokes each wrapper is held
+              to plain on those inputs, within its limit of the plain
+              output's (or gradient's) largest magnitude (TOL_FLASH and
+              TOL_LSE, TOL_FLASH_BWD, TOL_BUS, TOL_BWD, TOL_RS_BULK,
+              TOL_EBAG_BWD), beside a control on broken inputs that must
+              miss it; the holds go into the ``kernels`` line as
+              ``registry_shapes``, their launches under
+              ``check_launches``.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -490,6 +528,32 @@ RS_P99_CALLS, RS_BULK_CALLS, RS_RETRIEVAL_CALLS, RS_B4R_CALLS = 100, 5, 20, 50
 # leaf's largest magnitude (f32 sums of a row's slots in another order);
 # the EmbeddingBag backward against plain's in f64 within TOL_EBAG_BWD of
 # the largest |g| (f32), or one bf16 ulp (EBAG_BF16_RTOL) plus that
+# the gnn phase: DimeNet's three one-card shapes (ogb_products is refused
+# by name), timed steps after one warm-up, the seed of the batches; the
+# shapes whose loss and gradients on the card are held to the port on the
+# CPU (f32, TF32 off; index_add_ sums with atomics on the card, in order
+# on the CPU): the loss within TOL_GNN_LOSS of its value, each gradient
+# leaf within TOL_GNN_GRAD of its largest magnitude
+GNN_RUN = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_TIMED, GNN_SEED = 3, 0
+GNN_CPU_CHECK = ("molecule", "full_graph_sm")
+TOL_GNN_LOSS, TOL_GNN_GRAD = 1e-4, 1e-3
+# the registry phase: the kernels each family's reduced smoke must launch
+# (and no other): the LMs' f32 attention at head dim 16 on the SIMT flash
+# pair, the CTR lookups on the EmbeddingBag and its backward, the
+# speedyfeed PLM's head dim 8 on the SIMT bus pair; BERT4Rec and DimeNet
+# none
+REGISTRY_KERNELS = {
+    "lm": {"flash_attention", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv"},
+    "recsys": {"embedding_bag", "embedding_bag_bwd"},
+    "gnn": set(), "news": {"bus_attention_simt", "bus_attention_bwd_simt"}}
+# the kernels line's rows that count more than the counter of their name
+ROW_COUNTERS = {
+    "flash_attention_bwd_wgmma": ("flash_attention_bwd_dq_wgmma",
+                                  "flash_attention_bwd_dkv_wgmma"),
+    "flash_attention_bwd": ("flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv")}
 RS_TRAIN_TIMED, TOL_RS_TRAIN_GRAD = 3, 1e-5
 TOL_EBAG_BWD, EBAG_BF16_RTOL = 1e-5, 2.0 ** -7
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
@@ -2990,6 +3054,282 @@ def serve_front_phase(torch, np, dev, rec, reqs, exec_p50_ms: float,
     return rep, launches
 
 
+def gnn_phase(torch, np, dev, ops):
+    """The GNN family's training path (see the module docstring, phase
+    1b). Returns the report."""
+    from repro_torch import configs, optim
+    from repro_torch.configs import gnn_family
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.optim.adam import leaves
+
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+
+    def loss_and_grads(params, cfg, batch, ng):
+        flat = [p.requires_grad_() for _, p in leaves(params)]
+        loss, _ = dimenet.loss(params, cfg, batch, n_graphs=ng)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    rep = {}
+    for shape in GNN_RUN:
+        # the registry's cell: its step and FLOP count
+        cell = configs.get_arch("dimenet").cells[shape]
+        shp = gnn_family.GNN_SHAPES[shape]
+        cfg = gnn_family.cell_config(shape)
+        ng = shp.get("n_graphs", 1)
+        t0 = time.perf_counter()
+        batch = gnn_family.train_batch(shape, np.random.default_rng(
+            GNN_SEED), device=dev)
+        r = {"host_batch_s": time.perf_counter() - t0,
+             "n": shp["n"], "e": shp["e"], "t": shp["t"],
+             "valid_edges": int(batch["edge_mask"].sum()),
+             "valid_triplets": int(batch["trip_mask"].sum())}
+        params = dimenet.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+        if shape in GNN_CPU_CHECK:
+            # the same parameters and batch through the port on the CPU
+            l_c, g_c = loss_and_grads(tree_to(params, "cpu"), cfg,
+                                      {k: v.cpu() for k, v in batch.items()},
+                                      ng)
+            l_g, g_g = loss_and_grads(params, cfg, batch, ng)
+            names = [n for n, _ in leaves(params)]
+            errs = {n: float((a.cpu() - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for n, a, b in zip(names, g_g, g_c)}
+            worst = max(errs, key=errs.get)
+            r["loss_cuda_vs_cpu_rel"] = abs(float(l_g) - float(l_c)) / max(
+                abs(float(l_c)), 1e-30)
+            r["grad_worst_rel_err"] = [worst, errs[worst]]
+            check(r["loss_cuda_vs_cpu_rel"] <= TOL_GNN_LOSS,
+                  f"gnn {shape}: loss on the card {float(l_g)} against the "
+                  f"CPU's {float(l_c)}")
+            check(errs[worst] <= TOL_GNN_GRAD,
+                  f"gnn {shape}: gradient leaf {worst} differs from the "
+                  f"CPU's by {errs[worst]} of its magnitude")
+            del g_c, g_g
+        opt = optim.adam_init(params)
+        step = cell.make_fn()
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, m = step(params, opt, batch)          # warm-up
+        losses = [m["loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GNN_TIMED):
+            params, opt, m = step(params, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / GNN_TIMED
+        r.update(
+            s_per_step=sec, edges_per_s=r["valid_edges"] / sec,
+            triplets_per_s=r["valid_triplets"] / sec,
+            model_tflop_per_s=cell.meta["model_flops"] / sec / 1e12,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=[float(x) for x in losses], count=int(opt["count"]))
+        check(all(np.isfinite(r["losses"])), f"gnn {shape}: losses "
+              f"{r['losses']}")
+        check(r["count"] == 1 + GNN_TIMED, f"gnn {shape}: Adam count "
+              f"{r['count']}")
+        rep[shape] = r
+        print(f"gnn {shape}: " + json.dumps(r), flush=True)
+        del params, opt, batch, m, losses
+        gc_collect(torch)
+    # the refusal that stands for ogb_products
+    try:
+        gnn_family.train_batch("ogb_products", np.random.default_rng(0),
+                               device=dev)
+        fail("gnn: ogb_products was not refused")
+    except ValueError as e:
+        rep["ogb_products"] = str(e)
+    moved = {k: n - before[k] for k, n in ops.launch_counts().items()
+             if n != before[k]}
+    check(not moved, f"gnn: the DimeNet path launched kernels {moved}")
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"gnn: {rep['seconds']:.1f} s, no kernel launched", flush=True)
+    return rep
+
+
+# the kernel wrappers the reduced smokes reach, as ``kernels/ops.py``
+# calls them (module, attribute); the registry phase spies on them
+REGISTRY_WRAPPERS = (
+    ("flash_attention", "flash_attention_cuda"),
+    ("flash_attention", "flash_attention_bwd_cuda"),
+    ("bus_attention", "bus_attention_cuda"),
+    ("bus_attention", "bus_attention_bwd_cuda"),
+    ("embedding_bag", "embedding_bag_cuda"),
+    ("embedding_bag", "embedding_bag_bwd_cuda"))
+
+
+def spy_wrappers(torch, captured: dict):
+    """Put spies on REGISTRY_WRAPPERS: each keeps a copy of the inputs of
+    its wrapper's first call at each shape, dtype and flag, in
+    ``captured`` by that key, then calls the wrapper. Returns the
+    function that takes the spies off."""
+    import importlib
+    saved = []
+    for mod_name, attr in REGISTRY_WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        fn = getattr(mod, attr)
+
+        def spy(*args, _fn=fn, _attr=attr):
+            key = (_attr,) + tuple(
+                (tuple(a.shape), str(a.dtype))
+                if isinstance(a, torch.Tensor) else a for a in args)
+            if key not in captured:
+                captured[key] = (_attr, [
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+            return _fn(*args)
+        setattr(mod, attr, spy)
+        saved.append((mod, attr, fn))
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return restore
+
+
+def abs_rel_err(torch, got, exp) -> tuple:
+    """(max |got - exp|, that over the largest |exp|), in f64; where
+    ``exp`` is NaN ``got`` must be NaN too (else both are inf)."""
+    got, exp = got.double(), exp.double()
+    nan = exp.isnan()
+    if not torch.equal(got.isnan(), nan):
+        return float("inf"), float("inf")
+    got, exp = got.masked_fill(nan, 0), exp.masked_fill(nan, 0)
+    err = float((got - exp).abs().max())
+    return err, err / max(float(exp.abs().max()), 1e-30)
+
+
+def registry_hold(torch, attr: str, args: list) -> dict:
+    """One wrapper held against its plain version on ``args``, the inputs
+    a reduced smoke gave it (see the module docstring, phase 1c): the
+    output, or each gradient, within the wrapper's limit of the plain
+    one's largest magnitude, and a control, the plain version on a
+    broken copy of the inputs, over that limit: v's last quarter of keys
+    zeroed (flash), the bus keys' v zeroed (bus), the first sample's
+    rows zeroed in the table (EmbeddingBag) or its dout (its
+    backward)."""
+    from repro_torch.kernels import bus_attention as bus
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    r = {"wrapper": attr, "shapes": [list(t.shape) for t in tensors],
+         "dtype": str(tensors[0].dtype).replace("torch.", "")}
+    mods = {"flash_attention": fa, "bus_attention": bus,
+            "embedding_bag": eb}
+    got = getattr(mods[dict((a, m) for m, a in REGISTRY_WRAPPERS)[attr]],
+                  attr)(*args)
+    got = list(got) if isinstance(got, tuple) else [got]
+    if attr == "flash_attention_cuda":
+        q, k, v, causal = args
+        w = max(1, k.shape[1] // 4)
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        exp, got = [o], got[:1] + [got[1] - lse]
+        ctl = fa.flash_attention_fwd_plain(
+            q, k, dropped_tile(v, k.shape[1] - w, w), causal)[:1]
+        r["lse_abs_err"] = float(got.pop().abs().max())
+        check(r["lse_abs_err"] <= TOL_LSE, f"registry {attr}: lse {r}")
+        tol = TOL_FLASH[r["dtype"]]
+    elif attr == "flash_attention_bwd_cuda":
+        q, k, v, o, lse, do, causal = args
+        w = max(1, k.shape[1] // 4)
+        exp = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        ctl = fa.flash_attention_bwd_plain(
+            q, k, dropped_tile(v, k.shape[1] - w, w), o, lse, do, causal)
+        tol = TOL_FLASH_BWD[r["dtype"]]
+    elif attr == "bus_attention_cuda":
+        q, k, v, kv_mask = args
+        exp = [bus.bus_attention_plain(q, k, v, kv_mask)]
+        ctl = [bus.bus_attention_plain(q, k, bus_zeroed(v, q.shape[2]),
+                                       kv_mask)]
+        tol = TOL_BUS
+    elif attr == "bus_attention_bwd_cuda":
+        q, k, v, kv_mask, do = args
+        exp = bus.bus_attention_bwd_plain(q, k, v, kv_mask, do)
+        ctl = bus.bus_attention_bwd_plain(q, k, bus_zeroed(v, q.shape[2]),
+                                          kv_mask, do)
+        tol = TOL_BWD
+    elif attr == "embedding_bag_cuda":
+        table, idx, weights = args
+        exp = [eb.embedding_bag_plain(table, idx, weights)]
+        broken = table.clone()
+        broken[eb._wrap(idx[0], table.shape[0])[0].reshape(-1)] = 0
+        ctl = [eb.embedding_bag_plain(broken, idx, weights)]
+        tol = TOL_RS_BULK
+    else:
+        dout, idx, weights, num_rows = args
+        exp = [eb.embedding_bag_bwd_plain(dout.double(), idx, weights,
+                                          num_rows)]
+        broken = dout.double()
+        broken[0] = 0
+        ctl = [eb.embedding_bag_bwd_plain(broken, idx, weights, num_rows)]
+        tol = TOL_EBAG_BWD
+    errs = [abs_rel_err(torch, a, b) for a, b in zip(got, exp)]
+    r["max_abs_err"] = max(e[0] for e in errs)
+    r["rel_err"] = max(e[1] for e in errs)
+    r["control_rel_err"] = max(abs_rel_err(torch, a, b)[1]
+                               for a, b in zip(got, ctl))
+    r["tol"] = tol
+    check(r["rel_err"] <= tol, f"registry {attr} at the smoke's shape "
+          f"differs from plain: {r}")
+    check(r["control_rel_err"] > tol, f"registry {attr}: the control "
+          f"passes the limit: {r}")
+    return r
+
+
+def registry_phase(torch, dev, ops):
+    """Every arch's reduced smoke on the card, then each kernel wrapper
+    held to plain at every shape the smokes gave it (see the module
+    docstring, phase 1c). Returns (report, launches by arch, the holds'
+    launches by kernel)."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    rep, launches, captured = {}, {}, {}
+    restore = spy_wrappers(torch, captured)
+    try:
+        for name in configs.ASSIGNED + ["speedyfeed"]:
+            arch = configs.get_arch(name)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            if name == "dimenet":     # through the launcher, as a user runs it
+                metrics = train.main(["--arch", name, "--device", "cuda"])
+            else:
+                metrics = arch.smoke(device=dev)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in ops.launch_counts().items() if n}
+            expected = REGISTRY_KERNELS[arch.family]
+            if name == "bert4rec":
+                expected = set()
+            check(set(counts) == expected, f"registry {name}: launched "
+                  f"{counts}, expected every one of {sorted(expected)}")
+            rep[name] = {"seconds": time.perf_counter() - t0,
+                         "metrics": metrics, "launches": counts}
+            launches[name] = counts
+    finally:
+        restore()
+    # each wrapper at each shape the smokes gave it, on their inputs
+    ops.reset_launch_counts()
+    holds = []
+    for attr, args in captured.values():
+        before = ops.launch_counts()
+        h = registry_hold(torch, attr, args)
+        h["launches"] = {n: c - before[n] for n, c in
+                         ops.launch_counts().items() if c != before[n]}
+        holds.append(h)
+    torch.cuda.synchronize()
+    held = {n for h in holds for n in h["launches"]}
+    check(held == set().union(*REGISTRY_KERNELS.values()),
+          f"registry: the holds launched {sorted(held)}, not the smokes' "
+          f"kernels")
+    rep["holds"] = holds
+    rep["seconds"] = time.perf_counter() - t_phase
+    print("registry: " + json.dumps(rep), flush=True)
+    return rep, launches, holds
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -3115,6 +3455,12 @@ def main() -> int:
     print(f"{EBAG_LIB}: ptxas {ptxas}", flush=True)
     check(len(ptxas) == 13, f"{EBAG_LIB}: expected 13 kernels, ptxas "
           f"{ptxas}")
+
+    # -------------------------------------------------------------- gnn
+    report["gnn"] = gnn_phase(torch, np, dev, ops)
+    # --------------------------------------------------------- registry
+    report["registry"], registry_launches, registry_holds = registry_phase(
+        torch, dev, ops)
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -3688,7 +4034,8 @@ def main() -> int:
         del qq, kq, vq, mq, doq
 
     # the SIMT pair: the route for the shapes the tensor-core kernels do
-    # not take (no main path sends one: their launches above are 0), held
+    # not take (of the paths here only the registry's speedyfeed smoke,
+    # at head dim 8, sends one; the registry phase held it there), held
     # and timed at the production widths with a longer segment
     simt_fwd, simt_bwd = bus_route(BUS_SIMT_S, BUS_SIMT_S + K, D)
     qs_, ks_, vs_, ms_, dos_ = bus_inputs(torch, g, 256, K, BUS_SIMT_S, H,
@@ -4002,9 +4349,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:146",
-        # no main path and no LM check reaches the SIMT forward (every
-        # config's head dim is 128); its own checks' launches, counted
-        # from 0, are apart under check_launches
+        # of the paths here only the registry's reduced LM smokes (head
+        # dim 16, f32) reach the SIMT forward, added below with their
+        # holds; the full configs' head dim is 128. Its own checks'
+        # launches, counted from 0, are apart under check_launches
         "launches": prefill_launches["flash_attention"]
         + lm_train_launches["flash_attention"]
         + moe_sum("flash_attention"),
@@ -4189,6 +4537,24 @@ def main() -> int:
     ebag_bwd_row["launches"] = sum(
         ebag_bwd_row["launches_by_path"]["recsys_train"].values())
     kernels.append(ebag_bwd_row)
+
+    # every row gains the registry phase's launches, by arch (the flash
+    # backward rows count their dq and dk/dv kernels together)
+    for row in kernels:
+        syms = ROW_COUNTERS.get(row["name"], (row["name"],))
+        by_arch = {a: sum(c.get(sym, 0) for sym in syms)
+                   for a, c in registry_launches.items()}
+        by_arch = {a: n for a, n in by_arch.items() if n}
+        row.setdefault("launches_by_path", {})["registry"] = by_arch
+        row["launches"] += sum(by_arch.values())
+        # and its holds at the smokes' shapes, their launches apart
+        mine = [h for h in registry_holds if set(h["launches"]) & set(syms)]
+        if mine:
+            row["registry_shapes"] = mine
+            row.setdefault("check_launches", {})["registry_shapes"] = sum(
+                h["launches"].get(sym, 0) for h in mine for sym in syms)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *(h["max_abs_err"] for h in mine))
 
     report["kernels"] = kernels
     report["card"] = card

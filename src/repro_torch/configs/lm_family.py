@@ -6,8 +6,10 @@ The five configs carry the exact widths of the JAX package's
 the MoE two (DBRX-132B; Llama-4-Scout with its chunked-local iRoPE),
 whose ``moe_impl="ep"`` runs ``nn.moe_gather`` on one card, as the JAX
 package does with no mesh. ``make_fn`` is the counterpart of a JAX
-``Cell.make_fn`` with no mesh; the XLA dry-run machinery (``Cell``,
-``abstract_args``) has no counterpart in the port.
+``Cell.make_fn`` with no mesh, and ``archs()`` gives the registry's five
+arches (``configs.get_arch``), each with its four cells and the JAX
+package's reduced smoke; the XLA dry-run machinery (``abstract_args``)
+has no counterpart in the port.
 
 One 80 GB card holds neither MoE config whole (264 and 218 GB of bf16
 weights), so each serves on the card at a cut depth
@@ -18,11 +20,15 @@ layer, 106 GB for one Scout super-block).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch import optim
+from repro_torch.device import check_device
 from repro_torch.models import lm
+
+from .base import Arch, Cell, assert_finite
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -128,3 +134,73 @@ def make_fn(cfg: lm.LMConfig, kind: str):
     else:
         raise ValueError(f"unknown LM step kind: {kind!r}")
     return torch.no_grad()(fn)
+
+
+# ---------------------------------------------------------------------------
+# the registry's arches (configs.get_arch)
+# ---------------------------------------------------------------------------
+
+LONG_500K_SKIP = ("pure full-attention arch: long_500k requires "
+                  "sub-quadratic attention (DESIGN.md §5)")
+
+
+def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
+            notes: str = "") -> Arch:
+    """The four LM_SHAPES cells of ``cfg``; long_500k carries a skip for a
+    full-attention arch. ``meta``: the JAX cell's ``model_flops``,
+    ``params`` and ``active_params``."""
+    cells = {}
+    act = cfg.active_param_count()
+    for shape, shp in LM_SHAPES.items():
+        kind = shp["kind"]
+        if kind == "train":
+            mf = 6 * act * shp["batch"] * shp["seq"]
+        elif kind == "prefill":
+            mf = 2 * act * shp["batch"] * shp["seq"]
+        else:
+            mf = 2 * act * shp["batch"]
+        skip = (LONG_500K_SKIP if shape == "long_500k" and not sub_quadratic
+                else None)
+        cells[shape] = Cell(
+            arch=cfg.name, shape=shape, kind=kind,
+            make_fn=functools.partial(make_fn, cfg, kind), skip=skip,
+            meta={"model_flops": float(mf), "params": cfg.param_count(),
+                  "active_params": act})
+    return Arch(name=cfg.name, family="lm", config=cfg, cells=cells,
+                smoke=functools.partial(_smoke, cfg), notes=notes)
+
+
+def _smoke(cfg: lm.LMConfig, device="cuda"):
+    """The JAX package's reduced smoke (``reduced_lm``) on ``device``, with
+    torch draws: one Adam step (TRAIN_OPT, no schedule) on [4, 32] tokens,
+    then one decode step on a 32-slot f32 cache."""
+    device = check_device(device)
+    r = reduced_lm(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = lm.init(gen, r)
+    step = optim.make_train_step(lambda p, b: lm.lm_loss(p, r, b), TRAIN_OPT)
+    toks = torch.randint(0, r.vocab, (4, 32), generator=gen, device=device)
+    params, _, metrics = step(params, optim.adam_init(params),
+                              {"tokens": toks, "labels": toks})
+    assert_finite(metrics["loss"], f"{cfg.name} train loss")
+    assert_finite(params, f"{cfg.name} params after step")
+    cache = lm.init_cache(r, 4, 32, torch.float32, device=device)
+    logits, cache = make_fn(r, "decode")(params, toks[:, :1], cache, 0)
+    assert logits.shape == (4, r.vocab)
+    assert_finite(logits, f"{cfg.name} decode logits")
+    return {"loss": float(metrics["loss"]), "vocab": r.vocab}
+
+
+def archs():
+    return [
+        lm_arch(QWEN3_14B, notes="GQA kv=8, qk_norm"),
+        lm_arch(CHATGLM3_6B, notes="GQA kv=2, partial (2D) RoPE, QKV bias"),
+        lm_arch(QWEN2_72B, notes="GQA kv=8, QKV bias"),
+        lm_arch(DBRX_132B, notes="MoE 16e top-4 (fine-grained); experts "
+                                 "through nn.moe_gather on one card"),
+        lm_arch(LLAMA4_SCOUT, sub_quadratic=True,
+                notes="MoE 16e top-1 + shared expert; iRoPE chunked-local "
+                      "attention (sub-quadratic) -> long_500k runs. "
+                      "Early-fusion multimodal frontend is a stub: "
+                      "input_specs provide token ids (text backbone only)."),
+    ]

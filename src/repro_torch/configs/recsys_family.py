@@ -5,19 +5,24 @@ The four configs carry the exact widths of the JAX package's
 ``configs/recsys_family.py`` (Wide&Deep, DLRM-RM2, DCN-v2, BERT4Rec).
 ``make_fn`` is the counterpart of a JAX ``Cell.make_fn`` with no mesh,
 for the train, serve and retrieval shapes; ``train`` is fixed to the JAX
-cell's ``RS_OPT``. The XLA dry-run machinery (``Cell``, ``abstract_args``)
-has no counterpart in the port.
+cell's ``RS_OPT``. ``archs()`` gives the registry's four arches
+(``configs.get_arch``), each with its four cells and the JAX package's
+reduced smoke; the XLA dry-run machinery (``abstract_args``) has no
+counterpart in the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.device import check_device
 from repro_torch.models.recsys import bert4rec, ctr
 from repro_torch.models.recsys.common import SparseSpec, criteo_like_vocab
-from repro_torch.optim import AdamConfig, make_train_step
+from repro_torch.optim import AdamConfig, adam_init, make_train_step
+
+from .base import Arch, Cell, assert_finite
 
 RS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -134,3 +139,137 @@ def make_fn(cfg, kind: str, *, device="cuda"):
         return fn(params, batch, *(c.to(device) for c in cand))
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the registry's arches (configs.get_arch)
+# ---------------------------------------------------------------------------
+
+def _mlp_flops(dims, B):
+    return sum(2 * B * a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _ctr_flops(cfg: ctr.CTRConfig, shp) -> float:
+    """Useful-model FLOPs per call (fwd; x3 for train), the JAX cell's."""
+    B = shp.get("batch", 1)
+    F, d = cfg.sparse.n_fields, cfg.sparse.embed_dim
+    x0 = cfg.n_dense + F * d
+    f = 0.0
+    if cfg.interaction == "dot":
+        f += _mlp_flops((cfg.n_dense,) + cfg.bot_mlp, B)
+        n_vec = F + 1
+        f += 2 * B * n_vec * n_vec * d
+        f += _mlp_flops((n_vec * (n_vec - 1) // 2 + cfg.bot_mlp[-1],)
+                        + cfg.top_mlp, B)
+    elif cfg.interaction == "cross":
+        f += cfg.n_cross_layers * 2 * B * x0 * x0
+        f += _mlp_flops((x0,) + cfg.mlp_dims, B)
+    else:
+        f += _mlp_flops((x0,) + cfg.mlp_dims + (1,), B)
+    if shp["kind"] == "train":
+        f *= 3
+    if shp["kind"] == "retrieval":
+        f += 2 * shp["n_cand"] * ctr_repr_dim(cfg)
+    return f
+
+
+def _b4r_flops(cfg: bert4rec.Bert4RecConfig, shp) -> float:
+    kind, B = shp["kind"], shp.get("batch", 1)
+    enc_flops = (cfg.n_blocks
+                 * (8 * cfg.seq_len * cfg.embed_dim ** 2
+                    + 4 * cfg.seq_len ** 2 * cfg.embed_dim
+                    + 4 * cfg.seq_len * cfg.embed_dim * cfg.d_ff)) * B
+    mf = enc_flops * (3 if kind == "train" else 1)
+    if kind == "serve":
+        mf += 2 * B * cfg.n_items * cfg.embed_dim
+    if kind == "retrieval":
+        mf += 2 * shp["n_cand"] * cfg.embed_dim
+    return float(mf)
+
+
+def _arch(cfg, notes: str = "") -> Arch:
+    """The four RS_SHAPES cells of ``cfg``; each cell's ``make_fn`` takes
+    ``device`` as ``make_fn`` does."""
+    is_ctr = isinstance(cfg, ctr.CTRConfig)
+    cells = {}
+    for shape, shp in RS_SHAPES.items():
+        kind = shp["kind"]
+        meta = ({"model_flops": _ctr_flops(cfg, shp),
+                 "embedding_rows": cfg.sparse.total_rows} if is_ctr
+                else {"model_flops": _b4r_flops(cfg, shp)})
+        cells[shape] = Cell(arch=cfg.name, shape=shape, kind=kind,
+                            make_fn=functools.partial(make_fn, cfg, kind),
+                            meta=meta)
+    smoke = _ctr_smoke if is_ctr else _b4r_smoke
+    return Arch(name=cfg.name, family="recsys", config=cfg, cells=cells,
+                smoke=functools.partial(smoke, cfg), notes=notes)
+
+
+def _ctr_smoke(cfg: ctr.CTRConfig, device="cuda"):
+    """The JAX package's reduced CTR smoke (``reduced_ctr``) on ``device``,
+    with torch draws: one Adam step on B=32, the forward's logits and a
+    top-8 retrieval against 64 candidates."""
+    device = check_device(device)
+    small = reduced_ctr(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = ctr.init(gen, small)
+    B, F, nnz = 32, small.sparse.n_fields, small.sparse.nnz
+    batch = {"sparse_idx": torch.randint(0, 97, (B, F, nnz), generator=gen,
+                                         device=device, dtype=torch.int32),
+             "sparse_w": torch.ones((B, F, nnz), device=device),
+             "label": (torch.rand(B, generator=gen, device=device)
+                       < 0.5).float()}
+    if small.n_dense:
+        batch["dense"] = torch.randn((B, small.n_dense), generator=gen,
+                                     device=device)
+    step = make_train_step(lambda p, b: ctr.loss(p, small, b), RS_OPT)
+    params, _, metrics = step(params, adam_init(params), batch)
+    assert_finite(metrics["loss"], f"{cfg.name} loss")
+    with torch.no_grad():
+        logits = ctr.forward(params, small, batch)
+        assert logits.shape == (B,)
+        assert_finite(logits, f"{cfg.name} logits")
+        cand = torch.randn((64, ctr_repr_dim(small)), generator=gen,
+                           device=device)
+        sc, _ = ctr.retrieval(params, small, batch, cand, k=8)
+    assert sc.shape == (B, 8)
+    return {"loss": float(metrics["loss"])}
+
+
+def _b4r_smoke(cfg: bert4rec.Bert4RecConfig, device="cuda"):
+    """The JAX package's reduced BERT4Rec smoke (``reduced_b4r``) on
+    ``device``, with torch draws: one Adam step on B=8, then a top-10
+    serve over the catalogue."""
+    device = check_device(device)
+    small = reduced_b4r(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = bert4rec.init(gen, small)
+    B, S, n_m, n_i = 8, small.seq_len, small.n_mask, small.n_items
+
+    def ids(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    batch = {"tokens": ids((B, S), 1, n_i),
+             "mask_pos": ids((B, n_m), 0, S),
+             "labels": ids((B, n_m), 1, n_i),
+             "mask_valid": torch.ones((B, n_m), dtype=torch.bool,
+                                      device=device),
+             "neg": ids((B, n_m, small.n_neg), 1, n_i)}
+    step = make_train_step(lambda p, b: bert4rec.loss(p, small, b), RS_OPT)
+    params, _, metrics = step(params, adam_init(params), batch)
+    assert_finite(metrics["loss"], f"{cfg.name} loss")
+    with torch.no_grad():
+        sc, _ = bert4rec.serve(params, small, batch, k=10)
+    assert sc.shape == (B, 10)
+    return {"loss": float(metrics["loss"])}
+
+
+def archs():
+    return [
+        _arch(WIDE_DEEP, notes="wide linear + deep MLP, concat interaction"),
+        _arch(DLRM_RM2, notes="dot interaction; EmbeddingBag is the hot path"),
+        _arch(BERT4REC, notes="bidirectional seq rec; the SpeedyFeed-"
+                              "applicable arch"),
+        _arch(DCN_V2, notes="cross network v2 (full-rank)"),
+    ]

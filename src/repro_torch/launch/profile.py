@@ -8,6 +8,7 @@ the serve slice's recall goes.
     python -m repro_torch.launch.profile --lm-train [--out PATH]
     python -m repro_torch.launch.profile --recsys [--out PATH]
     python -m repro_torch.launch.profile --recsys-train [--out PATH]
+    python -m repro_torch.launch.profile --gnn [--gnn-shape SHAPE] [--out PATH]
 
 Builds the slice ``chip_smoke.py`` drives (the production PLM with seeded
 random weights, a ``make_loader`` corpus, IVF-PQ with nlist from the
@@ -67,6 +68,18 @@ EmbeddingBag's kernels (the forward, the backward's keys, chunk and
 combine passes) named apart, printed and written to ``--out`` (default
 ``chiprun_out/profile_recsys_train.json``).
 
+With ``--gnn`` it instead profiles the GNN family's training path: one
+DimeNet train step at ``--gnn-shape`` (by default ``minibatch_lg``:
+``DIMENET``'s width with Reddit's 602 features and 41 classes, f32,
+seeded random weights, ``gnn_family.train_batch``'s fanout subgraph: N
+169,984, E 168,960, T 262,144; or ``molecule``, ``full_graph_sm``)
+through the registry cell's ``make_fn()``, after one warm step: device
+time by kernel name, the device's busy share, the count of device ops
+(kernels, copies, fills), and the step's device time split by part
+(``gnn_breakdown``: gathers, scatter-adds, f32 GEMMs, the bilinear
+einsum, Adam, and the elementwise rest), printed and written to
+``--out`` (default ``chiprun_out/profile_gnn_<shape>.json``).
+
 With ``--recall-repeat`` it instead studies where the spread of recall@10
 between runs comes from (``recall_repeat``), and writes the corpus
 embeddings and the probe users' vectors to ``--vectors-out`` (an .npz that
@@ -76,6 +89,7 @@ hold the port's build against the JAX package's on the same vectors).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,14 +101,16 @@ import warnings
 import numpy as np
 import torch
 
-from repro_torch import core, data, optim, serving, training
-from repro_torch.configs import PROD, lm_family, recsys_family
+from repro_torch import configs, core, data, optim, serving, training
+from repro_torch.configs import PROD, gnn_family, lm_family, recsys_family
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import Recommender, _pad_histories
 from repro_torch.launch.train import first_batch_of_bucket, make_loader
 from repro_torch.data import recsys_synth
 from repro_torch.models import lm
+from repro_torch.models.gnn import dimenet
 from repro_torch.models.recsys import bert4rec, ctr
+from repro_torch.optim import adam
 from repro_torch.serving.index import _probe_cells, _search_pq_csr
 from repro_torch.serving.pq import PQCodebook, pq_decode
 
@@ -115,16 +131,28 @@ EBAG_NAMES = ("embedding_bag_kernel", "ebag_bwd_keys_kernel",
 # of the by-kernel rows and the busy sum
 SPLIT_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
                 "lm.head")
+# the GNN step's: Adam, under the range ``_adam_range`` opens
+GNN_RANGES = ("optim.adam",)
+# the GNN step's parts by the aten op that launched each kernel (its own
+# kernels' device time): DimeNet's gathers are index_select and its
+# segment sums index_add_ (each the other's backward); its only batched
+# product, and every matrix product with an nsbf * nb wide operand, is
+# the bilinear einsum's (dimenet.bilinear)
+GNN_GATHER_OPS = ("aten::index_select", "aten::index", "aten::gather")
+GNN_SCATTER_OPS = ("aten::index_add_", "aten::index_add",
+                   "aten::scatter_add_")
+GNN_GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm")
 
 
-def _kernel_table(prof, wall_s: float, top: int = 16) -> dict:
+def _kernel_table(prof, wall_s: float, top: int = 16,
+                  ranges=SPLIT_RANGES) -> dict:
     """Device time by kernel name from a profile, and the busy share;
     each flash or EmbeddingBag kernel that ran (FLASH_NAMES, EBAG_NAMES)
     also apart, with its calls, device ms and share of the wall time,
     whether or not it is among the ``top``."""
     rows, split = [], {}
     for e in prof.key_averages():
-        if e.key in SPLIT_RANGES:
+        if e.key in ranges:
             # by device type: the host range's row holds the device time
             # of the kernels launched inside it; the device lane's row
             # (where the profiler draws one) spans its first kernel's
@@ -314,6 +342,94 @@ def profile_recsys_train(dev, cfg) -> dict:
     return out
 
 
+def profile_gnn(dev, shape: str = "minibatch_lg") -> dict:
+    """``torch.profiler`` (with the ops' input shapes) over one DimeNet
+    train step at ``shape``, after one warm step; ``breakdown_ms`` from
+    ``gnn_breakdown``."""
+    cell = configs.get_arch("dimenet").cells[shape]
+    shp = gnn_family.GNN_SHAPES[shape]
+    cfg = gnn_family.cell_config(shape)
+    batch = gnn_family.train_batch(shape, np.random.default_rng(0), dev)
+    params = dimenet.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = [params, optim.adam_init(params)]
+    step = cell.make_fn()
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    run()                                      # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof, \
+            _adam_range():
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = _kernel_table(prof, wall, top=24, ranges=GNN_RANGES)
+    out["breakdown_ms"] = gnn_breakdown(prof, cfg, out)
+    out.update(shape=shape, n=shp["n"], e=shp["e"], t=shp["t"],
+               model_flops=cell.meta["model_flops"],
+               device_ops=sum(e.count for e in prof.key_averages()
+                              if "CUDA" in str(e.device_type)
+                              and e.key not in GNN_RANGES),
+               valid_edges=int(batch["edge_mask"].sum()),
+               valid_triplets=int(batch["trip_mask"].sum()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+@contextlib.contextmanager
+def _adam_range():
+    """While the block runs, ``optim.adam.adam_update`` runs under the
+    profiler range ``optim.adam`` (a train step looks it up at each
+    call)."""
+    update = adam.adam_update
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("optim.adam"):
+            return update(*args, **kw)
+    adam.adam_update = ranged
+    try:
+        yield
+    finally:
+        adam.adam_update = update
+
+
+def gnn_breakdown(prof, cfg, table: dict) -> dict:
+    """A DimeNet step's device ms by part: gathers, scatter-adds, the
+    bilinear einsum (its ``bmm`` and its matrix products with an nsbf *
+    nb wide operand, forward and backward), the other f32 GEMMs, Adam
+    (the ``optim.adam`` range ``_adam_range`` opens: clip and update)
+    and the rest (elementwise passes, the bases, reductions, fills and
+    copies). The parts sum to the device's busy time."""
+    wide = cfg.n_spherical * cfg.n_radial * cfg.n_bilinear
+    parts = dict.fromkeys(("gather", "scatter_add", "einsum", "gemm_f32"),
+                          0.0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if "CPU" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.key in GNN_GATHER_OPS:
+            parts["gather"] += us / 1e3
+        elif e.key in GNN_SCATTER_OPS:
+            parts["scatter_add"] += us / 1e3
+        elif e.key in GNN_GEMM_OPS:
+            dims = {d for shape in (e.input_shapes or []) for d in shape}
+            part = "einsum" if e.key == "aten::bmm" or wide in dims \
+                else "gemm_f32"
+            parts[part] += us / 1e3
+    parts["adam"] = table["split"].get("optim.adam", {}).get(
+        "CPU", {}).get("device_ms", 0.0)
+    parts["elementwise_and_rest"] = table["device_busy_ms"] - sum(
+        parts.values())
+    return parts
+
+
 def _print_table(name: str, r: dict):
     print(f"{name}: wall {r['wall_ms']:.3f} ms, device busy "
           f"{r['device_busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%)")
@@ -491,6 +607,11 @@ def main(argv=None):
     ap.add_argument("--recsys-train", action="store_true",
                     help="profile one DLRM-RM2 and one BERT4Rec train step "
                          "(B=65,536)")
+    ap.add_argument("--gnn", action="store_true",
+                    help="profile one DimeNet train step")
+    ap.add_argument("--gnn-shape", default="minibatch_lg",
+                    choices=("molecule", "full_graph_sm", "minibatch_lg"),
+                    help="the DimeNet cell --gnn profiles")
     ap.add_argument("--recall-repeat", action="store_true",
                     help="run only the recall-repeat study")
     ap.add_argument("--vectors-out", default="chiprun_out/recall_vectors.npz")
@@ -540,6 +661,17 @@ def main(argv=None):
             _print_table(f"{cfg.name} train step", report[cfg.name])
             torch.cuda.empty_cache()
         _write(args.out or "chiprun_out/profile_recsys_train.json", report)
+        print(card)
+        return report
+    if args.gnn:
+        report = {"card": card,
+                  "train_step": profile_gnn(dev, args.gnn_shape)}
+        _write(args.out or f"chiprun_out/profile_gnn_{args.gnn_shape}.json",
+               report)
+        _print_table(f"dimenet {args.gnn_shape} train step",
+                     report["train_step"])
+        print("step by part (device ms): "
+              + json.dumps(report["train_step"]["breakdown_ms"]))
         print(card)
         return report
     _, log, store, lcfg = make_loader(PROD, n_news=args.news, seed=0)

@@ -4,6 +4,11 @@ corpus helpers the launchers share.
   python -m repro_torch.launch.train --steps 200 [--seed 0] [--device cuda]
       [--ckpt-dir ckpt --ckpt-every 50] [--max-restarts 2]
       [--chaos-crash-at STEP] [--metrics-out metrics.jsonl]
+  python -m repro_torch.launch.train --arch dimenet [--device cpu]
+
+``--arch`` names an architecture of the registry (``configs.get_arch``;
+``speedyfeed`` by default). Any other name runs that arch's reduced-config
+smoke train on the device and prints its metrics.
 
 ``train_speedyfeed`` runs the registry's ``"speedyfeed"`` Trainer over the
 DynamicBatcher (two loader threads, work stealing) on a synthetic
@@ -19,7 +24,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch import core, data, obs, training
+from repro_torch import configs, core, data, obs, training
 from repro_torch.device import check_device
 from repro_torch.resilience import FaultPlan, faults, fit_supervised
 
@@ -105,6 +110,9 @@ def train_speedyfeed(*, steps: int, ckpt_dir: str | None = None,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="speedyfeed",
+                    help="architecture id (configs.list_archs()); any "
+                         "other than speedyfeed runs its reduced smoke")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -127,6 +135,12 @@ def main(argv=None):
                          "the restarted attempt runs through); pair with "
                          "--max-restarts to smoke-test auto-resume")
     args = ap.parse_args(argv)
+    if args.arch != "speedyfeed":
+        arch = configs.get_arch(args.arch)
+        print(f"running reduced-config smoke train for {args.arch}")
+        metrics = arch.smoke(device=args.device)
+        print(metrics)
+        return metrics
     obs.reset()      # this run's registry export is exactly this run
     if args.metrics_out:
         obs.configure_reporter(path=args.metrics_out,

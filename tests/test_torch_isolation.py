@@ -43,7 +43,11 @@ def test_the_walk_covers_the_package():
             "supervise.py", "registry.py", "span.py", "export.py",
             "_default.py", "base.py", "state.py", "bridge.py", "news.py",
             "tables.py", "scheduler.py", "loadgen.py", "tune.py",
-            "online.py", "service.py"} <= names
+            "online.py", "service.py", "graph.py", "dimenet.py",
+            "gnn_family.py"} <= names
+    # the registry: configs/__init__.py beside base.py's Cell and Arch
+    assert ROOT / "src" / "repro_torch" / "configs" / "__init__.py" in \
+        PORT_FILES
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "embedding_bag.cu").is_file()
     # both embedding_bag.py files: the kernel's module and nn's plain one
@@ -129,3 +133,35 @@ def test_recsys_entry_points_default_device_raises_without_a_gpu():
                                        device="cpu", **b4r)[
         "tokens"].device.type == "cpu"
     assert callable(recsys_family.make_fn(cfg, "serve", device="cpu"))
+
+
+def test_gnn_entry_points_default_device_raises_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch.configs import gnn_family
+    from repro_torch.data import graph
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.random_molecule_batch(rng, n_graphs=2, nodes_per_graph=4,
+                                    t_cap=8)
+    src, dst = graph.random_graph(rng, 20, 60)
+    g = graph.CSRGraph(20, src, dst)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.padded_subgraph_batch(
+            g, np.zeros((20, 3), np.float32), np.zeros(20, np.int64),
+            np.arange(2), (2,), n_cap=8, e_cap=8, t_cap=8, rng=rng)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn_family.train_batch("molecule", rng)
+    b = graph.random_molecule_batch(rng, n_graphs=2, nodes_per_graph=4,
+                                    t_cap=8, device="cpu")
+    assert b["pos"].device.type == "cpu"
+
+
+def test_registry_smokes_and_arch_launcher_default_device_raise_without_a_gpu():
+    _require_no_gpu()
+    from repro_torch import configs
+    from repro_torch.launch import train
+    for name in configs.ASSIGNED + ["speedyfeed"]:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            configs.get_arch(name).smoke()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "dimenet"])
