@@ -62,6 +62,22 @@ Phases, each of which exits non-zero on failure:
               miss it; the holds go into the ``kernels`` line as
               ``registry_shapes``, their launches under
               ``check_launches``.
+  1d. roofline the dry-run (``launch/dryrun.py``) of every registry cell:
+              each non-skipped cell of the eleven archs counted on meta
+              tensors on the host (FLOPs by dtype, bytes, peak live
+              bytes, against the H100's peaks, TF32 off), with no kernel
+              counter moving; each that fits one card and has a batch
+              builder at its own shape (``Cell.concrete_args``: at least
+              ROOFLINE_MUST) measured on the card, one warm-up and 3
+              synchronised steps: ``measured_s``, ``achieved``
+              (``step_time_lb`` over it) and ``mfu``. A measured step may
+              beat neither its counted compute term nor its floor by more
+              than ROOFLINE_SLACK (a count that does, is wrong); the CTR
+              cells must launch the EmbeddingBag (and, to train, its
+              backward), the others no kernel, and the ``kernels`` line
+              adds those launches under ``launches_by_path["roofline"]``,
+              by cell. One line a cell; every record, its op-class
+              breakdown included, in ``chiprun_out/roofline.jsonl``.
   2. slice    the serve path at full width: the production PLM (12
               layers, d 768, 12 heads, d_ff 3072, vocab 30720, K=3, S=32,
               news_dim 768, random weights from a seeded generator) over a
@@ -382,9 +398,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
-F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12         # bf16 on the tensor cores, dense
 N_NEWS = 16384
 N_REQUESTS = 128
 BATCH = 16
@@ -446,8 +459,6 @@ HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
 TF32_LIB, TF32_MMA = "flash_attention_tf32", "F32.TF32"
 PQ_LIB, PQ_SASS = "pq_scoring", ("LDG.E.128", "STG.E.128", "LDS")
 EBAG_LIB = "embedding_bag"      # the EmbeddingBag forward and backward
-# TF32 on the tensor cores, dense; 3xTF32 takes three products an f32 one
-TF32_FLOP_PER_S = 495e12
 # the SIMT forward's own checks, at shapes still on its route: f32 at head
 # dim 96 (timed) and bf16 at head dim 80
 SIMT_CHECKS = (("float32_d96", "float32", 96), ("bfloat16_d80", "bfloat16",
@@ -554,6 +565,15 @@ ROW_COUNTERS = {
                                   "flash_attention_bwd_dkv_wgmma"),
     "flash_attention_bwd": ("flash_attention_bwd_dq",
                             "flash_attention_bwd_dkv")}
+# the roofline phase: the cells it must measure (each fits one card and
+# has a batch builder in the port at its own shape), and how far a
+# measured step may beat its counted floor: by no more than timing noise
+ROOFLINE_MUST = ("dimenet/molecule", "dimenet/full_graph_sm",
+                 "dimenet/minibatch_lg", "dlrm-rm2/serve_p99",
+                 "dlrm-rm2/train_batch", "wide-deep/serve_p99",
+                 "wide-deep/train_batch", "dcn-v2/serve_p99",
+                 "dcn-v2/train_batch")
+ROOFLINE_SLACK = 1.05
 RS_TRAIN_TIMED, TOL_RS_TRAIN_GRAD = 3, 1e-5
 TOL_EBAG_BWD, EBAG_BF16_RTOL = 1e-5, 2.0 ** -7
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
@@ -593,11 +613,28 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float,
-             flop_per_s: float = F32_FLOP_PER_S):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flop_per_s
+def bound_ms(work: dict, flop_per_s: float | None = None,
+             products: int = 1):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for a kernel's ``work`` (its module's ``work()``): its bytes at the
+    HBM rate or its FLOPs at ``flop_per_s`` (the f32 rate by default),
+    whichever is longer, the rates ``launch/roofline.py``'s; ``products``
+    products for each of the work's (3xTF32 takes three TF32 products an
+    f32 one)."""
+    from repro_torch.launch import roofline as rl
+    rate = rl.F32_FLOP_PER_S if flop_per_s is None else flop_per_s
+    t_bytes = work["bytes"] / rl.HBM_BYTES_PER_S
+    t_ops = products * work["flops"] / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_work(q, k, backward: bool = False) -> dict:
+    """``kernels/flash_attention.py:work`` of a causal call on q, k."""
+    from repro_torch.kernels.flash_attention import work
+    B, Sq, Hq, D = q.shape
+    return work(B, Sq, k.shape[1], Hq, k.shape[2], D, q.dtype, True,
+                backward)
 
 
 def nbytes(*tensors) -> int:
@@ -913,6 +950,7 @@ def pq_shape_row(torch, ops, lut, codes, valid, iters: int,
     [M K, B] table (offsets built outside the timing)."""
     from repro_torch.kernels.pq_scoring import (ROUTES, pq_lut_scores_cuda,
                                                 pq_lut_scores_plain)
+    from repro_torch.kernels.pq_scoring import work as pq_work
     B, M, K = lut.shape
     past = codes.clone()
     past[..., ::997, M // 2] = K if K < 256 else 0
@@ -949,10 +987,9 @@ def pq_shape_row(torch, ops, lut, codes, valid, iters: int,
                             if r == "pq_lut_scores_general") / 2
     row["plain_ms"] = time_ms(torch, lambda: pq_lut_scores_plain(
         lut, codes, valid), iters=plain_iters, warmup=1)
-    out_bytes = 4 * B * codes.shape[1]
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(lut, codes) + out_bytes
-        + (nbytes(valid) if valid is not None else 0), B * codes.shape[1] * M)
+    row["bound_ms"], row["bound_by"] = bound_ms(pq_work(
+        B, M, K, codes.shape[1], codes.shape[0], codes.element_size(),
+        0 if valid is None else valid.shape[0]))
     row["library_ms"] = None
     if codes.shape[0] == 1 and valid is None:
         idx = (codes[0].long() + K * torch.arange(M, device=codes.device))
@@ -985,14 +1022,13 @@ def bus_fwd_row(torch, q, k, v, kv_mask, iters: int = 20) -> dict:
     """The bus forward on q/k/v/mask (``bus_fwd_checks``); its time beside
     plain's, its bound and one SDPA call (additive -1e30 mask)."""
     from repro_torch.kernels.bus_attention import (bus_attention_cuda,
-                                                   bus_attention_plain)
+                                                   bus_attention_plain, work)
     M, K, S, H, D = q.shape
     Sk = k.shape[2]
     row = bus_fwd_checks(torch, q, k, v, kv_mask)
     qs, ks, vs, add = bus_sdpa_inputs(torch, q, k, v, kv_mask)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b_ms, b_by = bound_ms(nbytes(q, k, v, kv_mask, q),
-                          2 * 2 * M * K * H * S * Sk * D)
+    b_ms, b_by = bound_ms(work(M, K, S, Sk, H, D, q.dtype))
     return {**row,
             "ms": time_ms(torch, lambda: bus_attention_cuda(q, k, v,
                                                             kv_mask), iters),
@@ -1009,7 +1045,8 @@ def bus_bwd_row(torch, q, k, v, kv_mask, do, iters: int = 10) -> dict:
     beside plain's, its bound and SDPA's backward alone on the same data
     (additive -1e30 mask)."""
     from repro_torch.kernels.bus_attention import (bus_attention_bwd_cuda,
-                                                   bus_attention_bwd_plain)
+                                                   bus_attention_bwd_plain,
+                                                   work)
     M, K, S, H, D = q.shape
     Sk = k.shape[2]
     row = bus_bwd_checks(torch, q, k, v, kv_mask, do)
@@ -1017,8 +1054,7 @@ def bus_bwd_row(torch, q, k, v, kv_mask, do, iters: int = 10) -> dict:
     dos = do.permute(0, 1, 3, 2, 4).reshape(M * K, H, S, D).contiguous()
     o_sdpa = torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=add)
-    b_ms, b_by = bound_ms(nbytes(q, k, v, kv_mask, do) + nbytes(q, k, v),
-                          5 * 2 * M * K * H * S * Sk * D)
+    b_ms, b_by = bound_ms(work(M, K, S, Sk, H, D, q.dtype, backward=True))
     return {**row,
             "ms": time_ms(torch, lambda: bus_attention_bwd_cuda(
                 q, k, v, kv_mask, do), iters),
@@ -1063,12 +1099,6 @@ def distinct_rows(idx, V: int) -> int:
     return int(i.remainder(V).unique().numel())
 
 
-def gathered_bytes(idx, V: int, row_bytes: int) -> int:
-    """Bytes an EmbeddingBag call must gather: each distinct in-range row
-    once, a row below 32 B costing one 32 B sector."""
-    return distinct_rows(idx, V) * max(row_bytes, 32)
-
-
 def recsys_phase(torch, np, dev):
     """The recsys family's serving path at full width (see the module
     docstring, phase 11). Returns (report, the embedding_bag kernel row).
@@ -1080,6 +1110,7 @@ def recsys_phase(torch, np, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                    embedding_bag_plain)
+    from repro_torch.kernels.embedding_bag import work as ebag_work
     from repro_torch.models.recsys import bert4rec, common, ctr
 
     rep = {"tol_logits_rel": TOL_RS_LOGITS, "tol_bulk_lookup": TOL_RS_BULK}
@@ -1223,9 +1254,8 @@ def recsys_phase(torch, np, dev):
             Bk, Fk, nnz = idx.shape
             flat_idx, flat_w = idx.view(Bk * Fk, nnz), w.view(Bk * Fk, nnz)
             lib = torch.nn.functional.embedding_bag
-            b_ms, b_by = bound_ms(
-                gathered_bytes(idx, V, d * table.element_size())
-                + nbytes(idx, w, out), 2 * Bk * Fk * nnz * d)
+            b_ms, b_by = bound_ms(ebag_work(V, d, Bk, Fk, nnz, table.dtype,
+                                            True, distinct_rows(idx, V)))
             row = {
                 "name": "embedding_bag", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -2060,6 +2090,7 @@ def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
     from repro_torch.data import recsys_synth
     from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
                                                    embedding_bag_bwd_plain)
+    from repro_torch.kernels.embedding_bag import bwd_work as ebag_bwd_work
     from repro_torch.models.recsys import common
 
     B = rf.RS_SHAPES["train_batch"]["batch"]
@@ -2153,7 +2184,7 @@ def ebag_bwd_checks(torch, np, dev, rng, ptxas) -> dict:
         "index_slots": idx.numel(), "distinct_rows": distinct_rows(idx, V),
         "checks": checks, "ptxas": ptxas}
     row["bound_ms"], row["bound_by"] = bound_ms(
-        nbytes(dout, idx, w) + V * d * 4, 2 * idx.numel() * d)
+        ebag_bwd_work(V, d, Bk, Fk, nnz, dout.dtype, True))
     del src
     # F.embedding_bag's backward alone (its graph kept), as a second yardstick
     table = torch.zeros(V, d, device=dev, requires_grad=True)
@@ -3330,6 +3361,86 @@ def registry_phase(torch, dev, ops):
     return rep, launches, holds
 
 
+ROOFLINE_KEYS = ("flops_per_chip", "flops_by_dtype", "bytes_per_chip",
+                 "quad_bytes", "peak_memory_per_chip", "fits_one_card",
+                 "bottleneck", "t_compute", "t_memory", "t_memory_flash",
+                 "step_time_lb", "useful_flops_fraction", "mfu_upper_bound",
+                 "t_count_s", "measured_s", "achieved", "mfu",
+                 "max_memory_allocated", "allocated_before", "args_build_s")
+
+
+def roofline_phase(torch, dev, ops):
+    """The dry-run on the card (see the module docstring, phase 1d).
+    Returns (report, launches by measured cell)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    rep, launches = {"cells": {}}, {}
+    out = ROOT / "chiprun_out" / "roofline.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text("")
+    count_s = 0.0
+    for name in configs.list_archs():
+        arch = configs.get_arch(name)
+        for shape, cell in arch.cells.items():
+            key = f"{name}/{shape}"
+            if cell.skip:
+                rec = {"arch": name, "shape": shape, "status": "skip",
+                       "reason": cell.skip}
+                summary = {"status": "skip"}
+            else:
+                ops.reset_launch_counts()
+                try:
+                    rec = dryrun.run_cell(cell, verbose=False)
+                except Exception as e:          # reported, then fatal
+                    fail(f"roofline {key}: does not count on meta: "
+                         f"{type(e).__name__}: {e}")
+                count_s += rec["t_count_s"]
+                went = {k: n for k, n in ops.launch_counts().items() if n}
+                check(not went, f"roofline {key}: counting launched {went}")
+                if dryrun.measures(cell, rec):
+                    rec.update(dryrun.measure_cell(cell, rec, device=dev))
+                    went = {k: n for k, n in ops.launch_counts().items()
+                            if n}
+                    rec["launches"] = launches[key] = went
+                    ctr = arch.family == "recsys" and name != "bert4rec"
+                    want = ({"embedding_bag"} | ({"embedding_bag_bwd"}
+                                                 if cell.kind == "train"
+                                                 else set())) if ctr else set()
+                    check(set(went) == want, f"roofline {key}: launched "
+                          f"{went}, expected {sorted(want)}")
+                    # step_time_lb is the largest term, so this holds
+                    # t_compute too
+                    check(rec["step_time_lb"]
+                          <= ROOFLINE_SLACK * rec["measured_s"],
+                          f"roofline {key}: measured {rec['measured_s']} s "
+                          f"beats the counted floor (step_time_lb "
+                          f"{rec['step_time_lb']} s, compute "
+                          f"{rec['t_compute']} s): the count is wrong")
+                summary = {k: rec[k] for k in ROOFLINE_KEYS if k in rec}
+                if "launches" in rec:
+                    summary["launches"] = rec["launches"]
+            rep["cells"][key] = summary
+            with out.open("a") as f:
+                f.write(json.dumps(rec) + "\n")
+            print(f"roofline {key}: " + json.dumps(summary), flush=True)
+    measured = sorted(k for k, r in rep["cells"].items()
+                      if "measured_s" in r)
+    check(set(ROOFLINE_MUST) <= set(measured), f"roofline: measured "
+          f"{measured}, not every one of {ROOFLINE_MUST}")
+    went = set().union(*launches.values())
+    check({"embedding_bag", "embedding_bag_bwd"} <= went,
+          f"roofline: the measured cells launched {sorted(went)}")
+    rep.update(measured=measured, count_s=count_s,
+               tf32=torch.backends.cuda.matmul.allow_tf32,
+               seconds=time.perf_counter() - t_phase)
+    print(f"roofline: {len(rep['cells'])} cells, {len(measured)} measured; "
+          f"counting {count_s:.1f} s; phase {rep['seconds']:.1f} s",
+          flush=True)
+    return rep, launches
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -3356,6 +3467,7 @@ def main() -> int:
         flash_attention_bwd_plain, flash_attention_cuda,
         flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
+    from repro_torch.launch import roofline as rl
     from repro_torch.launch import tables
     from repro_torch.launch.profile import pq_distortion
     from repro_torch import obs
@@ -3461,6 +3573,9 @@ def main() -> int:
     # --------------------------------------------------------- registry
     report["registry"], registry_launches, registry_holds = registry_phase(
         torch, dev, ops)
+    # --------------------------------------------------------- roofline
+    report["roofline"], roofline_launches = roofline_phase(torch, dev, ops)
+    gc_collect(torch)
 
     # ------------------------------------------------------------ slice
     cfg = PROD
@@ -4172,9 +4287,6 @@ def main() -> int:
         return time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
                        **kw)
 
-    def fwd_flop(B, Sq, D=Dh):
-        return 4 * D * Hq * B * Sq * (Sq + 1) // 2    # 4 D a visible pair
-
     flash_err = {}
     for label, Sq, dtype in (("float32", FLASH_CHECK_SEQ, torch.float32),
                              ("bfloat16", FLASH_CHECK_SEQ, bf16),
@@ -4202,12 +4314,11 @@ def main() -> int:
                     torch, lambda: flash_attention_fwd_plain(q, k, v, True),
                     iters=3, warmup=1),
                 "library_ms": sdpa_fwd_ms(q, k, v, iters=10, warmup=2)}
+            w = flash_work(q, k)
             tf32["bound_ms"], tf32["bound_by"] = bound_ms(
-                nbytes(q, k, v, o, lse), 3 * fwd_flop(1, Sq),
-                TF32_FLOP_PER_S)
-            tf32["bound_f32_cuda_cores_ms"] = bound_ms(
-                nbytes(q, k, v, o, lse), fwd_flop(1, Sq))[0]
-            tf32["tflop_per_s"] = fwd_flop(1, Sq) / tf32["ms"] / 1e9
+                w, rl.TF32_FLOP_PER_S, products=3)
+            tf32["bound_f32_cuda_cores_ms"] = bound_ms(w)[0]
+            tf32["tflop_per_s"] = w["flops"] / tf32["ms"] / 1e9
         if label == "bfloat16":
             plain_ms = time_ms(
                 torch, lambda: flash_attention_fwd_plain(q, k, v, True),
@@ -4234,10 +4345,9 @@ def main() -> int:
                 "library_ms": sdpa_fwd_ms(q, k, v, iters=3, warmup=1),
                 "shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, D],
                 "dtype": dt}
-            simt["bound_ms"], simt["bound_by"] = bound_ms(
-                nbytes(q, k, v, o, lse), fwd_flop(1, FLASH_CHECK_SEQ, D))
-            simt["tflop_per_s"] = (fwd_flop(1, FLASH_CHECK_SEQ, D)
-                                   / simt["ms"] / 1e9)
+            w = flash_work(q, k)
+            simt["bound_ms"], simt["bound_by"] = bound_ms(w)
+            simt["tflop_per_s"] = w["flops"] / simt["ms"] / 1e9
         del q, k, v, o, lse
     simt_check_launches = ops.launch_counts()["flash_attention"]
     S, R = LM_PREFILL_SEQ, FLASH_ROWS
@@ -4253,8 +4363,8 @@ def main() -> int:
     flash_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, True),
                        iters=10, warmup=2)
     sdpa_ms = sdpa_fwd_ms(q, k, v, iters=5, warmup=2)
-    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse), fwd_flop(1, S),
-                          BF16_FLOP_PER_S)
+    prefill_work = flash_work(q, k)
+    b_ms, b_by = bound_ms(prefill_work, rl.BF16_FLOP_PER_S)
     del q, k, v, o, lse
     # the lm-moe prefills' own launches: DBRX's global layers at 48/8
     # heads over S=32,768, and Scout's chunked-local ones, the route's
@@ -4279,15 +4389,15 @@ def main() -> int:
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (qc, kc, vc))
         m_ms = time_ms(torch, lambda: flash_attention_cuda(qc, kc, vc, True),
                        iters=10, warmup=2)
-        flop = 4 * Dh * Hm * (S // c) * c * (c + 1) // 2
+        w = flash_work(qc, kc)
         moe_shapes[label] = {
             "ms": m_ms, "library_ms": time_ms(
                 torch, lambda: sdpa(qs, ks, vs, is_causal=True,
                                     enable_gqa=True), iters=5, warmup=2),
             "shape": [S // c, c, c, Hm, Hkv, Dh], "dtype": "bfloat16",
-            "tflop_per_s": flop / m_ms / 1e9}
+            "tflop_per_s": w["flops"] / m_ms / 1e9}
         moe_shapes[label]["bound_ms"], moe_shapes[label]["bound_by"] = \
-            bound_ms(nbytes(q, k, v, o, lse), flop, BF16_FLOP_PER_S)
+            bound_ms(w, rl.BF16_FLOP_PER_S)
         del q, k, v, qc, kc, vc, o, lse, qs, ks, vs
     report["lm_moe"]["flash_shapes"] = moe_shapes
     print("lm-moe flash shapes: " + json.dumps(moe_shapes), flush=True)
@@ -4375,7 +4485,7 @@ def main() -> int:
         "ms": flash_ms, "plain_ms": plain_ms,
         "plain_shape": [1, FLASH_CHECK_SEQ, FLASH_CHECK_SEQ, Hq, Hkv, Dh],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa_ms,
-        "tflop_per_s": fwd_flop(1, S) / flash_ms / 1e9,
+        "tflop_per_s": prefill_work["flops"] / flash_ms / 1e9,
         "shape": [1, S, S, Hq, Hkv, Dh], "dtype": "bfloat16",
         "causal": True, "lm_moe_shapes": moe_shapes,
         **report["hopper"]["flash_attention_wgmma"]})
@@ -4392,7 +4502,6 @@ def main() -> int:
     # beside plain and SDPA's causal GQA backward in the same dtype
     Bt, St = lm_family.ONE_CARD_TRAIN["batch"], \
         lm_family.LM_SHAPES["train_4k"]["seq"]
-    pairs_t = Bt * Hq * St * (St + 1) // 2
     bwd = {}
     for dtype in (torch.float32, bf16):
         name = str(dtype)[6:]
@@ -4435,12 +4544,12 @@ def main() -> int:
              "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                  o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=5,
                  warmup=2)}
-        # the function's five products, 10 D FLOP a visible pair, at the
-        # dtype's rate: bf16 on the tensor cores, f32 outside them
+        # the function's five products at the dtype's rate: bf16 on the
+        # tensor cores, f32 outside them
+        w = flash_work(q, k, backward=True)
         r["bound_ms"], r["bound_by"] = bound_ms(
-            nbytes(q, k, v, o, lse, do) + nbytes(q, k, v), 10 * Dh * pairs_t,
-            BF16_FLOP_PER_S if dtype == bf16 else F32_FLOP_PER_S)
-        r["tflop_per_s"] = 10 * Dh * pairs_t / r["ms"] / 1e9
+            w, rl.BF16_FLOP_PER_S if dtype == bf16 else None)
+        r["tflop_per_s"] = w["flops"] / r["ms"] / 1e9
         bwd[name] = r
         del qs, ks, vs, dos, o_sdpa
         if dtype != bf16:
@@ -4501,9 +4610,9 @@ def main() -> int:
                         iters=10, warmup=2),
           "library_ms": sdpa_fwd_ms(q, k, v, iters=10, warmup=2),
           "shape": [Bt, St, St, Hq, Hkv, Dh]}
-    tr["bound_ms"], tr["bound_by"] = bound_ms(
-        nbytes(q, k, v, o, lse), fwd_flop(Bt, St), BF16_FLOP_PER_S)
-    tr["tflop_per_s"] = fwd_flop(Bt, St) / tr["ms"] / 1e9
+    w = flash_work(q, k)
+    tr["bound_ms"], tr["bound_by"] = bound_ms(w, rl.BF16_FLOP_PER_S)
+    tr["tflop_per_s"] = w["flops"] / tr["ms"] / 1e9
     flash_row["train_shape"] = tr
     lt["flash_fwd_ms_per_step"] = 2 * layers_t * tr["ms"]
     lt["flash_fwd_share_of_step"] = (2 * layers_t * tr["ms"] / 1e3
@@ -4555,6 +4664,12 @@ def main() -> int:
                 h["launches"].get(sym, 0) for h in mine for sym in syms)
             row["max_abs_err"] = max(row["max_abs_err"],
                                      *(h["max_abs_err"] for h in mine))
+        # and the roofline phase's measured cells', by cell
+        by_cell = {c: sum(n.get(sym, 0) for sym in syms)
+                   for c, n in roofline_launches.items()}
+        by_cell = {c: n for c, n in by_cell.items() if n}
+        row["launches_by_path"]["roofline"] = by_cell
+        row["launches"] += sum(by_cell.values())
 
     report["kernels"] = kernels
     report["card"] = card

@@ -5,11 +5,18 @@ finiteness check the smokes run (``assert_finite``), and
 JAX package's ``configs/base.py``).
 
 A Cell packages one (arch, shape): its kind (train | prefill | decode |
-serve | retrieval), ``make_fn()`` returning the step function (the JAX
-cell's with no mesh), a documented ``skip`` and ``meta`` (the JAX cell's
-``model_flops``, and what else it carries). The XLA dry-run and mesh
-machinery of the JAX cells (``abstract_args``, ``activation_specs``,
-``sds``, ``shard_abstract``) has no counterpart yet.
+serve | retrieval), ``make_fn(device=)`` returning the step function (the
+JAX cell's ``make_fn(mesh)`` with no mesh), a documented ``skip``,
+``meta`` (the JAX cell's ``model_flops``, and what else it carries),
+``abstract_args()``, the
+step's arguments at the cell's own shape as meta tensors (the JAX cell's
+``abstract_args(None)``: ``meta`` is the counterpart of ``sds``,
+``abstract_params`` and ``abstract_opt`` of theirs), which the dry-run
+(``launch/dryrun.py``) counts without allocating, and, where the port
+has a batch builder at the cell's shape, ``concrete_args(device)``,
+which it measures. The mesh half of the JAX cells
+(``activation_specs``, ``shard_abstract``) waits for the multi-card
+port.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ import warnings
 from typing import Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import obs
-from repro_torch.optim.adam import leaves
+from repro_torch.optim.adam import adam_init, leaves, tree_map
+
+I32, F32, BF16 = torch.int32, torch.float32, torch.bfloat16
 
 
 @dataclasses.dataclass
@@ -29,9 +39,17 @@ class Cell:
     arch: str
     shape: str
     kind: str
-    make_fn: Callable          # (**device options) -> step fn
+    # (device="cuda") -> step fn: a step that moves its batch itself (the
+    # recsys family's) moves it to device; the others run where their
+    # arguments are
+    make_fn: Callable
     skip: Optional[str] = None
     meta: dict = dataclasses.field(default_factory=dict)
+    # () -> the step's arguments at the cell's shape, tensors on meta
+    abstract_args: Optional[Callable] = None
+    # (device) -> real arguments at the cell's shape, drawn from seed 0 on
+    # device; None where the port has no batch builder for it
+    concrete_args: Optional[Callable] = None
 
     @property
     def key(self) -> str:
@@ -46,6 +64,34 @@ class Arch:
     cells: dict
     smoke: Callable            # (device="cuda") -> metrics dict (reduced)
     notes: str = ""
+
+
+def meta(shape, dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` with no storage (the JAX
+    package's ``sds`` with no mesh)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_params(init_fn, dtype=None):
+    """The parameters ``init_fn(generator)`` builds, as meta tensors,
+    allocating nothing: the init runs under ``FakeTensorMode`` (its draws
+    and fills make no storage), then each leaf becomes ``meta`` of its
+    shape and dtype. ``dtype`` casts every floating leaf, as a JAX init's
+    ``param_dtype`` does."""
+    with FakeTensorMode():
+        fake = init_fn(torch.Generator().manual_seed(0))
+
+    def to_meta(t):
+        if dtype is not None and t.is_floating_point():
+            return meta(t.shape, dtype)
+        return meta(t.shape, t.dtype)
+
+    return tree_map(to_meta, fake)
+
+
+def abstract_opt(params):
+    """``optim.adam_init`` of meta ``params``: meta moments and count."""
+    return adam_init(params)
 
 
 def assert_finite(tree, what=""):

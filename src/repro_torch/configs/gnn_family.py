@@ -8,12 +8,15 @@ explicit triplet cap T: the host fills up to T, and extra triplets are
 subsampled.
 
 ``make_fn(cfg, "train")`` is the JAX cell's step with no mesh;
-``train_batch`` builds a concrete batch at a cell's caps. ogb_products
-does not fit one card (``OGB_PRODUCTS_REFUSAL``).
+``train_batch`` builds a concrete batch at a cell's caps. Every cell has
+``abstract_args`` (the JAX cell's ``_batch_abs``, ogb_products's too:
+meta needs no triplet build) and, but ogb_products, ``concrete_args``.
+ogb_products does not fit one card (``OGB_PRODUCTS_REFUSAL``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -25,7 +28,8 @@ from repro_torch.data.graph import (CSRGraph, build_triplets,
 from repro_torch.device import check_device
 from repro_torch.models.gnn import dimenet
 
-from .base import Arch, Cell, assert_finite
+from .base import (F32, I32, Arch, Cell, abstract_opt, abstract_params,
+                   assert_finite, meta)
 
 
 def _pad512(x: int) -> int:
@@ -68,8 +72,8 @@ OGB_PRODUCTS_REFUSAL = (
     "ogb_products does not fit one 80 GB card: a single [E, 128] f32 "
     "activation over its 61,859,140 edges is 31.7 GB, a training step keeps "
     "several for each of its 6 blocks, and the host's triplet build walks "
-    "61.9M edges; it waits for the multi-card port (ROADMAP.md Queue 1 "
-    "item 4)")
+    "61.9M edges; it waits for the multi-card port (ROADMAP.md Queue 1, "
+    "multi-GPU); launch/dryrun.py counts it on meta")
 
 
 def _cfg_for(shp) -> dimenet.DimeNetConfig:
@@ -91,6 +95,43 @@ def _gnn_flops(cfg, shp):
     e, t = shp["e"], shp["t"]
     per_block = 2 * e * d * d * 4 + 2 * t * nsbf * d * nb + 2 * t * nsbf * nsbf
     return 3 * cfg.n_blocks * per_block     # train = fwd + bwd
+
+
+def _batch_abs(shp) -> dict:
+    """The JAX cell's batch on meta: node arrays of n, edge arrays of e,
+    triplet arrays of t (e and t padded to /512), and the graph-level
+    (z, graph_id, targets) or node-level (feat, labels, label_mask)
+    fields."""
+    n, e, t = shp["n"], shp["e"], shp["t"]
+    b = {"pos": meta((n, 3), F32),
+         "edge_src": meta((e,), I32), "edge_dst": meta((e,), I32),
+         "edge_mask": meta((e,), torch.bool),
+         "trip_kj": meta((t,), I32), "trip_ji": meta((t,), I32),
+         "trip_mask": meta((t,), torch.bool)}
+    if shp.get("graph_level"):
+        b.update(z=meta((n,), I32), graph_id=meta((n,), I32),
+                 targets=meta((shp["n_graphs"],), F32))
+    else:
+        b.update(feat=meta((n, shp["d_feat"]), F32), labels=meta((n,), I32),
+                 label_mask=meta((n,), torch.bool))
+    return b
+
+
+def _abstract_args(shape: str):
+    """The cell's (parameters, Adam state, batch) on meta."""
+    params = abstract_params(
+        lambda g: dimenet.init(g, cell_config(shape)))
+    return (params, abstract_opt(params), _batch_abs(GNN_SHAPES[shape]))
+
+
+def _concrete_args(shape: str, device):
+    """The cell's (parameters, Adam state, ``train_batch``) on ``device``:
+    parameters from a generator seeded with 0, the batch from a numpy
+    generator of 0."""
+    params = dimenet.init(torch.Generator(device=device).manual_seed(0),
+                          cell_config(shape))
+    return (params, optim.adam_init(params),
+            train_batch(shape, np.random.default_rng(0), device=device))
 
 
 def make_fn(cfg: dimenet.DimeNetConfig, kind: str, *, n_graphs: int = 1):
@@ -165,8 +206,12 @@ def _arch() -> Arch:
         ng = shp.get("n_graphs", 1)
         cells[shape] = Cell(
             arch="dimenet", shape=shape, kind="train",
-            make_fn=lambda cfg=cfg, ng=ng: make_fn(cfg, "train", n_graphs=ng),
-            meta={"model_flops": _gnn_flops(cfg, shp)})
+            make_fn=lambda device="cuda", cfg=cfg, ng=ng: make_fn(
+                cfg, "train", n_graphs=ng),
+            meta={"model_flops": _gnn_flops(cfg, shp)},
+            abstract_args=functools.partial(_abstract_args, shape),
+            concrete_args=(functools.partial(_concrete_args, shape)
+                           if shape != "ogb_products" else None))
     return Arch(name="dimenet", family="gnn", config=DIMENET, cells=cells,
                 smoke=_smoke,
                 notes="triplet-gather regime; message passing via "

@@ -7,9 +7,9 @@ the MoE two (DBRX-132B; Llama-4-Scout with its chunked-local iRoPE),
 whose ``moe_impl="ep"`` runs ``nn.moe_gather`` on one card, as the JAX
 package does with no mesh. ``make_fn`` is the counterpart of a JAX
 ``Cell.make_fn`` with no mesh, and ``archs()`` gives the registry's five
-arches (``configs.get_arch``), each with its four cells and the JAX
-package's reduced smoke; the XLA dry-run machinery (``abstract_args``)
-has no counterpart in the port.
+arches (``configs.get_arch``), each with its four cells, their
+``abstract_args`` (the JAX cells' shapes: bf16 parameters, Adam state,
+tokens, the bf16 decode cache) and the JAX package's reduced smoke.
 
 One 80 GB card holds neither MoE config whole (264 and 218 GB of bf16
 weights), so each serves on the card at a cut depth
@@ -28,7 +28,8 @@ from repro_torch import optim
 from repro_torch.device import check_device
 from repro_torch.models import lm
 
-from .base import Arch, Cell, assert_finite
+from .base import (I32, Arch, Cell, abstract_opt, abstract_params,
+                   assert_finite, meta)
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -144,11 +145,32 @@ LONG_500K_SKIP = ("pure full-attention arch: long_500k requires "
                   "sub-quadratic attention (DESIGN.md §5)")
 
 
+def _abstract_args(cfg: lm.LMConfig, shape: str):
+    """The cell's arguments on meta, as the JAX cell's ``_train_args``,
+    ``_prefill_args`` and ``_decode_args`` give them with no mesh: bf16
+    parameters; train: their Adam state and {tokens, labels} [B, S]
+    int32; prefill: tokens [B, S]; decode: a token [B, 1], the bf16 cache
+    of S slots and the index S - 1 (a full cache; the port's decode takes
+    it as an int, and attends over the whole cache, masked, at any)."""
+    shp = LM_SHAPES[shape]
+    B, S = shp["batch"], shp["seq"]
+    params = abstract_params(
+        lambda g: lm.init(g, cfg, param_dtype=torch.bfloat16))
+    if shp["kind"] == "train":
+        return (params, abstract_opt(params),
+                {"tokens": meta((B, S), I32), "labels": meta((B, S), I32)})
+    if shp["kind"] == "prefill":
+        return (params, meta((B, S), I32))
+    cache = lm.init_cache(cfg, B, S, torch.bfloat16, device="meta")
+    return (params, meta((B, 1), I32), cache, S - 1)
+
+
 def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
             notes: str = "") -> Arch:
     """The four LM_SHAPES cells of ``cfg``; long_500k carries a skip for a
     full-attention arch. ``meta``: the JAX cell's ``model_flops``,
-    ``params`` and ``active_params``."""
+    ``params`` and ``active_params``; ``abstract_args``; no
+    ``concrete_args``: no cell fits one card at its own shape."""
     cells = {}
     act = cfg.active_param_count()
     for shape, shp in LM_SHAPES.items():
@@ -163,9 +185,11 @@ def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
                 else None)
         cells[shape] = Cell(
             arch=cfg.name, shape=shape, kind=kind,
-            make_fn=functools.partial(make_fn, cfg, kind), skip=skip,
+            make_fn=lambda device="cuda", cfg=cfg, kind=kind: make_fn(
+                cfg, kind), skip=skip,
             meta={"model_flops": float(mf), "params": cfg.param_count(),
-                  "active_params": act})
+                  "active_params": act},
+            abstract_args=functools.partial(_abstract_args, cfg, shape))
     return Arch(name=cfg.name, family="lm", config=cfg, cells=cells,
                 smoke=functools.partial(_smoke, cfg), notes=notes)
 

@@ -6,23 +6,27 @@ The four configs carry the exact widths of the JAX package's
 ``make_fn`` is the counterpart of a JAX ``Cell.make_fn`` with no mesh,
 for the train, serve and retrieval shapes; ``train`` is fixed to the JAX
 cell's ``RS_OPT``. ``archs()`` gives the registry's four arches
-(``configs.get_arch``), each with its four cells and the JAX package's
-reduced smoke; the XLA dry-run machinery (``abstract_args``) has no
-counterpart in the port.
+(``configs.get_arch``), each with its four cells, their ``abstract_args``
+(the JAX cells' shapes), ``concrete_args`` for the train and serve
+cells (``data/recsys_synth.py``'s batches) and the JAX package's reduced
+smoke.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
+from repro_torch.data import recsys_synth
 from repro_torch.device import check_device
 from repro_torch.models.recsys import bert4rec, ctr
 from repro_torch.models.recsys.common import SparseSpec, criteo_like_vocab
 from repro_torch.optim import AdamConfig, adam_init, make_train_step
 
-from .base import Arch, Cell, assert_finite
+from .base import (F32, I32, Arch, Cell, abstract_opt, abstract_params,
+                   assert_finite, meta)
 
 RS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -187,19 +191,92 @@ def _b4r_flops(cfg: bert4rec.Bert4RecConfig, shp) -> float:
     return float(mf)
 
 
+def _init(cfg):
+    return ctr.init if isinstance(cfg, ctr.CTRConfig) else bert4rec.init
+
+
+def _abstract_batch(cfg, kind: str, B: int) -> dict:
+    """A batch of B on meta with the JAX cell's keys, shapes and dtypes
+    (``_ctr_batch``, ``_b4r_train_batch``): the label only to train."""
+    if isinstance(cfg, ctr.CTRConfig):
+        F, nnz = cfg.sparse.n_fields, cfg.sparse.nnz
+        b = {"sparse_idx": meta((B, F, nnz), I32),
+             "sparse_w": meta((B, F, nnz), F32)}
+        if cfg.n_dense:
+            b["dense"] = meta((B, cfg.n_dense), F32)
+        if kind == "train":
+            b["label"] = meta((B,), F32)
+        return b
+    b = {"tokens": meta((B, cfg.seq_len), I32)}
+    if kind == "train":
+        m = (B, cfg.n_mask)
+        b.update(mask_pos=meta(m, I32), labels=meta(m, I32),
+                 mask_valid=meta(m, torch.bool),
+                 neg=meta((*m, cfg.n_neg), I32))
+    return b
+
+
+def _abstract_args(cfg, shape: str):
+    """The cell's arguments on meta, as the JAX cell's ``args(None)``:
+    parameters (and their Adam state to train) and the batch; retrieval
+    also the 10^6 candidates (CTR: [N, ctr_repr_dim] f32; BERT4Rec: item
+    ids [N] int32)."""
+    shp = RS_SHAPES[shape]
+    kind = shp["kind"]
+    params = abstract_params(functools.partial(_init(cfg), cfg=cfg))
+    batch = _abstract_batch(cfg, kind, shp["batch"])
+    if kind == "train":
+        return (params, abstract_opt(params), batch)
+    if kind == "serve":
+        return (params, batch)
+    cand = (meta((shp["n_cand"], ctr_repr_dim(cfg)), F32)
+            if isinstance(cfg, ctr.CTRConfig) else meta((shp["n_cand"],), I32))
+    return (params, batch, cand)
+
+
+def _concrete_args(cfg, shape: str, device):
+    """The train or serve cell's arguments at its shape on ``device``:
+    parameters from a generator seeded with 0 (their Adam state to train),
+    and ``recsys_synth``'s batch from seed 0 (the label only to train)."""
+    shp = RS_SHAPES[shape]
+    kind, B = shp["kind"], shp["batch"]
+    params = _init(cfg)(torch.Generator(device=device).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    if isinstance(cfg, ctr.CTRConfig):
+        batch = recsys_synth.ctr_batch(
+            rng, batch=B, n_dense=cfg.n_dense,
+            vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+            device=device)
+    else:
+        batch = recsys_synth.bert4rec_batch(
+            rng, batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+            n_mask=cfg.n_mask, n_neg=cfg.n_neg, mask_token=cfg.mask_token,
+            device=device)
+    keys = _abstract_batch(cfg, kind, B)
+    batch = {k: v for k, v in batch.items() if k in keys}
+    if kind == "train":
+        return (params, adam_init(params), batch)
+    return (params, batch)
+
+
 def _arch(cfg, notes: str = "") -> Arch:
     """The four RS_SHAPES cells of ``cfg``; each cell's ``make_fn`` takes
-    ``device`` as ``make_fn`` does."""
+    ``device`` as ``make_fn`` does. The train and serve cells have
+    ``concrete_args``; retrieval has none (its candidates have no builder
+    in the port)."""
     is_ctr = isinstance(cfg, ctr.CTRConfig)
     cells = {}
     for shape, shp in RS_SHAPES.items():
         kind = shp["kind"]
-        meta = ({"model_flops": _ctr_flops(cfg, shp),
-                 "embedding_rows": cfg.sparse.total_rows} if is_ctr
-                else {"model_flops": _b4r_flops(cfg, shp)})
-        cells[shape] = Cell(arch=cfg.name, shape=shape, kind=kind,
-                            make_fn=functools.partial(make_fn, cfg, kind),
-                            meta=meta)
+        cell_meta = ({"model_flops": _ctr_flops(cfg, shp),
+                      "embedding_rows": cfg.sparse.total_rows} if is_ctr
+                     else {"model_flops": _b4r_flops(cfg, shp)})
+        cells[shape] = Cell(
+            arch=cfg.name, shape=shape, kind=kind,
+            make_fn=functools.partial(make_fn, cfg, kind), meta=cell_meta,
+            abstract_args=functools.partial(_abstract_args, cfg, shape),
+            concrete_args=(functools.partial(_concrete_args, cfg, shape)
+                           if kind != "retrieval" else None))
     smoke = _ctr_smoke if is_ctr else _b4r_smoke
     return Arch(name=cfg.name, family="recsys", config=cfg, cells=cells,
                 smoke=functools.partial(smoke, cfg), notes=notes)

@@ -4,8 +4,8 @@
 (``CONV_BATCH``, cut to one card as ``CONV_ONE_CARD``), its train step
 and the ``"speedyfeed_conventional"`` trainer, the baseline of the
 paper's speedup ladder. ``archs()`` gives the registry's ``speedyfeed``
-arch (``configs.get_arch``): the JAX package's three cells and its
-reduced smoke.
+arch (``configs.get_arch``): the JAX package's three cells, their
+``abstract_args`` and its reduced smoke.
 
 UniLMv2-base-scale PLM (12L x 768 x 12H), K=3 segments of 32 tokens,
 user history L=100, news universe 1.2M (Table 2), cache gamma=20 /
@@ -19,7 +19,8 @@ from repro_torch import core, optim, training
 from repro_torch.device import check_device
 from repro_torch.optim.adam import leaves, unflatten
 
-from .base import Arch, Cell, assert_finite
+from .base import (BF16, I32, Arch, Cell, abstract_opt, abstract_params,
+                   assert_finite, meta)
 
 # paper §A.3: lr 8e-6 for the PLM, 1e-4 for everything else
 SF_OPT = optim.AdamConfig(lr=1e-4, grad_clip=1.0,
@@ -125,11 +126,49 @@ def make_conventional_trainer(cfg=None, **kw) -> training.Trainer:
 ENCODE_BULK_NEWS = 65536      # encode_bulk's batch of news
 
 
+def _abstract_args(cfg: core.SpeedyFeedConfig, shape: str):
+    """The cell's arguments on meta at ``cfg``, as the JAX cells give them
+    with no mesh: bf16 parameters (the JAX dry-run's ``param_dtype``);
+    to train, their f32 Adam state, the cold cache, step 0, a seeded
+    generator (the step's draws: a CPU generator draws for meta tensors
+    too) and the batch: Algorithm 1's centralized one (merged_cap news,
+    batch_users x hist_len) or the conventional workflow's at
+    ``CONV_BATCH``; ``encode_bulk``: ENCODE_BULK_NEWS news' tokens and
+    frequencies."""
+    params = abstract_params(lambda g: core.init_speedyfeed(g, cfg),
+                             dtype=BF16)
+    K, S = cfg.plm.n_segments, cfg.plm.seg_len
+    if shape == "encode_bulk":
+        return (params, meta((ENCODE_BULK_NEWS, K, S), I32),
+                meta((ENCODE_BULK_NEWS, K, S), I32))
+    if shape == "train_prod":
+        M, B, L = cfg.merged_cap, cfg.batch_users, cfg.hist_len
+        batch = {"news_tokens": meta((M, K, S), I32),
+                 "news_freq": meta((M, K, S), I32),
+                 "news_ids": meta((M,), I32),
+                 "hist_inv": meta((B, L), I32),
+                 "hist_mask": meta((B, L), torch.bool)}
+    else:
+        B, L, C = CONV_BATCH["users"], CONV_BATCH["hist"], CONV_BATCH["cands"]
+        batch = {"hist_tokens": meta((B, L, K, S), I32),
+                 "hist_freq": meta((B, L, K, S), I32),
+                 "hist_mask": meta((B, L), torch.bool),
+                 "cand_tokens": meta((B, C, K, S), I32),
+                 "cand_freq": meta((B, C, K, S), I32),
+                 "label": meta((B,), I32),
+                 "cand_mask": meta((B, C), torch.bool)}
+    return (params, abstract_opt(params),
+            core.init_cache(cfg.cache, device="meta"), 0,
+            torch.Generator().manual_seed(0), batch)
+
+
 def _arch() -> Arch:
     """The JAX package's three cells at PROD: ``train_prod`` (the
     Algorithm-1 step), ``train_conventional`` (the baseline's step, under
     the TrainState contract) and ``encode_bulk`` (BusLM over 65,536
-    news). ``meta``: the JAX cells' ``model_flops``."""
+    news). ``meta``: the JAX cells' ``model_flops``; ``abstract_args``;
+    no ``concrete_args``: the port's loader builds bucketed batches, not
+    the cells' fixed shapes."""
     cfg = PROD
     n_conv = CONV_BATCH["users"] * (CONV_BATCH["hist"] + CONV_BATCH["cands"])
     enc = torch.no_grad()(
@@ -137,18 +176,22 @@ def _arch() -> Arch:
     cells = {
         "train_prod": Cell(
             arch="speedyfeed", shape="train_prod", kind="train",
-            make_fn=lambda: make_sf_train_step(cfg),
+            make_fn=lambda device="cuda": make_sf_train_step(cfg),
             meta={"model_flops": 3 * core.plm_flops(
-                cfg.plm, cfg.cache.encode_budget)}),
+                cfg.plm, cfg.cache.encode_budget)},
+            abstract_args=lambda: _abstract_args(cfg, "train_prod")),
         "train_conventional": Cell(
             arch="speedyfeed", shape="train_conventional", kind="train",
-            make_fn=lambda: _make_conventional_state_step(cfg),
-            meta={"model_flops": 3 * core.plm_flops(cfg.plm, n_conv)}),
+            make_fn=lambda device="cuda": _make_conventional_state_step(
+                cfg),
+            meta={"model_flops": 3 * core.plm_flops(cfg.plm, n_conv)},
+            abstract_args=lambda: _abstract_args(cfg, "train_conventional")),
         "encode_bulk": Cell(
             arch="speedyfeed", shape="encode_bulk", kind="serve",
-            make_fn=lambda: enc,
+            make_fn=lambda device="cuda": enc,
             meta={"model_flops": core.plm_flops(cfg.plm,
-                                                ENCODE_BULK_NEWS)}),
+                                                ENCODE_BULK_NEWS)},
+            abstract_args=lambda: _abstract_args(cfg, "encode_bulk")),
     }
     return Arch(name="speedyfeed", family="news", config=cfg, cells=cells,
                 smoke=_smoke, notes="the paper's own architecture")

@@ -46,6 +46,14 @@ def find_nvcc() -> str:
                        "cannot be built")
 
 
+def check_meta(t: torch.Tensor):
+    """A kernel's meta route takes meta tensors only: it runs the card's
+    checks and route choice and returns outputs with the card's shapes and
+    dtypes, but launches nothing (``kernels/ops.py``)."""
+    if t.device.type != "meta":
+        raise RuntimeError(f"meta route called on a {t.device} tensor")
+
+
 def check_device(t: torch.Tensor):
     """The kernels are compiled for sm_90a only."""
     if t.device.type != "cuda":

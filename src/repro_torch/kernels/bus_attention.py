@@ -16,6 +16,11 @@ bucket of the SpeedyFeed configs: S in {8, 16, 24, 32}, Sk = S + 3) with
 q/k/v/do on 16-byte-aligned bases; the SIMT kernels
 (``csrc/bus_attention_simt.cu``) take any other shape whose tile fits in
 a block's shared memory. Anything else raises.
+
+``work`` counts what the function must do, whichever kernel does it; the
+meta routes (``bus_attention_meta``, ``bus_attention_bwd_meta``) run the
+card's checks and route choice on meta tensors and return that count
+beside outputs of the card's shapes.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_device
+from ._build import CudaKernel, check_device, check_meta
 
 NEG_INF = -1e30
 
@@ -102,7 +107,6 @@ def simt_smem_bytes(S: int, Sk: int, D: int, backward: bool) -> int:
 
 def _check(q, k, v, kv_mask, *more):
     """Validate what the kernels take; returns (M, K, S, Sk, H, D)."""
-    check_device(q)
     if q.dim() != 5 or k.dim() != 5 or kv_mask.dim() != 3:
         raise ValueError("expected q/k/v [M, K, S|Sk, H, D], mask [M, K, Sk]")
     M, K, S, H, D = q.shape
@@ -143,13 +147,69 @@ def _route(name, S, Sk, D, backward, tensors):
     return ROUTES[name]
 
 
+def work(M: int, K: int, S: int, Sk: int, H: int, D: int, dtype,
+         backward: bool = False) -> dict:
+    """What the forward (or the backward) must do, whichever kernel does
+    it: ``flops``, 2 D for each product of a (query, key) pair, two
+    products forward (q k^T, p v) and five backward (s, dv, dp, dq, dk);
+    their ``dtype``, the inputs'; ``op_class`` ``"matmul"``: the products
+    count as a matmul's do; ``bytes``, each input read once and each
+    output written once: q, k, v and the mask, then o (forward); q, k, v,
+    the mask and dO, then dq, dk and dv (backward)."""
+    e = dtype.itemsize
+    q, kv, mask = M * K * S * H * D * e, M * K * Sk * H * D * e, M * K * Sk
+    pairs = M * K * H * S * Sk
+    if backward:
+        return {"flops": 10.0 * D * pairs, "dtype": str(dtype)[6:],
+                "op_class": "matmul", "bytes": float(3 * q + 4 * kv + mask)}
+    return {"flops": 4.0 * D * pairs, "dtype": str(dtype)[6:],
+            "op_class": "matmul", "bytes": float(2 * q + 2 * kv + mask)}
+
+
+def _forward_plan(q, k, v, kv_mask):
+    """The card's checks and route for a forward, and its output: ((lib,
+    C symbol), route name, dims, o). The card and the meta route share it."""
+    M, K, S, Sk, H, D = _check(q, k, v, kv_mask)
+    name = bus_route(S, Sk, D)[0]
+    lib_sym = _route(name, S, Sk, D, False, (("q", q), ("k", k), ("v", v)))
+    return lib_sym, name, (M, K, S, Sk, H, D), torch.empty_like(q)
+
+
+def _backward_plan(q, k, v, kv_mask, do):
+    """``_forward_plan`` for the backward: ((lib, C symbol), route name,
+    dims, (dq, dk, dv))."""
+    M, K, S, Sk, H, D = _check(q, k, v, kv_mask, ("do", do))
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must be {q.dtype} {tuple(q.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    name = bus_route(S, Sk, D)[1]
+    lib_sym = _route(name, S, Sk, D, True,
+                     (("q", q), ("k", k), ("v", v), ("do", do)))
+    grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    return lib_sym, name, (M, K, S, Sk, H, D), grads
+
+
+def bus_attention_meta(q, k, v, kv_mask):
+    """The forward's meta route: (o, route name, ``work``), after the
+    card's checks; launches nothing."""
+    check_meta(q)
+    _, name, dims, o = _forward_plan(q, k, v, kv_mask)
+    return o, name, work(*dims, q.dtype)
+
+
+def bus_attention_bwd_meta(q, k, v, kv_mask, do):
+    """The backward's meta route: ((dq, dk, dv), route name, ``work``),
+    after the card's checks; launches nothing."""
+    check_meta(q)
+    _, name, dims, grads = _backward_plan(q, k, v, kv_mask, do)
+    return grads, name, work(*dims, q.dtype, backward=True)
+
+
 def bus_attention_cuda(q, k, v, kv_mask):
     """Launch the CUDA forward that ``bus_route`` picks; same contract as
     ``bus_attention_plain``. Raises on anything the kernel does not take."""
-    M, K, S, Sk, H, D = _check(q, k, v, kv_mask)
-    lib, sym = _route(bus_route(S, Sk, D)[0], S, Sk, D, False,
-                      (("q", q), ("k", k), ("v", v)))
-    o = torch.empty_like(q)
+    check_device(q)
+    (lib, sym), _, (M, K, S, Sk, H, D), o = _forward_plan(q, k, v, kv_mask)
     if o.numel() == 0:
         return o
     lib.launch(sym, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -162,13 +222,9 @@ def bus_attention_bwd_cuda(q, k, v, kv_mask, do):
     """Launch the CUDA backward that ``bus_route`` picks; same contract as
     ``bus_attention_bwd_plain``. Raises on anything the kernel does not
     take."""
-    M, K, S, Sk, H, D = _check(q, k, v, kv_mask, ("do", do))
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"do must be {q.dtype} {tuple(q.shape)}, got "
-                         f"{do.dtype} {tuple(do.shape)}")
-    lib, sym = _route(bus_route(S, Sk, D)[1], S, Sk, D, True,
-                      (("q", q), ("k", k), ("v", v), ("do", do)))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    check_device(q)
+    (lib, sym), _, (M, K, S, Sk, H, D), (dq, dk, dv) = _backward_plan(
+        q, k, v, kv_mask, do)
     if q.numel() == 0:
         return dq, dk, dv
     lib.launch(sym, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

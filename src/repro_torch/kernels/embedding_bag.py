@@ -19,6 +19,11 @@ slots that name row r, a dense [V, d] gradient whose rows no slot names
 are 0; a slot outside [-V, V) adds nothing. The kernel sums in f32 in a
 fixed order (a stable sort of the slots by row, then fixed chunks), so
 it repeats bit for bit.
+
+``work`` and ``bwd_work`` count what the forward and the backward must
+do, whichever kernels do it; the meta routes (``embedding_bag_meta``,
+``embedding_bag_bwd_meta``) run the card's checks on meta tensors and
+return that count beside outputs of the card's shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_device
+from ._build import CudaKernel, check_device, check_meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,10 +94,64 @@ def embedding_bag_bwd_plain(dout, idx, weights, num_rows: int):
     return g.to(dout.dtype)
 
 
-def embedding_bag_cuda(table, idx, weights=None):
-    """Launch the CUDA kernel; same contract as ``embedding_bag_plain``.
-    Raises on anything the kernel does not take."""
-    check_device(table)
+def work(V: int, d: int, B: int, F: int, nnz: int, dtype,
+         weighted: bool, distinct_rows: int | None = None) -> dict:
+    """What the forward must do: ``flops``, a multiply and an add for each
+    of the B F nnz slots' d elements, in the table's ``dtype``;
+    ``op_class`` ``"gather/scatter"``: a gather's weighted sum, no product;
+    ``bytes``, each input read once and the output written once: the
+    table's distinct rows the slots name (a row below 32 B costs one 32 B
+    sector), the int32 indices and f32 weights, then the [B, F, d]
+    output. ``distinct_rows`` is what the data names; without it (on
+    meta, where there is no data) every slot counts as a row of its own,
+    at most V."""
+    e, slots = dtype.itemsize, B * F * nnz
+    rows = min(slots, V) if distinct_rows is None else distinct_rows
+    return {"flops": 2.0 * slots * d, "dtype": str(dtype)[6:],
+            "op_class": "gather/scatter",
+            "bytes": float(rows * max(d * e, 32) + slots * 4 * (1 + weighted)
+                           + B * F * d * e)}
+
+
+def bwd_work(V: int, d: int, B: int, F: int, nnz: int, dtype,
+             weighted: bool) -> dict:
+    """What the table's gradient must do: ``flops``, a multiply and an add
+    for each slot's d elements, in dout's ``dtype``; ``op_class``
+    ``"gather/scatter"``: a scatter-add; ``bytes``, dout, the
+    indices and the weights read once, then the dense [V, d] gradient
+    written once."""
+    e, slots = dtype.itemsize, B * F * nnz
+    return {"flops": 2.0 * slots * d, "dtype": str(dtype)[6:],
+            "op_class": "gather/scatter",
+            "bytes": float(B * F * d * e + slots * 4 * (1 + weighted)
+                           + V * d * e)}
+
+
+def embedding_bag_meta(table, idx, weights=None):
+    """The forward's meta route: (out, ``"embedding_bag"``, ``work``), after
+    the card's checks; launches nothing."""
+    check_meta(table)
+    out = _forward_plan(table, idx, weights)
+    (V, d), (B, F, nnz) = table.shape, idx.shape
+    return out, "embedding_bag", work(V, d, B, F, nnz, table.dtype,
+                                      weights is not None)
+
+
+def embedding_bag_bwd_meta(dout, idx, weights, num_rows: int):
+    """The backward's meta route: (the [num_rows, d] gradient,
+    ``"embedding_bag_bwd"``, ``bwd_work``), after the card's checks;
+    launches nothing."""
+    check_meta(dout)
+    _backward_plan(dout, idx, weights, num_rows)
+    grad = torch.empty((num_rows, dout.shape[-1]), dtype=dout.dtype,
+                       device=dout.device)
+    return grad, "embedding_bag_bwd", bwd_work(
+        num_rows, dout.shape[-1], *idx.shape, dout.dtype, weights is not None)
+
+
+def _forward_plan(table, idx, weights):
+    """The card's checks for a forward, and its output. The card and the
+    meta route share it."""
     if table.dim() != 2 or idx.dim() != 3:
         raise ValueError(f"expected table [V, d] and idx [B, F, nnz], got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
@@ -117,10 +176,19 @@ def embedding_bag_cuda(table, idx, weights=None):
     V, d = table.shape
     B, F, nnz = idx.shape
     out = torch.empty((B, F, d), dtype=table.dtype, device=table.device)
+    if out.numel() and V == 0:
+        raise ValueError("an empty table has no rows to gather")
+    return out
+
+
+def embedding_bag_cuda(table, idx, weights=None):
+    """Launch the CUDA kernel; same contract as ``embedding_bag_plain``.
+    Raises on anything the kernel does not take."""
+    check_device(table)
+    out = _forward_plan(table, idx, weights)
     if out.numel() == 0:
         return out
-    if V == 0:
-        raise ValueError("an empty table has no rows to gather")
+    (V, d), (B, F, nnz) = table.shape, idx.shape
     KERNEL.launch("embedding_bag", table.device, table.data_ptr(),
                   idx.data_ptr(),
                   weights.data_ptr() if weights is not None else None,
@@ -128,11 +196,9 @@ def embedding_bag_cuda(table, idx, weights=None):
     return out
 
 
-def embedding_bag_bwd_cuda(dout, idx, weights, num_rows: int):
-    """Launch the backward kernels; same contract as
-    ``embedding_bag_bwd_plain`` for dout in float32 or bfloat16 (the
-    table's dtype). Raises on anything the kernels do not take."""
-    check_device(dout)
+def _backward_plan(dout, idx, weights, num_rows: int):
+    """The card's checks for a backward. The card and the meta route share
+    it."""
     if dout.dim() != 3 or idx.dim() != 3 or dout.shape[:2] != idx.shape[:2]:
         raise ValueError(f"expected dout [B, F, d] and idx [B, F, nnz], got "
                          f"{tuple(dout.shape)} and {tuple(idx.shape)}")
@@ -157,10 +223,18 @@ def embedding_bag_bwd_cuda(dout, idx, weights, num_rows: int):
                              f"{dout.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    d, n, nnz = dout.shape[-1], idx.numel(), idx.shape[-1]
-    if n > _MAX_ROWS:
+    if idx.numel() > _MAX_ROWS:
         raise ValueError(f"the backward takes at most {_MAX_ROWS} index "
-                         f"slots, got {n}")
+                         f"slots, got {idx.numel()}")
+
+
+def embedding_bag_bwd_cuda(dout, idx, weights, num_rows: int):
+    """Launch the backward kernels; same contract as
+    ``embedding_bag_bwd_plain`` for dout in float32 or bfloat16 (the
+    table's dtype). Raises on anything the kernels do not take."""
+    check_device(dout)
+    _backward_plan(dout, idx, weights, num_rows)
+    d, n, nnz = dout.shape[-1], idx.numel(), idx.shape[-1]
     grad = torch.zeros((num_rows, d), dtype=dout.dtype, device=dout.device)
     if n == 0 or d == 0:
         return grad

@@ -36,6 +36,12 @@ on the CUDA cores). The backward has two routes, chosen by
 reads dO through TMA and writes f32 gradients, cast here) or SIMT
 (``csrc/flash_attention.cu``, which writes the inputs' dtype; f32 at
 every head dim, on the lse any forward wrote).
+
+``work`` counts what the forward or the backward must do, whichever
+kernel does it; the meta routes (``flash_attention_meta``,
+``flash_attention_bwd_meta``) run the card's checks and route choice on
+meta tensors and return that count beside outputs of the card's shapes
+and dtypes.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_device
+from ._build import CudaKernel, check_device, check_meta
 
 NEG_INF = -1e30
 
@@ -198,7 +204,6 @@ def _bwd_plain_f32(q, k, v, o, lse, do, causal: bool = True):
 def _check_kernel_inputs(q, k, v, causal, **more):
     """What both CUDA wrappers require of q/k/v and of the extra
     [B, Sq, Hq, D] tensors ``more`` (o, dO); returns check_shapes'."""
-    check_device(q)
     shapes = check_shapes(q, k, v, causal)
     D = shapes[-1]
     named = {"q": q, "k": k, "v": v, **more}
@@ -228,19 +233,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True, *,
     ``route`` names a forward instead (to time one against another on the
     same inputs); it raises if that kernel does not take the call, as
     the picked route does for anything its kernel does not take."""
-    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal)
-    picked = forward_route(q.dtype, D)
-    if route is None:
-        route = picked
-    elif route not in FORWARD_ROUTES:
-        raise ValueError(f"unknown flash forward route {route!r}")
-    elif route != "flash_attention" and route != picked:
-        raise ValueError(f"{route} does not take {q.dtype} at head dim {D}")
-    if route == "flash_attention_wgmma":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma(name, t)
-    o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
-    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    check_device(q)
+    route, (B, Sq, Sk, Hq, Hkv, D), o, lse = _forward_plan(q, k, v, causal,
+                                                           route)
     if o.numel() == 0:
         return o, lse
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -264,6 +259,63 @@ def flash_attention_cuda(q, k, v, causal: bool = True, *,
                           Hq, Hkv, D, *strides, int(causal),
                           _DTYPES[q.dtype], float(D ** -0.5))
     return o, lse
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a head of one batch row scores: all Sq Sk, or,
+    causal, query i (at key position i + Sk - Sq) sees keys 0 to it."""
+    if not causal:
+        return Sq * Sk
+    return Sq * (Sk - Sq) + Sq * (Sq + 1) // 2
+
+
+def work(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int, dtype,
+         causal: bool, backward: bool = False) -> dict:
+    """What the forward (or the backward) must do, whichever kernel does
+    it: ``flops``, 2 D for each product of a visible (query, key) pair,
+    two products forward (q k^T, p v) and five backward (s, dv, dp, dq,
+    dk); their ``dtype``, the inputs'; ``op_class`` ``"matmul"``: the
+    products count as a matmul's do; ``bytes``, each input read once and
+    each output written once: q, k and v, then o and the f32 lse
+    (forward); q, k, v, o, lse and dO, then dq, dk and dv in the inputs'
+    dtype (backward). The [Sq, Sk] scores never reach memory."""
+    e = dtype.itemsize
+    q, kv, lse = B * Sq * Hq * D * e, B * Sk * Hkv * D * e, B * Hq * Sq * 4
+    pairs = B * Hq * visible_pairs(Sq, Sk, causal)
+    if backward:
+        return {"flops": 10.0 * D * pairs, "dtype": str(dtype)[6:],
+                "op_class": "matmul", "bytes": float(4 * q + 4 * kv + lse)}
+    return {"flops": 4.0 * D * pairs, "dtype": str(dtype)[6:],
+            "op_class": "matmul", "bytes": float(2 * q + 2 * kv + lse)}
+
+
+def _forward_plan(q, k, v, causal, route=None):
+    """The card's checks and route for a forward, and its outputs: (route,
+    dims, o, lse). ``route`` names a forward instead of the picked one (it
+    raises if that kernel does not take the call). The card and the meta
+    route share it."""
+    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal)
+    picked = forward_route(q.dtype, D)
+    if route is None:
+        route = picked
+    elif route not in FORWARD_ROUTES:
+        raise ValueError(f"unknown flash forward route {route!r}")
+    elif route != "flash_attention" and route != picked:
+        raise ValueError(f"{route} does not take {q.dtype} at head dim {D}")
+    if route == "flash_attention_wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
+    o = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    return route, (B, Sq, Sk, Hq, Hkv, D), o, lse
+
+
+def flash_attention_meta(q, k, v, causal: bool = True):
+    """The forward's meta route: ((o, lse), route name, ``work``), after
+    the card's checks; launches nothing."""
+    check_meta(q)
+    route, dims, o, lse = _forward_plan(q, k, v, causal)
+    return (o, lse), route, work(*dims, q.dtype, causal)
 
 
 def tf32_planes_bytes(B: int, Sk: int, Hkv: int, D: int) -> int:
@@ -312,17 +364,10 @@ def _bwd_cuda_as_written(q, k, v, o, lse, do, causal: bool = True):
     """``flash_attention_bwd_cuda``'s (dq, dk, dv) before its cast, as the
     route's kernels write them: f32 from the Hopper pair, the inputs'
     dtype from the SIMT pair."""
-    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal, o=o,
-                                                 do=do)
-    if (lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq)
-            or lse.device != q.device):
-        raise ValueError(f"lse must be [B, Hq, Sq] f32 on {q.device}; got "
-                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    dq_sym, dkv_sym = backward_route(q.dtype, D)
+    check_device(q)
+    (dq_sym, dkv_sym), (B, Sq, Sk, Hq, Hkv, D) = _backward_plan(
+        q, k, v, o, lse, do, causal)
     wgmma = dq_sym.endswith("_wgmma")
-    if wgmma:
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            _check_tma(name, t)
     lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     out = torch.float32 if wgmma else q.dtype
@@ -348,3 +393,33 @@ def _bwd_cuda_as_written(q, k, v, o, lse, do, causal: bool = True):
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
+
+
+def _backward_plan(q, k, v, o, lse, do, causal):
+    """The card's checks and route for a backward: (the route's pair of
+    names, dims). The card and the meta route share it."""
+    B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal, o=o,
+                                                 do=do)
+    if (lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq)
+            or lse.device != q.device):
+        raise ValueError(f"lse must be [B, Hq, Sq] f32 on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    route = backward_route(q.dtype, D)
+    if route[0].endswith("_wgmma"):
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _check_tma(name, t)
+    return route, (B, Sq, Sk, Hq, Hkv, D)
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, do, causal: bool = True):
+    """The backward's meta route: ((dq, dk, dv) in the primal dtypes, the
+    route's pair of names, ``work``), after the card's checks; launches
+    nothing."""
+    check_meta(q)
+    route, (B, Sq, Sk, Hq, Hkv, D) = _backward_plan(q, k, v, o, lse, do,
+                                                    causal)
+    grads = (torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=q.device),
+             torch.empty(B, Sk, Hkv, D, dtype=k.dtype, device=q.device),
+             torch.empty(B, Sk, Hkv, D, dtype=v.dtype, device=q.device))
+    return grads, route, work(B, Sq, Sk, Hq, Hkv, D, q.dtype, causal,
+                              backward=True)

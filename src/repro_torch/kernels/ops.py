@@ -13,10 +13,18 @@ gradient (the JAX package trains through XLA's take, whose transpose is a
 dense scatter-add; its Pallas kernel has no VJP). Its weights are batch
 data that no JAX cell differentiates: on every device ``embedding_bag``
 raises when they require grad, rather than drop their gradient.
+
+A meta tensor takes each kernel's meta route, a device branch like the
+CPU's: the card's checks and route choice, then outputs of the card's
+shapes and dtypes and no launch. It records the route and the kernel's
+``work()`` in each active counter (``launch/op_analysis.py``), which is
+how the dry-run counts a step that runs through the kernels without a
+card. ``launch_counts()`` does not move.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from . import bus_attention as _bus
 from . import embedding_bag as _ebag
@@ -46,6 +54,16 @@ KERNELS = {**_bus.ROUTES,
 FLASH_BLOCK = 128      # the JAX wrapper's default tile; the routing rule reads it
 
 
+def _counted(out, route, work):
+    """``out``, after recording a meta call's route (a kernel name, or the
+    backward's pair) and its ``work`` in each active dispatch mode that
+    counts kernels (one with ``add_kernel``: ``op_analysis.OpCounter``)."""
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "add_kernel"):
+            mode.add_kernel(route, work)
+    return out
+
+
 def flash_attention_supported(seq_len: int) -> bool:
     """Whether ``nn.attention`` routes a self-attention call of this length
     to the flash kernel: the JAX package's rule (S divides into the
@@ -63,6 +81,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         if q.device.type == "cpu":
             o, lse = _flash.flash_attention_fwd_plain(q, k, v, causal)
+        elif q.device.type == "meta":
+            o, lse = _counted(*_flash.flash_attention_meta(q, k, v, causal))
         else:
             o, lse = _flash.flash_attention_cuda(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -74,6 +94,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
+        if q.device.type == "meta":
+            return (*_counted(*_flash.flash_attention_bwd_meta(
+                q, k, v, o, lse, do, ctx.causal)), None)
         bwd = (_flash.flash_attention_bwd_plain if q.device.type == "cpu"
                else _flash.flash_attention_bwd_cuda)
         return (*bwd(q, k, v, o, lse, do, ctx.causal), None)
@@ -96,6 +119,8 @@ class _BusAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, kv_mask)
         if q.device.type == "cpu":
             return _bus.bus_attention_plain(q, k, v, kv_mask)
+        if q.device.type == "meta":
+            return _counted(*_bus.bus_attention_meta(q, k, v, kv_mask))
         return _bus.bus_attention_cuda(q, k, v, kv_mask)
 
     @staticmethod
@@ -104,6 +129,9 @@ class _BusAttention(torch.autograd.Function):
         do = do.contiguous()
         if q.device.type == "cpu":
             dq, dk, dv = _bus.bus_attention_bwd_plain(q, k, v, kv_mask, do)
+        elif q.device.type == "meta":
+            dq, dk, dv = _counted(*_bus.bus_attention_bwd_meta(
+                q, k, v, kv_mask, do))
         else:
             dq, dk, dv = _bus.bus_attention_bwd_cuda(q, k, v, kv_mask, do)
         return dq, dk, dv, None
@@ -129,6 +157,8 @@ def pq_lut_scores(lut, codes, valid=None, *, block_n: int = 128,
         raise ValueError(f"unknown pq scan variant: {variant!r}")
     if lut.device.type == "cpu":
         return _pq.pq_lut_scores_plain(lut, codes, valid)
+    if lut.device.type == "meta":
+        return _counted(*_pq.pq_lut_scores_meta(lut, codes, valid))
     return _pq.pq_lut_scores_cuda(lut, codes, valid)
 
 
@@ -142,11 +172,16 @@ class _EmbeddingBag(torch.autograd.Function):
         ctx.num_rows = table.shape[0]
         if table.device.type == "cpu":
             return _ebag.embedding_bag_plain(table, idx, weights)
+        if table.device.type == "meta":
+            return _counted(*_ebag.embedding_bag_meta(table, idx, weights))
         return _ebag.embedding_bag_cuda(table, idx, weights)
 
     @staticmethod
     def backward(ctx, dout):
         idx, weights = ctx.saved_tensors
+        if dout.device.type == "meta":
+            return (_counted(*_ebag.embedding_bag_bwd_meta(
+                dout.contiguous(), idx, weights, ctx.num_rows)), None, None)
         bwd = (_ebag.embedding_bag_bwd_plain if dout.device.type == "cpu"
                else _ebag.embedding_bag_bwd_cuda)
         return bwd(dout.contiguous(), idx, weights, ctx.num_rows), None, None

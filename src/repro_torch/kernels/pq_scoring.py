@@ -18,6 +18,11 @@ counted under its own name in ``ops.KERNELS``: the tiled scan
 scan (``"pq_lut_scores_general"``: everything else). ``tiled_plan``
 gives the tiled scan's work split, which the kernel recomputes from the
 same numbers.
+
+``work`` counts what a scan must do, whichever kernel does it; the meta
+route (``pq_lut_scores_meta``) runs the card's checks and route choice
+on meta tensors (a meta tensor's ``data_ptr()`` is 0, so aligned) and
+returns that count beside an output of the card's shape.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_device
+from ._build import CudaKernel, check_device, check_meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,13 +103,25 @@ def tiled_plan(B: int, M: int, K: int, N: int, Bc: int,
             "units": groups * tiles, "vec": vec}
 
 
+def work(B: int, M: int, K: int, N: int, Bc: int, code_bytes: int,
+         Bv: int = 0) -> dict:
+    """What a scan must do, whichever kernel does it: ``flops``, one f32
+    add for each of the M table reads of each (query, candidate);
+    ``op_class`` ``"gather/scatter"``: a gather's sum, no product;
+    ``bytes``, each input read once and the output written once: the B
+    tables, the Bc code rows, the Bv valid rows (0 without ``valid``),
+    then the [B, N] f32 scores."""
+    return {"flops": float(B * N * M), "dtype": "float32",
+            "op_class": "gather/scatter",
+            "bytes": float(4 * B * M * K + Bc * N * M * code_bytes + Bv * N
+                           + 4 * B * N)}
 
-def pq_lut_scores_cuda(lut, codes, valid=None, *, route: str | None = None):
-    """Launch the CUDA kernel ``pq_route`` picks; same contract as
-    ``pq_lut_scores_plain``. ``route`` names a kernel instead (to time one
-    against the other on the same inputs); it raises if that kernel does
-    not take the shape. Raises on anything the kernels do not take."""
-    check_device(lut)
+
+def _plan(lut, codes, valid, route):
+    """The card's checks and route for a scan, and its output: (route,
+    (B, M, K, N, Bc, Bv: valid's rows, 1 without it), out). ``route``
+    names a kernel instead of the picked one (it raises if that kernel
+    does not take the shape). The card and the meta route share it."""
     if lut.dim() != 3 or codes.dim() != 3:
         raise ValueError("expected lut [B, M, K] and codes [Bc, N, M]")
     B, M, K = lut.shape
@@ -141,6 +158,25 @@ def pq_lut_scores_cuda(lut, codes, valid=None, *, route: str | None = None):
                          f"of this shape or alignment: {codes.dtype} "
                          f"{tuple(codes.shape)}, K={K}")
     out = torch.empty((B, N), dtype=torch.float32, device=lut.device)
+    return route, (B, M, K, N, Bc, Bv), out
+
+
+def pq_lut_scores_meta(lut, codes, valid=None):
+    """The scan's meta route: (out, route name, ``work``), after the
+    card's checks; launches nothing."""
+    check_meta(lut)
+    route, (B, M, K, N, Bc, _), out = _plan(lut, codes, valid, None)
+    return out, route, work(B, M, K, N, Bc, _CODE_BYTES[codes.dtype],
+                            0 if valid is None else valid.shape[0])
+
+
+def pq_lut_scores_cuda(lut, codes, valid=None, *, route: str | None = None):
+    """Launch the CUDA kernel ``pq_route`` picks; same contract as
+    ``pq_lut_scores_plain``. ``route`` names a kernel instead (to time one
+    against the other on the same inputs); it raises if that kernel does
+    not take the shape. Raises on anything the kernels do not take."""
+    check_device(lut)
+    route, (B, M, K, N, Bc, Bv), out = _plan(lut, codes, valid, route)
     if out.numel() == 0:
         return out
     ptrs = (lut.data_ptr(), codes.data_ptr(),

@@ -141,7 +141,11 @@ def moe_gather(p, x, cfg: MoEConfig, *, expert_start: int = 0,
         flat_e = eidx.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
         sorted_e = flat_e[order]
-        counts = torch.bincount(flat_e, minlength=cfg.n_experts)
+        # assignments an expert takes, in a tensor of static size (a
+        # bincount's size depends on the ids, so it waits on the device)
+        counts = torch.zeros(cfg.n_experts, dtype=flat_e.dtype,
+                             device=x.device).index_add_(
+            0, flat_e, torch.ones_like(flat_e))
         rank = (torch.arange(T * k, device=x.device)
                 - (torch.cumsum(counts, 0) - counts)[sorted_e])
         local_e = sorted_e - expert_start
