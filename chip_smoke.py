@@ -18,7 +18,10 @@ Phases, each of which exits non-zero on failure:
               on the tensor cores, HMMA.1688.F32.TF32 (mma.sync m16n8k8
               in tf32) in its SASS; the 3xTF32 flash forward (its split
               and main kernels, D=64 and 128) no spills and tf32 wgmma
-              (HGMMA ... F32.TF32) in each main kernel; the PQ scan's
+              (HGMMA ... F32.TF32) in each main kernel; the 3xTF32 flash
+              backward (each call's split, the dq and dk/dv kernels, D=64
+              and 128) no spills and tf32 wgmma in each main kernel; the
+              PQ scan's
               seven kernels no spills, and 16-byte code loads and float4
               stores (LDG.E.128, STG.E.128) in the tiled kernel's wide
               instantiations; the EmbeddingBag's 13 kernels (the
@@ -234,7 +237,8 @@ Phases, each of which exits non-zero on failure:
               written and every matrix moved, ``count`` 4, and exactly 16
               Hopper flash forward (with the remat recompute), 8 Hopper dq
               and 8 Hopper dk/dv launches per step (the f32 check below:
-              the 3xTF32 forward and the SIMT backward). One more bf16 step captures
+              the 3xTF32 forward and the 3xTF32 backward). One more bf16
+              step captures
               layer 0's attention inputs and the dO the loss sends back
               to them (a spy on ``ops.flash_attention`` and a hook on its
               output); the Hopper backward on them, with dO brought to
@@ -375,15 +379,20 @@ Phases, each of which exits non-zero on failure:
               ``check_launches``. The flash
               backward at the train shape on each route
               (``backward_route``), on that dtype's forward o and lse:
-              f32 on the SIMT pair (1e-4 of each gradient's largest);
-              bf16 on the Hopper pair, whose f32 gradients before the
-              wrapper's cast are held within the same 1e-4 of plain's f32
-              ones and whose casts element-wise, beside controls that drop
-              the last key tile and must miss both (the casts' flat
-              difference and plain's own distance from the gradient in
-              f64 are read beside them); each timed beside plain and
-              SDPA's backward in its dtype; its SIMT row's ``launches`` is
-              0 as the forward's.
+              f32 on the 3xTF32 pair (1e-4 of each gradient's largest,
+              beside a control that drops the last key tile and must miss
+              it, launched twice bit for bit, timed in turns against the
+              SIMT pair named on the same call); bf16 on the Hopper pair,
+              whose f32 gradients before the wrapper's cast are held
+              within the same 1e-4 of plain's f32 ones and whose casts
+              element-wise, beside controls that drop the last key tile
+              and must miss both (the casts' flat difference and plain's
+              own distance from the gradient in f64 are read beside
+              them); each timed beside plain and SDPA's backward in its
+              dtype; the SIMT pair on its own route, f32 at head dim 96,
+              held the same way and timed. The 3xTF32 and SIMT rows'
+              ``launches`` are 0 on the main paths (bf16) as the
+              forward's, their checks' under ``check_launches``.
 
 The line before the last holds the card's name and power limit, the one
 before it the per-kernel JSON; the last line is the ``{"ok": true, ...}``
@@ -442,12 +451,13 @@ FLASH_ROWS = 512                 # rows of the S=32,768 launch held to plain
 # the flash forward's three routes (kernels/flash_attention.py:
 # forward_route): the SIMT kernel (head dims other than 64 and 128), the
 # Hopper kernel (bf16 at 64 or 128) and the 3xTF32 kernel (f32 at 64 or
-# 128); then the backward's (backward_route): the SIMT dq and dk/dv
-# kernels (f32, and bf16 at other head dims), and the Hopper pair
+# 128); then the backward's (backward_route), by the same rule: the SIMT
+# dq and dk/dv kernels, the Hopper pair and the 3xTF32 pair
 FLASH_FWD = ("flash_attention", "flash_attention_wgmma",
              "flash_attention_tf32")
 FLASH_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-             "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
+             "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma",
+             "flash_attention_bwd_dq_tf32", "flash_attention_bwd_dkv_tf32")
 FLASH_KERNELS = FLASH_FWD + FLASH_BWD
 # the Hopper kernels' libraries, whose ptxas and SASS the setup checks:
 # the flash kernels' (wgmma) and the bus attention kernels' (mma.sync in
@@ -457,12 +467,18 @@ HOPPER_LIBS = ("flash_attention_wgmma", "flash_attention_bwd_wgmma")
 # wgmma, HGMMA...F32.TF32 in SASS) and the PQ scan's (the tiled kernel's
 # 16-byte code loads and float4 stores, LDG.E.128 and STG.E.128)
 TF32_LIB, TF32_MMA = "flash_attention_tf32", "F32.TF32"
+# the 3xTF32 flash backward's library: each call's split and the dq and
+# dk/dv kernels, at D=64 and 128; tf32 wgmma in both main kernels
+TF32_BWD_LIB = "flash_attention_bwd_tf32"
 PQ_LIB, PQ_SASS = "pq_scoring", ("LDG.E.128", "STG.E.128", "LDS")
 EBAG_LIB = "embedding_bag"      # the EmbeddingBag forward and backward
 # the SIMT forward's own checks, at shapes still on its route: f32 at head
 # dim 96 (timed) and bf16 at head dim 80
 SIMT_CHECKS = (("float32_d96", "float32", 96), ("bfloat16_d80", "bfloat16",
                                                 80))
+# the SIMT backward's own check, at a shape still on its route: f32 at
+# head dim 96, the train shape's batch and heads (held and timed)
+SIMT_BWD_CHECKS = (("float32_d96", "float32", 96),)
 BUS_LIB, BUS_INSTANTIATIONS, BUS_MMA = "bus_attention", 96, \
     "HMMA.1688.F32.TF32"
 # the bus kernels at each of the fit's buckets: news a check (the bucket's
@@ -564,7 +580,9 @@ ROW_COUNTERS = {
     "flash_attention_bwd_wgmma": ("flash_attention_bwd_dq_wgmma",
                                   "flash_attention_bwd_dkv_wgmma"),
     "flash_attention_bwd": ("flash_attention_bwd_dq",
-                            "flash_attention_bwd_dkv")}
+                            "flash_attention_bwd_dkv"),
+    "flash_attention_bwd_tf32": ("flash_attention_bwd_dq_tf32",
+                                 "flash_attention_bwd_dkv_tf32")}
 # the roofline phase: the cells it must measure (each fits one card and
 # has a batch builder in the port at its own shape), and how far a
 # measured step may beat its counted floor: by no more than timing noise
@@ -738,6 +756,16 @@ def tf32_kernel(symbol: str):
     return f"{m[1]}<{m[2]}>" if m else None
 
 
+def tf32_bwd_kernel(symbol: str):
+    """``split_planes_kernel<D>``, ``flash_bwd_dq_tf32_kernel<D>`` or
+    ``flash_bwd_dkv_tf32_kernel<D>`` for a mangled 3xTF32 backward symbol,
+    else None."""
+    import re
+    m = re.search(r"(split_planes_kernel|flash_bwd_dq_tf32_kernel|"
+                  r"flash_bwd_dkv_tf32_kernel)ILi(\d+)E", symbol)
+    return f"{m[1]}<{m[2]}>" if m else None
+
+
 def pq_kernel(symbol: str):
     """``pq_tiled_kernel<M/8,W>`` or ``pq_lut_scores_kernel<codes,vec8>``
     for a mangled PQ scan symbol, else None."""
@@ -783,22 +811,54 @@ def bwd_f64(q, k, v, o, lse, do):
     return dq, dk, dv
 
 
+def last_tile_controls(q, k, v, o, lse, do, exp):
+    """Plain's f32 gradients ``exp`` (causal, Sq = Sk) as a kernel that lost
+    the last key tile would give them: dk and dv of that tile zero; dq's
+    last rows without that tile's ds k, which is plain on the last tile
+    alone (row i of it sees keys up to i, as the global row does)."""
+    from repro_torch.kernels.flash_attention import _bwd_plain_f32
+    t0 = q.shape[1] - 64
+    last = _bwd_plain_f32(q[:, t0:], k[:, t0:], v[:, t0:], o[:, t0:],
+                          lse[..., t0:], do[:, t0:], True)[0]
+    dq_c = exp[0].clone()
+    dq_c[:, t0:] -= last
+    return dq_c, dropped_tile(exp[1], t0), dropped_tile(exp[2], t0)
+
+
+def bwd_f32_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
+    """An f32 flash backward's (dq, dk, dv) ``got`` against plain's ``exp``
+    on causal f32 inputs with Sq = Sk: each within TOL_FLASH_BWD["float32"]
+    of plain's largest magnitude, and the controls of a kernel that lost
+    the last key tile (``last_tile_controls``) over that limit."""
+    rel_tol = TOL_FLASH_BWD["float32"]
+    e = {}
+    controls = last_tile_controls(q, k, v, o, lse, do, exp)
+    for gname, a, b, c in zip(("dq", "dk", "dv"), got, exp, controls):
+        top = float(b.abs().max())
+        e[gname] = float((a - b).abs().max())
+        e[gname + "_rel"] = e[gname] / top
+        e[gname + "_control_rel"] = float((c - b).abs().max()) / top
+    del controls
+    check(all(e[n + "_control_rel"] > rel_tol for n in ("dq", "dk", "dv")),
+          f"flash_attention_bwd {label}: the limit misses a dropped key "
+          f"tile: {e}")
+    check(all(e[n + "_rel"] <= rel_tol for n in ("dq", "dk", "dv")),
+          f"flash_attention_bwd {label} differs from plain: {e}")
+    return e
+
+
 def bwd_hopper_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
     """The Hopper backward's f32 (dq, dk, dv) ``got`` against plain's f32
     ``exp`` (both before the cast) on causal bf16 q/k/v/o/lse/dO with Sq =
     Sk. Held: each f32 gradient within TOL_FLASH_BWD["float32"] of plain's
     largest magnitude (``_f32_over_limit`` <= 1), and each bf16 cast within
     the element-wise limit of plain's cast (``_over_limit`` <= 1). The
-    controls, the plain gradients of a kernel that lost the last key tile
-    (dk, dv of that tile zero; dq's last rows without that tile's ds k,
-    which is plain on the last tile alone: row i of it sees keys up to i,
-    as the global row does), must miss both. Read beside them: the casts'
+    controls of a kernel that lost the last key tile
+    (``last_tile_controls``) must miss both. Read beside them: the casts'
     largest abs difference (the flat limit's reading), and how far plain's
     f32 and the kernel's, and their casts, lie from the gradient in f64
     (``bwd_f64``, one kv head)."""
     import torch
-
-    from repro_torch.kernels.flash_attention import _bwd_plain_f32
     rel_tol = TOL_FLASH_BWD["float32"]
     e = {}
     for gname, a, b, t in zip(("dq", "dk", "dv"), got, exp, (q, k, v)):
@@ -807,12 +867,7 @@ def bwd_hopper_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
         e[gname + "_f32_rel"] = float((a - b).abs().max() / b.abs().max())
         e[gname + "_f32_over_limit"] = e[gname + "_f32_rel"] / rel_tol
         e[gname + "_over_limit"] = flash_miss(a16, b16)
-    t0 = q.shape[1] - 64
-    last = _bwd_plain_f32(q[:, t0:], k[:, t0:], v[:, t0:], o[:, t0:],
-                          lse[..., t0:], do[:, t0:], True)[0]
-    dq_c = exp[0].clone()
-    dq_c[:, t0:] -= last
-    controls = (dq_c, dropped_tile(exp[1], t0), dropped_tile(exp[2], t0))
+    controls = last_tile_controls(q, k, v, o, lse, do, exp)
     for gname, c, b, t in zip(("dq", "dk", "dv"), controls, exp, (q, k, v)):
         e[gname + "_control_f32_over_limit"] = float(
             (c - b).abs().max() / b.abs().max()) / rel_tol
@@ -822,7 +877,7 @@ def bwd_hopper_errors(q, k, v, o, lse, do, got, exp, label: str) -> dict:
               and e[gname + "_control_over_limit"] > 1,
               f"flash_attention_bwd {label} {gname}: a limit misses a "
               f"dropped key tile: {e}")
-    del last, dq_c, controls
+    del controls
     G = q.shape[2] // k.shape[2]
     f64 = bwd_f64(q, k, v, o, lse, do)
     e["vs_f64"] = {}
@@ -1653,7 +1708,8 @@ def lm_train_phase(torch, np, dev):
           f"{lp}")
     check(worst[0][1] <= TOL_GRAD, f"LM gradient leaf {worst[0][0]} "
           f"differs by {worst[0][1]} of its magnitude")
-    # f32: the forward and the backward on the SIMT kernels
+    # f32 at head dim 128: the forward and the backward on the 3xTF32
+    # kernels
     check(sum(cp.values()) == 0 and ck == {
         **flash_fwd_launches(torch.float32, cfgf.hd, 2 * L2),
         **flash_bwd_launches(torch.float32, cfgf.hd, L2)},
@@ -3463,9 +3519,9 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.bus_attention import bus_route
     from repro_torch.kernels.flash_attention import (
-        _bwd_cuda_as_written, _bwd_plain_f32, flash_attention_bwd_cuda,
-        flash_attention_bwd_plain, flash_attention_cuda,
-        flash_attention_fwd_plain)
+        BWD_SIMT, BWD_TF32, _bwd_cuda_as_written, _bwd_plain_f32,
+        backward_route, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_fwd_plain)
     from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
     from repro_torch.launch import roofline as rl
     from repro_torch.launch import tables
@@ -3495,7 +3551,8 @@ def main() -> int:
     # a library already under build/ is loaded as it is, with the .log its
     # build left (the same source and flags, by the file name's hash)
     built_now = {name: not hopper_library(name).exists()
-                 for name in HOPPER_LIBS + (BUS_LIB, TF32_LIB, PQ_LIB)}
+                 for name in HOPPER_LIBS + (BUS_LIB, TF32_LIB, TF32_BWD_LIB,
+                                            PQ_LIB)}
     t0 = time.perf_counter()
     logs = ops.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -3543,6 +3600,21 @@ def main() -> int:
     check(set(tf) == set(ptxas) and len(tf) == 4 and tf == hg
           and all(n for name, n in tf.items() if name.startswith("flash")),
           f"{TF32_LIB}: a main kernel's SASS has no tf32 wgmma "
+          f"({TF32_MMA} {tf}, HGMMA {hg})")
+    # the 3xTF32 flash backward (the split, the dq and dk/dv kernels, D=64
+    # and 128): no spills, and only tf32 wgmma, in both main kernels
+    ptxas = ptxas_by_kernel(logs[TF32_BWD_LIB], tf32_bwd_kernel)
+    check_no_spills(TF32_BWD_LIB, ptxas)
+    tf = sass_count(hopper_library(TF32_BWD_LIB), tf32_bwd_kernel, TF32_MMA)
+    hg = sass_count(hopper_library(TF32_BWD_LIB), tf32_bwd_kernel, "HGMMA")
+    report["hopper"][TF32_BWD_LIB] = {
+        "ptxas": ptxas, "sass_tf32_mma": tf, "sass_hgmma": hg,
+        "ptxas_built_this_run": built_now[TF32_BWD_LIB]}
+    print(f"{TF32_BWD_LIB}: ptxas {ptxas}; {TF32_MMA} per function {tf}; "
+          f"HGMMA {hg}", flush=True)
+    check(set(tf) == set(ptxas) and len(tf) == 6 and tf == hg
+          and all(n for name, n in tf.items() if name.startswith("flash")),
+          f"{TF32_BWD_LIB}: a main kernel's SASS has no tf32 wgmma "
           f"({TF32_MMA} {tf}, HGMMA {hg})")
     # the PQ scan (the tiled kernel's four instantiations, the general
     # kernel's three): no spills; the tiled kernel's 16-byte code loads
@@ -4287,6 +4359,16 @@ def main() -> int:
         return time_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
                        **kw)
 
+    def sdpa_bwd_ms(q, k, v, do, **kw):
+        """The backward alone of SDPA's causal GQA attention on the same
+        data ([B, H, S, D] copies made outside the timing)."""
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return time_ms(torch, lambda: torch.autograd.grad(
+            o_sdpa, (qs, ks, vs), dos, retain_graph=True), **kw)
+
     flash_err = {}
     for label, Sq, dtype in (("float32", FLASH_CHECK_SEQ, torch.float32),
                              ("bfloat16", FLASH_CHECK_SEQ, bf16),
@@ -4496,10 +4578,13 @@ def main() -> int:
 
     # the flash backward at the LM training shape (B=2, S=4,096), against
     # plain on the same saved o/lse, on each route (backward_route): f32 on
-    # the SIMT pair; bf16 on the Hopper pair, its f32 gradients before the
-    # cast and their casts, beside the dropped-key-tile controls
-    # (bwd_hopper_errors). Each route is timed, with the wrapper's cast,
-    # beside plain and SDPA's causal GQA backward in the same dtype
+    # the 3xTF32 pair, within 1e-4 of each plain gradient's largest beside
+    # a dropped-key-tile control that must miss it, launched twice bit for
+    # bit, and timed in turns against the SIMT pair named on the same call;
+    # bf16 on the Hopper pair, its f32 gradients before the cast and their
+    # casts, beside the dropped-key-tile controls (bwd_hopper_errors). Each
+    # route is timed, with the wrapper's cast, beside plain and SDPA's
+    # causal GQA backward in the same dtype
     Bt, St = lm_family.ONE_CARD_TRAIN["batch"], \
         lm_family.LM_SHAPES["train_4k"]["seq"]
     bwd = {}
@@ -4510,7 +4595,7 @@ def main() -> int:
         k, v = (torch.randn(Bt, St, Hkv, Dh, generator=g, device=dev)
                 .to(dtype) for _ in range(2))
         # o and lse from the forward's own route: bf16 from the Hopper
-        # kernel, f32 from the SIMT one
+        # kernel, f32 from the 3xTF32 one
         o, lse = launch_on(q, k, v)
         ops.reset_launch_counts()
         got = _bwd_cuda_as_written(q, k, v, o, lse, do, True)
@@ -4522,38 +4607,83 @@ def main() -> int:
         if dtype == bf16:
             e = bwd_hopper_errors(q, k, v, o, lse, do, got, exp, name)
         else:
-            e = {}
-            for gname, a, b in zip(("dq", "dk", "dv"), got, exp):
-                e[gname] = float((a - b).abs().max())
-                e[gname + "_rel"] = e[gname] / float(b.abs().max())
-            check(all(e[n + "_rel"] <= TOL_FLASH_BWD[name]
-                      for n in ("dq", "dk", "dv")),
-                  f"flash_attention_bwd {name} differs from plain: {e}")
+            check(backward_route(dtype, Dh) == BWD_TF32,
+                  f"f32 at head dim {Dh} is routed to "
+                  f"{backward_route(dtype, Dh)}")
+            e = bwd_f32_errors(q, k, v, o, lse, do, got, exp, name)
+            again = _bwd_cuda_as_written(q, k, v, o, lse, do, True)
+            e["bitwise_repeat"] = all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
+            check(e["bitwise_repeat"],
+                  "two 3xTF32 flash backward launches differ")
+            del again
         del got, exp
-        # yardstick: the backward alone of SDPA's causal GQA attention on
-        # the same data ([B, H, S, D] copies made outside the timing)
-        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        dos = do.transpose(1, 2).contiguous()
-        o_sdpa = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
         r = {"errors": e,
-             "ms": time_ms(torch, lambda: flash_attention_bwd_cuda(
-                 q, k, v, o, lse, do, True), iters=5, warmup=1),
              "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
                  q, k, v, o, lse, do, True), iters=2, warmup=1),
-             "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                 o_sdpa, (qs, ks, vs), dos, retain_graph=True), iters=5,
-                 warmup=2)}
-        # the function's five products at the dtype's rate: bf16 on the
-        # tensor cores, f32 outside them
+             "library_ms": sdpa_bwd_ms(q, k, v, do, iters=5, warmup=2)}
         w = flash_work(q, k, backward=True)
-        r["bound_ms"], r["bound_by"] = bound_ms(
-            w, rl.BF16_FLOP_PER_S if dtype == bf16 else None)
+        if dtype == bf16:
+            # the function's five products at the bf16 tensor-core rate
+            r["ms"] = time_ms(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, True), iters=5, warmup=1)
+            r["bound_ms"], r["bound_by"] = bound_ms(w, rl.BF16_FLOP_PER_S)
+        else:
+            # the 3xTF32 pair in turns against the SIMT pair named on the
+            # same inputs (the route f32 took before); bounded by three
+            # TF32 products a pair on the tensor cores, and by the f32 rate
+            # of the CUDA cores (the SIMT pair's floor)
+            turns = [(r_name, time_ms(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, True, route=pair), iters=n, warmup=1))
+                for r_name, pair, n in (("simt", BWD_SIMT, 2),
+                                        ("tf32", BWD_TF32, 5),
+                                        ("tf32", BWD_TF32, 5),
+                                        ("simt", BWD_SIMT, 2))]
+            r["ms"] = (turns[1][1] + turns[2][1]) / 2
+            r["simt_ms"] = (turns[0][1] + turns[3][1]) / 2
+            r["turns_ms"] = turns
+            r["bound_ms"], r["bound_by"] = bound_ms(w, rl.TF32_FLOP_PER_S,
+                                                    products=3)
+            r["bound_f32_cuda_cores_ms"] = bound_ms(w)[0]
         r["tflop_per_s"] = w["flops"] / r["ms"] / 1e9
         bwd[name] = r
-        del qs, ks, vs, dos, o_sdpa
         if dtype != bf16:
             del q, k, v, o, lse, do
+    # the SIMT pair on its own route (SIMT_BWD_CHECKS), counted from 0:
+    # held as the 3xTF32 pair is and timed, at the train shape's batch and
+    # heads
+    simt_bwd, simt_bwd_launches = {}, {}
+    for label, dt, D in SIMT_BWD_CHECKS:
+        dtype = getattr(torch, dt)
+        qd, dod = (torch.randn(Bt, St, Hq, D, generator=g, device=dev)
+                   .to(dtype) for _ in range(2))
+        kd, vd = (torch.randn(Bt, St, Hkv, D, generator=g, device=dev)
+                  .to(dtype) for _ in range(2))
+        od, lsed = launch_on(qd, kd, vd)
+        ops.reset_launch_counts()
+        got = _bwd_cuda_as_written(qd, kd, vd, od, lsed, dod, True)
+        simt_bwd_launches[label] = {n: ops.launch_counts()[n]
+                                    for n in FLASH_BWD}
+        exp = _bwd_plain_f32(qd, kd, vd, od, lsed, dod, True)
+        check(simt_bwd_launches[label] == flash_bwd_launches(dtype, D, 1)
+              and backward_route(dtype, D) == BWD_SIMT,
+              f"flash backward at {label} went {simt_bwd_launches[label]}")
+        e = bwd_f32_errors(qd, kd, vd, od, lsed, dod, got, exp,
+                           f"SIMT {label}")
+        del got, exp
+        w = flash_work(qd, kd, backward=True)
+        r = {"errors": e,
+             "ms": time_ms(torch, lambda: flash_attention_bwd_cuda(
+                 qd, kd, vd, od, lsed, dod, True), iters=2, warmup=1),
+             "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
+                 qd, kd, vd, od, lsed, dod, True), iters=1, warmup=1),
+             "library_ms": sdpa_bwd_ms(qd, kd, vd, dod, iters=3, warmup=1),
+             "shape": [Bt, St, St, Hq, Hkv, D], "dtype": dt}
+        r["bound_ms"], r["bound_by"] = bound_ms(w)
+        r["bound_3xtf32_ms"] = bound_ms(w, rl.TF32_FLOP_PER_S, products=3)[0]
+        r["tflop_per_s"] = w["flops"] / r["ms"] / 1e9
+        simt_bwd[label] = r
+        del qd, kd, vd, od, lsed, dod
 
     def by_path(sym):
         return {"lm_train": lm_train_launches[sym],
@@ -4582,23 +4712,51 @@ def main() -> int:
                           if n not in ("launches", "shape")},
         **bwd["bfloat16"], **shape, "dtype": "bfloat16",
         **report["hopper"]["flash_attention_bwd_wgmma"]})
+    f32_bwd = bwd["float32"]
+    kernels.append({
+        "name": "flash_attention_bwd_tf32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:281",
+        # the main paths run bf16 at head dim 128, the Hopper pair's
+        # route, so this is 0; the f32 checks' launches, each counted from
+        # 0, are apart under check_launches
+        "launches": sum(lm_train_launches[n] for n in BWD_TF32),
+        "check_launches": {
+            "lm_train_float32_depth2": {
+                n: lt["plain"]["launches_kernel"][n] for n in BWD_TF32},
+            "train_shape_float32": {n: 1 for n in BWD_TF32}},
+        "launches_by_path": {"dq": by_path(BWD_TF32[0]),
+                             "dkv": by_path(BWD_TF32[1])},
+        "max_abs_err": max(f32_bwd["errors"][n] for n in ("dq", "dk", "dv")),
+        **{n: x for n, x in f32_bwd.items() if n != "turns_ms"},
+        "turns_ms": f32_bwd["turns_ms"], **shape, "dtype": "float32",
+        **report["hopper"][TF32_BWD_LIB]})
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:281",
-        # the main paths run bf16 at head dim 128, the Hopper pair's route,
-        # so this is 0; the f32 gradient check's launches, counted from 0,
-        # are apart under check_launches
-        "launches": lm_train_launches["flash_attention_bwd_dq"]
-        + lm_train_launches["flash_attention_bwd_dkv"],
-        "check_launches": {"lm_train_float32_depth2": {
-            n: lt["plain"]["launches_kernel"][n]
-            for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}},
-        "launches_by_path": {"dq": by_path("flash_attention_bwd_dq"),
-                             "dkv": by_path("flash_attention_bwd_dkv")},
-        "max_abs_err": max(bwd["float32"]["errors"][n]
+        # of the paths here only the registry's reduced LM smokes (head dim
+        # 16, f32) reach the SIMT pair, added below with their holds; its
+        # own check at head dim 96, counted from 0, is apart under
+        # check_launches. Its time at the train shape is the turns' (the
+        # pair named on the 3xTF32 route's call), beside the same plain,
+        # SDPA and bounds; at head dim 96, on its own route, under
+        # own_route
+        "launches": sum(lm_train_launches[n] for n in BWD_SIMT),
+        "check_launches": {"simt_bwd_checks": {
+            label: {n: c[n] for n in BWD_SIMT}
+            for label, c in simt_bwd_launches.items()}},
+        "launches_by_path": {"dq": by_path(BWD_SIMT[0]),
+                             "dkv": by_path(BWD_SIMT[1])},
+        "max_abs_err": max(r["errors"][n] for r in simt_bwd.values()
                            for n in ("dq", "dk", "dv")),
-        **bwd["float32"], **shape, "dtype": "float32"})
+        "ms": f32_bwd["simt_ms"], "plain_ms": f32_bwd["plain_ms"],
+        "library_ms": f32_bwd["library_ms"],
+        "bound_ms": f32_bwd["bound_f32_cuda_cores_ms"],
+        "bound_by": "operations", "bound_3xtf32_ms": f32_bwd["bound_ms"],
+        "tflop_per_s": f32_bwd["tflop_per_s"] * f32_bwd["ms"]
+        / f32_bwd["simt_ms"],
+        "own_route": simt_bwd, **shape, "dtype": "float32"})
     bwd_ms = bwd["bfloat16"]["ms"]
     layers_t = lt["layers"]
     lt["flash_bwd_ms_per_step"] = layers_t * bwd_ms

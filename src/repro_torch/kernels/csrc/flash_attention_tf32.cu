@@ -101,13 +101,6 @@ struct Smem {
   uint64_t empty[kStages];
 };
 
-// byte offset of 4-byte element `col` (< 32) of row `row` in a
-// 128-byte-swizzled block of rows
-__host__ __device__ __forceinline__ uint32_t swz(int row, int col) {
-  return row * kRowBytes + ((((col >> 2) & 7) ^ (row & 7)) << 4) +
-         ((col & 3) << 2);
-}
-
 // ------------------------------------------------------------ the split
 // One CTA per (key tile, kv head, b): K and V rows [k0, k0 + kBK) into the
 // tile's four planes (keys >= Sk as zero).
@@ -143,105 +136,6 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
     *reinterpret_cast<uint32_t*>(tile + off) = hi;
     *reinterpret_cast<uint32_t*>(tile + off + T::kPlane) = lo;
   }
-}
-
-// ------------------------------------------------------ tf32 wgmma steps
-#define TF32_D16(d)                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15])
-#define TF32_D32(d)                                                       \
-  TF32_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-      "+f"(d[30]), "+f"(d[31])
-#define TF32_D64(d)                                                       \
-  TF32_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),    \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),    \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),    \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),    \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),    \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define TF32_R16                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define TF32_R32                                                          \
-  TF32_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "    \
-  "%27, %28, %29, %30, %31"
-#define TF32_R64                                                          \
-  TF32_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
-  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
-  "%57, %58, %59, %60, %61, %62, %63"
-
-// d (+)= A B, m64nNk8 tf32; A from registers (rs) or shared memory (ss),
-// B from shared memory, both K-major; d is overwritten when scale_d is 0
-template <int N>
-__device__ __forceinline__ void tf32_rs(float (&d)[N / 2],
-                                        const uint32_t (&a)[4], uint64_t db,
-                                        int scale_d = 1);
-template <int N>
-__device__ __forceinline__ void tf32_ss(float (&d)[N / 2], uint64_t da,
-                                        uint64_t db, int scale_d = 1);
-
-template <>
-__device__ __forceinline__ void tf32_rs<32>(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" TF32_R16
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : TF32_D16(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void tf32_ss<32>(float (&d)[16], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" TF32_R16
-      "}, %16, %17, p, 1, 1;\n}\n"
-      : TF32_D16(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void tf32_rs<64>(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" TF32_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : TF32_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void tf32_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" TF32_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : TF32_D64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-#undef TF32_D16
-#undef TF32_D32
-#undef TF32_D64
-#undef TF32_R16
-#undef TF32_R32
-#undef TF32_R64
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // ------------------------------------------------------------- the main

@@ -30,12 +30,17 @@ and f32 to the 3xTF32 kernel (``csrc/flash_attention_tf32.cu``: wgmma
 on f32 operands split into tf32 hi + lo, k and v split first into a
 scratch the wrapper allocates, ``tf32_planes_bytes``); every other head
 dim goes to the SIMT kernel (``csrc/flash_attention.cu``, f32 arithmetic
-on the CUDA cores). The backward has two routes, chosen by
-``backward_route``: a dq and a dk/dv kernel each, Hopper
+on the CUDA cores). The backward has three routes by the same rule,
+chosen by ``backward_route``, each a dq and a dk/dv kernel: Hopper
 (``csrc/flash_attention_bwd_wgmma.cu``, bf16 at those head dims; it also
-reads dO through TMA and writes f32 gradients, cast here) or SIMT
-(``csrc/flash_attention.cu``, which writes the inputs' dtype; f32 at
-every head dim, on the lse any forward wrote).
+reads dO through TMA), 3xTF32 (``csrc/flash_attention_bwd_tf32.cu``, f32
+at those head dims; each call first splits the tensors its kernel
+streams, k and v or q and dO, into tf32 hi and lo planes in a scratch
+the wrapper allocates, ``tf32_bwd_planes_bytes``, reading them as
+float4, so they need 16-byte-aligned bases and strides) or SIMT
+(``csrc/flash_attention.cu``, every other head dim in either dtype,
+writing the inputs' dtype). The Hopper and 3xTF32 pairs write f32
+gradients, cast here.
 
 ``work`` counts what the forward or the backward must do, whichever
 kernel does it; the meta routes (``flash_attention_meta``,
@@ -92,11 +97,29 @@ KERNEL_BWD_WGMMA = CudaKernel(
         "flash_attention_bwd_dkv_wgmma": [*([_P] * 8), *([_I] * 6),
                                           *([_L] * 18), _I, ctypes.c_float,
                                           _P]})
+# the 3xTF32 backward: q, k, v, dO, lse, delta, then dq (or dk, dv), the
+# planes' scratch and its bytes, B, Sq, Sk, Hq, Hkv, D, 15 strides (18),
+# causal, scale, stream. dq, dk and dv are f32
+KERNEL_BWD_TF32 = CudaKernel(
+    "flash_attention_bwd_tf32", "flash_attention_bwd_tf32.cu", {
+        "flash_attention_bwd_dq_tf32": [*([_P] * 8), _L, *([_I] * 6),
+                                        *([_L] * 15), _I, ctypes.c_float,
+                                        _P],
+        "flash_attention_bwd_dkv_tf32": [*([_P] * 9), _L, *([_I] * 6),
+                                         *([_L] * 18), _I, ctypes.c_float,
+                                         _P]})
+TF32_BWD_TILE = 32     # kTile in csrc/flash_attention_bwd_tf32.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 # the forward's routes, by the names their launches count under
 FORWARD_ROUTES = ("flash_attention", "flash_attention_wgmma",
                   "flash_attention_tf32")
+# the backward's routes, each the pair of names its dq and dk/dv launches
+# count under: SIMT, Hopper, 3xTF32
+BWD_SIMT = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+BWD_WGMMA = ("flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
+BWD_TF32 = ("flash_attention_bwd_dq_tf32", "flash_attention_bwd_dkv_tf32")
+BACKWARD_ROUTES = (BWD_SIMT, BWD_WGMMA, BWD_TF32)
 
 
 def forward_route(dtype, head_dim: int) -> str:
@@ -117,15 +140,15 @@ def forward_route(dtype, head_dim: int) -> str:
 def backward_route(dtype, head_dim: int) -> tuple:
     """Which CUDA backward takes a call: the names its dq and dk/dv
     launches count under in ``ops.KERNELS`` (each also its C symbol). The
-    Hopper pair (``"flash_attention_bwd_dq_wgmma"``,
-    ``"flash_attention_bwd_dkv_wgmma"``) for bf16 at a head dim in
-    TENSOR_CORE_HEAD_DIMS; the SIMT pair (``"flash_attention_bwd_dq"``,
-    ``"flash_attention_bwd_dkv"``) for f32 at every head dim and for bf16
-    at the others. Its own rule, not the forward's: f32 runs the 3xTF32
-    forward at 64 and 128 but the SIMT backward, on that forward's lse."""
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
-        return "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma"
-    return "flash_attention_bwd_dq", "flash_attention_bwd_dkv"
+    forward's rule: at a head dim in TENSOR_CORE_HEAD_DIMS, the Hopper pair
+    (``BWD_WGMMA``) for bf16 and the 3xTF32 pair (``BWD_TF32``) for f32;
+    the SIMT pair (``BWD_SIMT``) at every other head dim."""
+    if head_dim in TENSOR_CORE_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return BWD_WGMMA
+        if dtype == torch.float32:
+            return BWD_TF32
+    return BWD_SIMT
 
 
 def check_shapes(q, k, v, causal: bool):
@@ -325,17 +348,18 @@ def tf32_planes_bytes(B: int, Sk: int, Hkv: int, D: int) -> int:
     return B * Hkv * tiles * 4 * TF32_KEY_TILE * D * 4
 
 
-def _check_tma(name, t):
-    """TMA reads t: it needs a 16-byte-aligned base and byte strides that
-    are multiples of 16 (a dim of size 1 is never stepped over)."""
+def _check_tma(name, t, reader: str = "TMA"):
+    """TMA (or another 16-byte ``reader``) reads t: it needs a
+    16-byte-aligned base and byte strides that are multiples of 16 (a dim
+    of size 1 is never stepped over)."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned (address % 16 = "
-                         f"{t.data_ptr() % 16}): TMA cannot read it")
+                         f"{t.data_ptr() % 16}): {reader} cannot read it")
     for dim in range(3):
         if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
             raise ValueError(f"{name}'s stride {t.stride(dim)} on dim {dim} "
-                             f"is not a multiple of 16 bytes: TMA cannot "
-                             f"read it")
+                             f"is not a multiple of 16 bytes: {reader} "
+                             f"cannot read it")
 
 
 def _tma_strides(t):
@@ -347,67 +371,100 @@ def _tma_strides(t):
                                                    t.shape[:3])]
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True, *,
+                             route: tuple | None = None):
     """Launch the CUDA backward that ``backward_route`` picks (its dq
     kernel, then its dk/dv kernel); same contract as
     ``flash_attention_bwd_plain``. q/k/v/o/dO may be strided views with a
-    contiguous last axis (on the Hopper route, TMA must be able to read
-    q, k, v and dO: ``_check_tma``); lse is [B, Hq, Sq] f32. delta =
-    rowsum(dO * O) is one f32 torch expression here, as the JAX package
-    computes it outside its kernels. Raises on anything the kernels do not
-    take."""
-    dq, dk, dv = _bwd_cuda_as_written(q, k, v, o, lse, do, causal)
+    contiguous last axis (on the Hopper route TMA must be able to read q,
+    k, v and dO, on the 3xTF32 route the split's float4 loads: 16-byte
+    aligned, ``_check_tma``); lse is [B, Hq, Sq] f32. delta = rowsum(dO *
+    O) is one f32 torch expression here, as the JAX package computes it
+    outside its kernels. ``route`` names a backward pair instead (one of
+    BACKWARD_ROUTES, to time one against another on the same inputs); it
+    raises if that pair does not take the call, as the picked route does
+    for anything its kernels do not take."""
+    dq, dk, dv = _bwd_cuda_as_written(q, k, v, o, lse, do, causal,
+                                      route=route)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_cuda_as_written(q, k, v, o, lse, do, causal: bool = True):
+def tf32_bwd_planes_bytes(B: int, Sq: int, Sk: int, Hq: int, Hkv: int,
+                          D: int) -> tuple:
+    """Scratch the 3xTF32 backward splits its streamed tensors into, per
+    (b, head, tile of TF32_BWD_TILE rows) four tf32 planes (hi and lo of
+    two tensors): (the dq call's, K and V; the dk/dv call's, Q and dO).
+    The wrapper allocates the larger once; the calls use it in turn."""
+    per_tile = 4 * TF32_BWD_TILE * D * 4
+    return (B * Hkv * -(-Sk // TF32_BWD_TILE) * per_tile,
+            B * Hq * -(-Sq // TF32_BWD_TILE) * per_tile)
+
+
+def _bwd_cuda_as_written(q, k, v, o, lse, do, causal: bool = True, *,
+                         route: tuple | None = None):
     """``flash_attention_bwd_cuda``'s (dq, dk, dv) before its cast, as the
-    route's kernels write them: f32 from the Hopper pair, the inputs'
-    dtype from the SIMT pair."""
+    route's kernels write them: f32 from the Hopper and 3xTF32 pairs, the
+    inputs' dtype from the SIMT pair."""
     check_device(q)
     (dq_sym, dkv_sym), (B, Sq, Sk, Hq, Hkv, D) = _backward_plan(
-        q, k, v, o, lse, do, causal)
-    wgmma = dq_sym.endswith("_wgmma")
+        q, k, v, o, lse, do, causal, route)
+    simt = (dq_sym, dkv_sym) == BWD_SIMT
     lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    out = torch.float32 if wgmma else q.dtype
+    out = q.dtype if simt else torch.float32
     dq = torch.empty(B, Sq, Hq, D, dtype=out, device=q.device)
     dk = torch.empty(B, Sk, Hkv, D, dtype=out, device=q.device)
     dv = torch.empty(B, Sk, Hkv, D, dtype=out, device=q.device)
     if dq.numel():
         dims = (B, Sq, Sk, Hq, Hkv, D)
         ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-        if wgmma:
-            lib, tail = KERNEL_BWD_WGMMA, (int(causal), float(D ** -0.5))
+        strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+        tail = (int(causal), float(D ** -0.5))
+        dq_args, dkv_args = [dq.data_ptr()], [dk.data_ptr(), dv.data_ptr()]
+        if simt:
+            lib, tail = KERNEL, (int(causal), _DTYPES[q.dtype], tail[1])
+        elif dq_sym == BWD_WGMMA[0]:
+            lib = KERNEL_BWD_WGMMA
             strides = [s for t in (q, k, v, do) for s in _tma_strides(t)]
         else:
-            lib = KERNEL
-            tail = (int(causal), _DTYPES[q.dtype], float(D ** -0.5))
-            strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
-        lib.launch(dq_sym, q.device, *ptrs, dq.data_ptr(), *dims, *strides,
+            lib = KERNEL_BWD_TF32
+            planes = torch.empty(max(tf32_bwd_planes_bytes(*dims)),
+                                 dtype=torch.uint8, device=q.device)
+            dq_args += [planes.data_ptr(), planes.numel()]
+            dkv_args += [planes.data_ptr(), planes.numel()]
+        lib.launch(dq_sym, q.device, *ptrs, *dq_args, *dims, *strides,
                    *dq.stride()[:3], *tail)
-        lib.launch(dkv_sym, q.device, *ptrs, dk.data_ptr(), dv.data_ptr(),
-                   *dims, *strides, *dk.stride()[:3], *dv.stride()[:3],
-                   *tail)
+        lib.launch(dkv_sym, q.device, *ptrs, *dkv_args, *dims, *strides,
+                   *dk.stride()[:3], *dv.stride()[:3], *tail)
     else:
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
 
 
-def _backward_plan(q, k, v, o, lse, do, causal):
+def _backward_plan(q, k, v, o, lse, do, causal, route=None):
     """The card's checks and route for a backward: (the route's pair of
-    names, dims). The card and the meta route share it."""
+    names, dims). ``route`` names a pair instead of the picked one (the
+    SIMT pair takes any call; another raises where it is not the pick).
+    The card and the meta route share it."""
     B, Sq, Sk, Hq, Hkv, D = _check_kernel_inputs(q, k, v, causal, o=o,
                                                  do=do)
     if (lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq)
             or lse.device != q.device):
         raise ValueError(f"lse must be [B, Hq, Sq] f32 on {q.device}; got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    route = backward_route(q.dtype, D)
-    if route[0].endswith("_wgmma"):
+    picked = backward_route(q.dtype, D)
+    if route is None:
+        route = picked
+    elif tuple(route) not in BACKWARD_ROUTES:
+        raise ValueError(f"unknown flash backward route {route!r}")
+    elif tuple(route) not in (BWD_SIMT, picked):
+        raise ValueError(f"{route} does not take {q.dtype} at head dim {D}")
+    route = tuple(route)
+    if route != BWD_SIMT:
+        reader = "TMA" if route == BWD_WGMMA else "the split's float4 load"
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            _check_tma(name, t)
+            _check_tma(name, t, reader)
     return route, (B, Sq, Sk, Hq, Hkv, D)
 
 

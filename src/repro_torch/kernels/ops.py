@@ -48,6 +48,10 @@ KERNELS = {**_bus.ROUTES,
                _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dq_wgmma"),
            "flash_attention_bwd_dkv_wgmma": (
                _flash.KERNEL_BWD_WGMMA, "flash_attention_bwd_dkv_wgmma"),
+           "flash_attention_bwd_dq_tf32": (
+               _flash.KERNEL_BWD_TF32, "flash_attention_bwd_dq_tf32"),
+           "flash_attention_bwd_dkv_tf32": (
+               _flash.KERNEL_BWD_TF32, "flash_attention_bwd_dkv_tf32"),
            "embedding_bag": (_ebag.KERNEL, "embedding_bag"),
            "embedding_bag_bwd": (_ebag.KERNEL, "embedding_bag_bwd")}
 

@@ -117,11 +117,13 @@ from repro_torch.serving.pq import PQCodebook, pq_decode
 
 # the flash kernels by the names their CUDA functions carry in a profile
 # (each a template instance, so its name holds <D>): forward and backward,
-# Hopper, 3xTF32 (the k/v split and the main kernel) and SIMT routes
+# Hopper, 3xTF32 (each call's split and its main kernel) and SIMT routes
 FLASH_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                "flash_bwd_dkv_wgmma_kernel", "split_kv_kernel",
-               "flash_fwd_tf32_kernel", "flash_fwd_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+               "flash_fwd_tf32_kernel", "split_planes_kernel",
+               "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
+               "flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel")
 # the EmbeddingBag's: the forward, and the backward's three passes
 EBAG_NAMES = ("embedding_bag_kernel", "ebag_bwd_keys_kernel",
               "ebag_bwd_chunk_kernel", "ebag_bwd_combine_kernel")

@@ -341,12 +341,15 @@ def test_plain_backward_returns_f32_before_its_cast():
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.bfloat16, 48, "simt"), (torch.bfloat16, 80, "simt"),
     (torch.bfloat16, 96, "simt"), (torch.bfloat16, 112, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32"), (torch.float32, 128, "tf32"),
 ])
 def test_backward_route_by_dtype_and_head_dim(dtype, head_dim, route):
     # the route is named by the counters its dq and dk/dv launches go to
+    # (f32 at 64 and 128 on the 3xTF32 pair)
     names = {"wgmma": ("flash_attention_bwd_dq_wgmma",
                        "flash_attention_bwd_dkv_wgmma"),
+             "tf32": ("flash_attention_bwd_dq_tf32",
+                      "flash_attention_bwd_dkv_tf32"),
              "simt": ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
     assert flash_mod.backward_route(dtype, head_dim) == names[route]
     assert all(name in ops.KERNELS for name in names[route])

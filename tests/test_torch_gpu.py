@@ -757,8 +757,8 @@ def test_flash_tf32_reads_strided_and_misaligned_views(cuda):
 
 def test_flash_simt_named_on_the_tf32_route_matches_plain(cuda):
     # the SIMT forward on an f32 call the 3xTF32 kernel takes (the timing
-    # yardstick chip_smoke.py uses), and the f32 backward on the new
-    # forward's lse
+    # yardstick chip_smoke.py uses), and the f32 backward (the 3xTF32
+    # pair) on the 3xTF32 forward's lse
     q, k, v, _, _, do = _flash_bwd_inputs(1, 512, 512, 8, 2, 128, cuda,
                                           torch.float32, True)
     before = ops.launch_counts()
@@ -1009,17 +1009,131 @@ def test_flash_bwd_wgmma_refuses_a_misaligned_view(cuda):
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 32),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128),
+                                     (torch.float32, 64),
+                                     (torch.float32, 96)])
 def test_flash_backward_launches_count_by_route(cuda, dtype, D):
+    # f32 at 64 and 128 on the 3xTF32 pair, at 96 on the SIMT pair
     route = flash_mod.backward_route(dtype, D)
+    assert (route == flash_mod.BWD_TF32) == (dtype == torch.float32
+                                             and D in (64, 128))
     args = _flash_bwd_inputs(1, 128, 128, 4, 2, D, cuda, dtype, True)
-    names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-             "flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma")
+    names = [n for pair in flash_mod.BACKWARD_ROUTES for n in pair]
     before = ops.launch_counts()
     flash_mod.flash_attention_bwd_cuda(*args, True)
     after = ops.launch_counts()
     assert {n: after[n] - before[n] for n in names} == \
         {n: int(n in route) for n in names}
+
+
+def _hold_tf32_bwd(args, causal):
+    """The 3xTF32 pair on ``args`` (q, k, v, o, lse, dO; f32) against
+    plain: each gradient within BWD_F32_REL of plain's largest, and a
+    kernel that lost the last key tile missing that limit; launched once
+    each. Returns the gradients."""
+    before = ops.launch_counts()
+    got = flash_mod._bwd_cuda_as_written(*args, causal)
+    after = ops.launch_counts()
+    exp = flash_mod._bwd_plain_f32(*args, causal)
+    controls = _without_last_key_tile(*args, causal, exp)
+    torch.cuda.synchronize()
+    assert {n: after[n] - before[n] for n in flash_mod.BWD_TF32} == \
+        dict.fromkeys(flash_mod.BWD_TF32, 1)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, exp, controls):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _f32_rel(a, b) <= BWD_F32_REL, name
+        assert _f32_rel(c, b) > BWD_F32_REL, name
+    return got
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (2, 256, 256, 8, 2, 64),      # GQA 4:1
+    (2, 100, 300, 4, 2, 64),      # ragged tiles, q_off = 200
+    (2, 200, 333, 8, 2, 128),     # Sk no multiple of the 32- or 64-row tiles
+    (1, 1, 300, 8, 2, 128),       # one query row over 300 keys
+    (1, 1024, 1024, 40, 8, 128),  # Qwen3-14B's heads
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_tf32_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D,
+                                                causal):
+    args = _flash_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, cuda, torch.float32,
+                             causal)
+    _hold_tf32_bwd(args, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_tf32_is_bitwise_deterministic(cuda, causal):
+    # each gradient has one owner and fixed sums: two runs agree bit for
+    # bit
+    args = _flash_bwd_inputs(2, 640, 640, 40, 8, 128, cuda, torch.float32,
+                             causal)
+    first = flash_mod._bwd_cuda_as_written(*args, causal)
+    second = flash_mod._bwd_cuda_as_written(*args, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_bwd_tf32_reads_strided_views(cuda):
+    # q/k/v as slices of one fused projection and dO a slice of a wider
+    # tensor, read through their strides (16-byte aligned: the splits'
+    # float4 loads)
+    B, S, Hq, Hkv, D = 2, 320, 8, 2, 128
+    qkv = torch.randn(B, S, Hq + 2 * Hkv, D, device=cuda)
+    q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
+    do = torch.randn(B, S, 2 * Hq, D, device=cuda)[:, :, :Hq]
+    assert not (q.is_contiguous() or do.is_contiguous())
+    o, lse = flash_mod.flash_attention_cuda(q, k, v, True)
+    _hold_tf32_bwd((q, k, v, o, lse, do), True)
+
+
+def test_flash_bwd_tf32_refuses_a_misaligned_view(cuda):
+    q, k, v, o, lse, do = _flash_bwd_inputs(1, 64, 64, 4, 2, 128, cuda,
+                                            torch.float32, True)
+    bwd = flash_mod.flash_attention_bwd_cuda
+    before = ops.launch_counts()
+    # a dO base 4 bytes past a 16-byte boundary
+    flat = torch.empty(do.numel() + 4, device=cuda)
+    shifted = flat[1:do.numel() + 1].view(do.shape).copy_(do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bwd(q, k, v, o, lse, shifted, True)
+    # a head stride of 130 elements: 520 bytes, no multiple of 16
+    wide = torch.zeros(1, 64, 2, 130, device=cuda)[..., :128].copy_(k)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        bwd(q, wide, v, o, lse, do, True)
+    # refused before any launch: nothing falls back to SIMT or plain
+    assert ops.launch_counts() == before
+
+
+def test_flash_bwd_named_routes(cuda):
+    # naming the SIMT pair on an f32 call at head dim 128 runs it (the
+    # smoke's yardstick), within the same limit of plain; naming the
+    # 3xTF32 pair where it is not the pick raises before any launch
+    args = _flash_bwd_inputs(1, 256, 256, 8, 2, 128, cuda, torch.float32,
+                             True)
+    before = ops.launch_counts()
+    got = flash_mod.flash_attention_bwd_cuda(*args, True,
+                                             route=flash_mod.BWD_SIMT)
+    after = ops.launch_counts()
+    names = [n for pair in flash_mod.BACKWARD_ROUTES for n in pair]
+    assert {n: after[n] - before[n] for n in names} == \
+        {n: int(n in flash_mod.BWD_SIMT) for n in names}
+    exp = flash_mod._bwd_plain_f32(*args, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert _f32_rel(a, b) <= BWD_F32_REL, name
+    bf16 = _flash_bwd_inputs(1, 64, 64, 4, 2, 128, cuda, torch.bfloat16,
+                             True)
+    d96 = _flash_bwd_inputs(1, 64, 64, 4, 2, 96, cuda, torch.float32, True)
+    before = ops.launch_counts()
+    for call in (bf16, d96):
+        with pytest.raises(ValueError, match="does not take"):
+            flash_mod.flash_attention_bwd_cuda(*call, True,
+                                               route=flash_mod.BWD_TF32)
+    with pytest.raises(ValueError, match="does not take"):
+        flash_mod.flash_attention_bwd_cuda(*args, True,
+                                           route=flash_mod.BWD_WGMMA)
+    with pytest.raises(ValueError, match="unknown"):
+        flash_mod.flash_attention_bwd_cuda(*args, True, route=("x", "y"))
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -176,6 +176,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors():
                                    "flash_attention_bwd_dkv": 0,
                                    "flash_attention_bwd_dq_wgmma": 0,
                                    "flash_attention_bwd_dkv_wgmma": 0,
+                                   "flash_attention_bwd_dq_tf32": 0,
+                                   "flash_attention_bwd_dkv_tf32": 0,
                                    "embedding_bag": 0,
                                    "embedding_bag_bwd": 0}
 
