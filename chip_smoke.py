@@ -163,6 +163,43 @@ Phases, each of which exits non-zero on failure:
               the crash, 2 after the resume), none on the SIMT pair.
               Prints the snapshot's bytes and the seconds and GB/s of the
               save, the restore and the async snapshot beside the card.
+  7b. mesh    SpeedyFeed on a data mesh, on the one card (the machine has
+              one H100, so NCCL across cards is not exercised here), after
+              the train phase's state is freed. (a) The served IVF-PQ
+              snapshot and an IVF-Flat build of the same embeddings (nlist
+              64, nprobe 16), each ``shard_snapshot`` over MESH_SHARDS
+              devices (``cuda:0`` repeated): the serving batch's top-10
+              ids equal to the unsharded snapshot's, scores within 1e-4 of
+              the largest (at least 1); a sharded IVF-PQ search launches
+              the tiled PQ scan once a shard (counted from 0 around one
+              search), each shard's scan held to plain (TOL_PQ) on its own
+              window; ``unshard_snapshot`` gives the build back. (b)
+              ``run_on_mesh`` spawns MESH_RANKS gloo ranks on ``cuda:0``
+              (on a thread: they import and join their group while the
+              parent runs the one-process PROD step from ``init_state(0)``
+              on the top-bucket batch with seeded draws injected, 3 steps,
+              then frees what it holds, prints what stays resident and
+              lets them allocate), each the ``"speedyfeed"`` Trainer on
+              its mesh from the same state, batch and draws (1 warm-up,
+              MESH_TIMED synchronised steps, each rank encoding E /
+              MESH_RANKS rows): every rank's losses within TOL_MESH of the
+              one process's; after the first step the ranks' parameters
+              equal and within TOL_MESH of each leaf's largest magnitude
+              of the one process's (the leaves that start at 0, the
+              biases, against the largest of any leaf: Adam's first step
+              on a near-eps gradient), each rank's cache block the one
+              process's rows (written_step exactly); each rank exactly 2 x
+              12 forward and 12 backward bus launches a step (remat), none
+              on the SIMT pair, added to the bus rows'
+              ``launches_by_path["mesh"]``; each rank's peak memory and
+              the step time. A checkpoint of the mesh state (rank 0
+              gathers the cache rows and writes under
+              build/mesh_ckpt_smoke, removed after), restored in the
+              parent on one device, every leaf's digest the mesh's. One
+              ``compressed_all_reduce`` of seeded CUDA gradients (PROD's
+              attention and FFN shapes) across the ranks, within one
+              quantisation step of numpy's evaluation of JAX's formula.
+              Prints the phase's seconds, held under MESH_PHASE_S.
   8. conventional the conventional workflow (the paper's baseline) at
               PROD, full width and depth, remat, f32: the registry's
               ``"speedyfeed_conventional"`` Trainer and one
@@ -404,6 +441,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -598,6 +636,16 @@ TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
 TOL_RS_B4R_CPU = 1e-4
 RS_B4R_CPU_ROWS = 4
 
+# the mesh phase: MESH_RANKS gloo ranks share cuda:0 (the machine has one
+# card), each encoding E / MESH_RANKS rows of PROD's step; 1 warm-up and
+# MESH_TIMED synchronised steps, held to the one-process step (losses, and
+# each parameter leaf after the warm-up within TOL_MESH of its largest
+# magnitude); the phase under MESH_PHASE_S seconds
+MESH_RANKS, MESH_TIMED, TOL_MESH, MESH_PHASE_S = 4, 2, 1e-4, 150.0
+# the sharded index: shards over the one card; the int8 reduction's
+# gradients (PROD's attention and FFN shapes)
+MESH_SHARDS = 4
+MESH_INT8_SHAPES = {"attn_q_w": (768, 768), "ffn_up_w": (768, 3072)}
 
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -3497,6 +3545,425 @@ def roofline_phase(torch, dev, ops):
     return rep, launches
 
 
+def digest_leaves(torch, tree) -> dict:
+    """{path: (sum, index-weighted sum) of the leaf's 32-bit words} of a
+    tree of 4-byte tensors, on their device (int64, wrapping): equal
+    leaves give equal digests, and a changed word changes both sums but
+    for collisions no test relies on. By chunks of 2^24 words, so the
+    int64 temporaries stay small."""
+    from repro_torch.optim.adam import leaves
+    out = {}
+    for p, t in leaves(tree):
+        words = t.detach().contiguous().view(-1).view(torch.int32)
+        h1 = h2 = 0
+        for start in range(0, words.numel(), 1 << 24):
+            c = words[start:start + (1 << 24)].long()
+            w = torch.arange(start + 1, start + 1 + c.numel(),
+                             device=c.device, dtype=torch.int64)
+            h1 += int(c.sum())
+            h2 += int((c * w).sum())
+        out[p] = (h1, h2)
+    return out
+
+
+def mesh_rank(mesh, batch, draws, ckpt_dir, int8_seed, go):
+    """One rank of the mesh phase (``run_on_mesh``; imports in here, as a
+    spawned process starts bare), once the file ``go`` exists (the parent
+    writes it when the card is free): PROD's Trainer on the mesh, the state
+    placed from seed 0, 1 + MESH_TIMED steps on the top-bucket batch with
+    the draws injected, the state after the first for the parent's hold,
+    a checkpoint gathered to rank 0, and one int8 reduction."""
+    import numpy as np
+    import torch
+    from repro_torch import core, training
+    from repro_torch.configs import PROD
+    from repro_torch.distributed.collectives import barrier
+    from repro_torch.kernels import ops
+    from repro_torch.optim import compressed_all_reduce
+    from repro_torch.optim.adam import leaves
+    marks = {"entered": time.time()}      # wall clock, the parent's too
+    # the parent's one-process steps hold the card until it writes ``go``
+    go, waited = pathlib.Path(go), time.time()
+    while not go.exists():
+        if time.time() - waited > 600:
+            raise TimeoutError(f"rank {mesh.rank}: no {go} in 600 s")
+        time.sleep(0.05)
+    marks["go"] = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"mesh rank {mesh.rank} is on {dev}, not a card")
+    trainer = training.get_trainer("speedyfeed", cfg=PROD, mesh=mesh)
+    state = trainer.init_state(seed=0)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    marks["placed"] = time.time()
+    out = {"rank": mesh.rank, "losses": [], "step_s": [], "marks": marks,
+           "cache_rows": int(state.cache.emb.shape[0])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i, (u, neg) in enumerate(draws):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, tb, None, u=u, neg_idx=torch.as_tensor(
+            neg, device=dev))
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        barrier(mesh)
+        out["step_s"].append(time.perf_counter() - t0)
+        if i == 0:           # the state after the warm-up, for the hold
+            ws = state.cache.written_step
+            rows = torch.nonzero(ws != core.NEVER).flatten()
+            # copies: the next steps update the state in place
+            out["after_1"] = {
+                "written_ids": rows + mesh.rank * ws.shape[0],
+                "written_rows": state.cache.emb[rows],
+                "written_step": ws.to("cpu", copy=True),
+                "unwritten_max": float(state.cache.emb[ws == core.NEVER]
+                                       .abs().max()),
+                "params": ([t.detach().to("cpu", copy=True)
+                            for _, t in leaves(state.params)]
+                           if mesh.rank == 0 else None),
+                "params_digest": digest_leaves(torch, state.params)}
+    torch.cuda.synchronize()
+    marks["stepped"] = time.time()
+    out["launches"] = ops.launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step"] = state.step
+    # the checkpoint: rank 0 gathers the cache rows and writes
+    t0 = time.perf_counter()
+    training.save_state(ckpt_dir, state.step, state,
+                        shardings=trainer.state_shardings)
+    out["save_s"] = time.perf_counter() - t0
+    out["digest"] = {"cache": digest_leaves(torch, {
+        "emb": state.cache.emb, "written_step": state.cache.written_step})}
+    if mesh.rank == 0:
+        out["digest"]["params"] = digest_leaves(torch, state.params)
+        out["digest"]["opt"] = digest_leaves(torch, state.opt)
+    marks["saved"] = time.time()
+    del state, tb
+    # the int8 reduction of CUDA gradients, seeded by rank
+    g = torch.Generator(device=dev).manual_seed(int8_seed + mesh.rank)
+    grads = {k: torch.randn(shape, generator=g, device=dev)
+             * 10.0 ** (-3 + mesh.rank)
+             for k, shape in MESH_INT8_SHAPES.items()}
+    reduced, residual = compressed_all_reduce(
+        grads, mesh, {k: torch.zeros_like(v) for k, v in grads.items()})
+    torch.cuda.synchronize()
+    out["int8"] = {"grads": grads, "reduced": reduced,
+                   "residual": residual}
+    marks["returned"] = time.time()
+    return out
+
+
+def mesh_serve(torch, np, dev, snap, emb, user):
+    """The sharded index of the mesh phase on the slice's build: IVF-PQ
+    (the served snapshot) and IVF-Flat over the same embeddings, each in
+    MESH_SHARDS shards on the one card, against the unsharded search of
+    the serving batch ``user``. Returns (report, PQ launches of the
+    sharded search)."""
+    from repro_torch import serving
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pq_scoring import pq_lut_scores_plain
+    devices = [dev] * MESH_SHARDS
+    flat = serving.IndexBuilder(
+        "ivf-flat", emb.shape[1], ivf=serving.IVFConfig(
+            nlist=snap.cent_unit.shape[0], nprobe=snap.nprobe,
+            metric=snap.metric), device=dev).build(
+        np.arange(1, emb.shape[0]), emb[1:])
+    rep, launches = {}, {}
+    for kind, one in (("ivf-pq", snap), ("ivf-flat", flat)):
+        t0 = time.perf_counter()
+        sharded = serving.shard_snapshot(one, devices)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        s_ref, i_ref = one.search(user, 10)
+        sharded.search(user, 10)                  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        s_got, i_got = sharded.search(user, 10)
+        torch.cuda.synchronize()
+        search_ms = (time.perf_counter() - t0) * 1e3
+        now = ops.launch_counts()
+        launches[kind] = {n: now[n] for n in ("pq_lut_scores",
+                                              "pq_lut_scores_general")}
+        t0 = time.perf_counter()
+        one.search(user, 10)
+        torch.cuda.synchronize()
+        r = {"shards": sharded.n_shards,
+             "rows_per_shard": sharded.rows_per_shard, "cap": sharded.cap,
+             "shard_s": shard_s, "search_ms": search_ms,
+             "unsharded_search_ms": (time.perf_counter() - t0) * 1e3,
+             "ids_equal": bool(torch.equal(i_got, i_ref)),
+             "score_max_abs_err": float((s_got - s_ref).abs().max()),
+             "score_max_abs": float(s_ref[torch.isfinite(s_ref)]
+                                    .abs().max()),
+             "launches": launches[kind]}
+        # scores within 1e-4 of the largest (at least 1): IVF-Flat sums
+        # d=768 products in another order (the unsharded scan scores
+        # every cell in one GEMM, a shard its gathered window)
+        r["score_max_rel_err"] = r["score_max_abs_err"] / max(
+            1.0, r["score_max_abs"])
+        check(r["ids_equal"], f"mesh: sharded {kind} top-10 ids differ "
+              "from the unsharded snapshot's")
+        check(r["score_max_rel_err"] <= 1e-4,
+              f"mesh: sharded {kind} scores differ by "
+              f"{r['score_max_abs_err']} of {r['score_max_abs']}")
+        want = MESH_SHARDS if kind == "ivf-pq" else 0
+        check(launches[kind] == {"pq_lut_scores": want,
+                                 "pq_lut_scores_general": 0},
+              f"mesh: sharded {kind} search launched {launches[kind]}, "
+              f"expected {want} tiled scans")
+        if kind == "ivf-pq":
+            # each shard's scan on its own window, against plain
+            q = torch.as_tensor(user, dtype=torch.float32, device=dev)
+            probes, lut, _ = sharded.probe(q)
+            errs = []
+            for s_ in range(sharded.n_shards):
+                local, _, valid = sharded.window(s_, probes)
+                codes = sharded.payload_s[s_][local].reshape(
+                    q.shape[0], -1, sharded.dim_codes)
+                got = ops.pq_lut_scores(lut, codes, valid)
+                exp = pq_lut_scores_plain(lut, codes, valid)
+                fin = torch.isfinite(exp)
+                check(torch.equal(fin, torch.isfinite(got)),
+                      f"mesh: shard {s_}'s scan masks other slots")
+                errs.append(float((got[fin] - exp[fin]).abs().max())
+                            if fin.any() else 0.0)
+                check(errs[-1] <= TOL_PQ, f"mesh: shard {s_}'s scan "
+                      f"differs from plain by {errs[-1]}")
+            r["shard_scan_max_abs_err"] = errs
+            r["shard_scan_shape"] = [int(q.shape[0]), int(codes.shape[1]),
+                                     int(codes.shape[2])]
+        unsharded = serving.unshard_snapshot(sharded)
+        check(all(torch.equal(getattr(unsharded, n), getattr(one, n))
+                  for n in ("list_ids", "payload", "lens")),
+              f"mesh: unshard_snapshot of {kind} differs from the build")
+        rep[kind] = r
+        del sharded, unsharded
+    del flat
+    return rep, launches["ivf-pq"]
+
+
+def mesh_train(torch, np, dev, cfg, card, top_np):
+    """The training half of the mesh phase (module docstring, phase 7b).
+    Returns (report, bus launches summed over the ranks)."""
+    import shutil
+
+    from repro_torch import core, training
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.optim.adam import leaves
+    batch = {k: v for k, v in top_np.items() if not k.startswith("_")}
+    g = np.random.default_rng(33)
+    B, L = batch["hist_mask"].shape
+    draws = [(float(g.random()), g.integers(1, cfg.merged_cap,
+                                            (B, L - 1, cfg.n_neg)))
+             for _ in range(1 + MESH_TIMED)]
+    rep = {"ranks": MESH_RANKS, "rows_per_rank": cfg.cache.encode_budget
+           // MESH_RANKS, "users": B, "bucket": int(top_np["_bucket"])}
+    root = ROOT / "build" / "mesh_ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # the ranks start now: a process takes ~10 s to import torch and reach
+    # the card there, so they start (and join their group) while the
+    # one-process steps below run, and wait for ``go`` before they
+    # allocate; ``run_on_mesh`` blocks, so it runs on a thread
+    go, ranks = root / "go", {}
+
+    def spawn():
+        try:
+            ranks["out"] = run_on_mesh(
+                mesh_rank, MESH_RANKS, [card0] * MESH_RANKS, "gloo",
+                args=(batch, draws, str(root), 7, str(go)), timeout=600.0)
+        except BaseException as e:      # raised again on the main thread
+            ranks["error"] = e
+
+    card0 = f"cuda:{torch.cuda.current_device()}"
+    t0, spawned = time.perf_counter(), time.time()
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    try:
+        # the one-process step from the same state, batch and draws
+        trainer = training.get_trainer("speedyfeed", cfg=cfg, device=dev)
+        state = trainer.init_state(seed=0)
+        # leaves that start at 0 (the biases): after one Adam step an
+        # entry is lr * g / (|g| + eps), which the gradient's summation
+        # order moves by percents of lr where |g| is near eps; they are
+        # read against the largest leaf, as the key biases are in
+        # ``grad_agreement``
+        zero_init = {n for n, t in leaves(state.params)
+                     if not bool(t.any())}
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        ref_losses, ref_s = [], []
+        for i, (u, neg) in enumerate(draws):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = trainer.step(state, tb, None, u=u,
+                                    neg_idx=torch.as_tensor(neg, device=dev))
+            ref_losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ref_s.append(time.perf_counter() - t1)
+            if i == 0:
+                # copies: the next steps update the state in place
+                names = [n for n, _ in leaves(state.params)]
+                ref_params = [t.detach().to("cpu", copy=True).numpy()
+                              for _, t in leaves(state.params)]
+                ref_emb = state.cache.emb.to("cpu", copy=True).numpy()
+                ref_ws = state.cache.written_step.to(
+                    "cpu", copy=True).numpy()
+        rep["one_process"] = {"losses": ref_losses, "step_s": ref_s}
+        del trainer, state, tb, m
+        gc_collect(torch)
+        rep["parent_resident_gb"] = {
+            "allocated": torch.cuda.memory_allocated() / 1e9,
+            "reserved": torch.cuda.memory_reserved() / 1e9,
+            "card_used": (torch.cuda.mem_get_info()[1]
+                          - torch.cuda.mem_get_info()[0]) / 1e9}
+        print("mesh: before the ranks allocate, resident " + json.dumps(
+            rep["parent_resident_gb"]), flush=True)
+        go.touch()
+        rep["go_s"] = time.time() - spawned
+        thread.join()
+        if "error" in ranks:
+            raise ranks["error"]
+        out = ranks["out"]
+        rep["ranks_s"] = time.perf_counter() - t0
+        # where the ranks' seconds went: the slowest rank to each mark,
+        # from the spawn (wall clock), and the results' way back
+        rep["ranks_timeline_s"] = {
+            k: max(r["marks"][k] for r in out) - spawned
+            for k in out[0]["marks"]}
+        rep["ranks_timeline_s"]["joined"] = time.time() - spawned
+        print("mesh: ranks " + json.dumps(
+            {"losses": [r["losses"] for r in out], "one_process": ref_losses,
+             "step_s": [r["step_s"] for r in out], "one_process_s": ref_s,
+             "peak_gb": [r["peak_gb"] for r in out],
+             "save_s": [r["save_s"] for r in out]}), flush=True)
+        # losses: every rank's against the one process
+        for r in out:
+            err = float(np.abs(np.array(r["losses"])
+                               - np.array(ref_losses)).max())
+            check(err <= TOL_MESH, f"mesh: rank {r['rank']}'s losses "
+                  f"{r['losses']} vs one process {ref_losses}")
+        rep["losses"] = out[0]["losses"]
+        rep["loss_max_abs_err"] = max(
+            float(np.abs(np.array(r["losses"]) - np.array(ref_losses)).max())
+            for r in out)
+        # after one step: parameters on every rank the same, within
+        # TOL_MESH of each leaf's largest magnitude of the one process; the
+        # leaves that start at 0 (``zero_init``, the key biases among
+        # them) against the largest of any leaf, their own worst read
+        check(all(r["after_1"]["params_digest"] == out[0]["after_1"][
+            "params_digest"] for r in out), "mesh: ranks' parameters differ")
+        top_mag = max(float(np.abs(b).max()) for b in ref_params)
+        err = {n: float(np.abs(a - b).max()) for n, a, b in
+               zip(names, out[0]["after_1"]["params"], ref_params)}
+        own = {n: err[n] / max(float(np.abs(b).max()), 1e-30)
+               for n, b in zip(names, ref_params)}
+        rel = {n: err[n] / top_mag if n in zero_init else own[n]
+               for n in names}
+        worst = max(rel, key=rel.get)
+        worst_zero = max(zero_init, key=own.get)
+        rep.update(param_max_rel_err=rel[worst], param_worst_leaf=worst,
+                   zero_init_leaves=len(zero_init),
+                   zero_init_worst_own_rel=[worst_zero, own[worst_zero]])
+        check(rel[worst] <= TOL_MESH, f"mesh: parameter leaf {worst} "
+              f"differs by {rel[worst]} after one step")
+        # each rank's cache block: the one process's rows
+        rows = cfg.cache.n_news // MESH_RANKS
+        worst = 0.0
+        for r in out:
+            a1, lo = r["after_1"], r["rank"] * rows
+            check(r["cache_rows"] == rows, f"mesh: rank {r['rank']} holds "
+                  f"{r['cache_rows']} cache rows, expected {rows}")
+            check(np.array_equal(a1["written_step"], ref_ws[lo:lo + rows]),
+                  f"mesh: rank {r['rank']}'s written_step block differs")
+            check(a1["unwritten_max"] == 0.0 and np.count_nonzero(
+                ref_emb[lo:lo + rows][ref_ws[lo:lo + rows]
+                                      == int(core.NEVER)]) == 0,
+                  f"mesh: rank {r['rank']}'s unwritten rows are not zero")
+            if len(a1["written_ids"]):
+                worst = max(worst, float(np.abs(
+                    a1["written_rows"] - ref_emb[a1["written_ids"]]).max()))
+        rep["cache_rows_written"] = sum(len(r["after_1"]["written_ids"])
+                                        for r in out)
+        rep["cache_max_abs_err"] = worst
+        check(worst <= TOL_MESH, f"mesh: cache rows differ by {worst}")
+        # the ranks' kernels: the bus pair on every rank, 2 x L forward
+        # (remat) and L backward a step, none on the SIMT pair
+        L, n_steps = cfg.plm.n_layers, 1 + MESH_TIMED
+        for r in out:
+            c = r["launches"]
+            check(c["bus_attention"] == 2 * L * n_steps
+                  and c["bus_attention_bwd"] == L * n_steps
+                  and c["bus_attention_simt"] == 0
+                  and c["bus_attention_bwd_simt"] == 0,
+                  f"mesh: rank {r['rank']} launched {c}")
+        launches = {n: sum(r["launches"][n] for r in out)
+                    for n in ("bus_attention", "bus_attention_bwd")}
+        step_s = [max(r["step_s"][i] for r in out)
+                  for i in range(1, n_steps)]
+        rep.update({
+            "launches_by_rank": [{n: r["launches"][n] for n in launches}
+                                 for r in out],
+            "peak_gb_by_rank": [r["peak_gb"] for r in out],
+            "warmup_s": max(r["step_s"][0] for r in out),
+            "step_s": step_s, "s_per_step": float(np.mean(step_s)),
+            "one_process_s_per_step": float(np.mean(ref_s[1:])),
+            "save_s": max(r["save_s"] for r in out)})
+        # the checkpoint, restored on one device: leaf for leaf the mesh's
+        like = training.get_trainer("speedyfeed", cfg=cfg,
+                                    device=dev).init_state(seed=1)
+        t0 = time.perf_counter()
+        step, got = training.restore_state(str(root), like)
+        torch.cuda.synchronize()
+        rep["restore_s"] = time.perf_counter() - t0
+        check(step == got.step == out[0]["step"],
+              f"mesh: restored step {step}, saved {out[0]['step']}")
+        check(digest_leaves(torch, got.params) == out[0]["digest"]["params"]
+              and digest_leaves(torch, got.opt) == out[0]["digest"]["opt"],
+              "mesh: restored parameters or moments differ from the mesh's")
+        for r in out:
+            lo = r["rank"] * rows
+            check(digest_leaves(torch, {
+                "emb": got.cache.emb[lo:lo + rows],
+                "written_step": got.cache.written_step[lo:lo + rows]})
+                == r["digest"]["cache"],
+                f"mesh: restored cache rows of rank {r['rank']} differ")
+        rep["ckpt_leaves_equal"] = True
+        del like, got
+        # the int8 reduction against numpy's evaluation of JAX's formula
+        int8 = {}
+        for k in MESH_INT8_SHAPES:
+            gs = [r["int8"]["grads"][k].astype(np.float32) for r in out]
+            scales = [np.float32(max(np.abs(x).max(), np.float32(1e-12)))
+                      / np.float32(127.0) for x in gs]
+            qs = [np.clip(np.round(x / s_), -127, 127).astype(np.int32)
+                  for x, s_ in zip(gs, scales)]
+            ss = np.float32(max(scales))
+            want = (np.sum(qs, axis=0).astype(np.float32) * ss
+                    / np.float32(MESH_RANKS))
+            err = max(float(np.abs(r["int8"]["reduced"][k] - want).max())
+                      for r in out)
+            # each rank's residual within one step of its own scale (a
+            # code one apart where x / scale lies on a rounding edge)
+            res = max(float(np.abs(r["int8"]["residual"][k]
+                                   - (x - q * s_)).max() / s_)
+                      for r, x, q, s_ in zip(out, gs, qs, scales))
+            int8[k] = {"max_abs_err": err, "step": float(ss),
+                       "residual_max_err_in_steps": res}
+            check(err <= ss and res <= 1.0 + 1e-3,
+                  f"mesh: int8 reduction of {k} differs: {int8[k]}")
+        rep["int8"] = int8
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep["card"] = card
+    return rep, launches
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -3786,9 +4253,12 @@ def main() -> int:
 
     # ------------------------------------------------------------ train
     # the slice's store, read by the DynamicBatcher with the paper's token
-    # budget; the PROD Trainer from the registry, as a user would call it
+    # budget; its first top-bucket batch (the mesh phase's too); the PROD
+    # Trainer from the registry, as a user would call it
     lcfg = dataclasses.replace(serve_lcfg,
                                token_budget=data.LoaderConfig.token_budget)
+    top = max(lcfg.buckets)
+    top_np = first_batch_of_bucket(log, store, lcfg, top)
     del rec, svc
     torch.cuda.empty_cache()
     trainer = training.get_trainer("speedyfeed", cfg=cfg, device=dev)
@@ -3843,10 +4313,8 @@ def main() -> int:
           "training sent a bus launch to the SIMT kernels")
 
     # steady state: synchronised steps on one top-bucket batch
-    top = max(lcfg.buckets)
     top_batch = {k: torch.as_tensor(v, device=dev) for k, v in
-                 first_batch_of_bucket(log, store, lcfg, top).items()
-                 if not k.startswith("_")}
+                 top_np.items() if not k.startswith("_")}
     step_s, enc = [], []
     for _ in range(TIMED_STEPS):
         torch.cuda.synchronize()
@@ -3907,6 +4375,21 @@ def main() -> int:
     del trainer, state, res, watch, now, neg
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- mesh
+    # after the train phase, whose steps warmed this process's libraries;
+    # the serving half on the slice's snapshot, embeddings and a batch
+    t_mesh = time.perf_counter()
+    mesh_serve_rep, mesh_pq = mesh_serve(torch, np, dev, snap, emb, user)
+    gc_collect(torch)
+    report["mesh"], mesh_bus = mesh_train(torch, np, dev, cfg, card, top_np)
+    report["mesh"]["serve"] = mesh_serve_rep
+    report["mesh"]["wall_s"] = time.perf_counter() - t_mesh
+    print("mesh: " + json.dumps(report["mesh"]), flush=True)
+    check(report["mesh"]["wall_s"] <= MESH_PHASE_S,
+          f"mesh: the phase took {report['mesh']['wall_s']:.1f} s, over "
+          f"{MESH_PHASE_S}")
+    gc_collect(torch)
     report["conventional"], conv_launches = conventional_phase(
         torch, np, dev, cfg, card, log, store, lcfg)
 
@@ -4119,12 +4602,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/bus_attention.py:92",
         "launches": launches["bus_attention"]
         + train_launches["bus_attention"] + ckpt_launches["bus_attention"]
-        + conv_launches["bus_attention"] + quality_sum("bus_attention"),
+        + conv_launches["bus_attention"] + quality_sum("bus_attention")
+        + mesh_bus["bus_attention"],
         "launches_by_path": {"serve": launches["bus_attention"],
                              "train": train_launches["bus_attention"],
                              "ckpt": ckpt_launches["bus_attention"],
                              "conventional": conv_launches["bus_attention"],
-                             "quality": quality_by("bus_attention")},
+                             "quality": quality_by("bus_attention"),
+                             "mesh": mesh_bus["bus_attention"]},
         **fwd_row})
     del q, k, v, kv_mask
 
@@ -4138,13 +4623,14 @@ def main() -> int:
         "launches": train_launches["bus_attention_bwd"]
         + ckpt_launches["bus_attention_bwd"]
         + conv_launches["bus_attention_bwd"]
-        + quality_sum("bus_attention_bwd"),
+        + quality_sum("bus_attention_bwd") + mesh_bus["bus_attention_bwd"],
         "launches_by_path": {"serve": launches["bus_attention_bwd"],
                              "train": train_launches["bus_attention_bwd"],
                              "ckpt": ckpt_launches["bus_attention_bwd"],
                              "conventional":
                              conv_launches["bus_attention_bwd"],
-                             "quality": quality_by("bus_attention_bwd")},
+                             "quality": quality_by("bus_attention_bwd"),
+                             "mesh": mesh_bus["bus_attention_bwd"]},
         **on_route(ops, tc_bwd, lambda: bus_bwd_row(torch, qb, kb, vb, mb,
                                                     dob))})
     # the forward at the step's shape (a step launches it 24 times with
@@ -4270,7 +4756,8 @@ def main() -> int:
         del x
     print("pq: " + json.dumps(pq), flush=True)
     pq_launches = {n: {"serve": launches[n], "train": train_launches[n],
-                       "serve_front": front_launches[n]}
+                       "serve_front": front_launches[n],
+                       "mesh": mesh_pq[n]}
                    for n in ("pq_lut_scores", "pq_lut_scores_general")}
     main = pq["main"]
     for name, ms_key, err_key in (

@@ -1,2 +1,2 @@
 from .ckpt import (AsyncCheckpointer, CheckpointCorruptError, all_steps,
-                   latest_step, restore, save)
+                   latest_step, restore, restore_sharded, save)

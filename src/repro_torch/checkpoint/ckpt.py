@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed.sharding import shard_block, tree_map
 from repro_torch.resilience import faults
 
 SEP = "::"
@@ -277,6 +278,27 @@ def restore(ckpt_dir: str, like, step: int | None = None, *,
     raise FileNotFoundError(
         f"no valid checkpoint in {ckpt_dir}: all {len(candidates)} "
         f"snapshot(s) failed verification and were quarantined")
+
+
+def restore_sharded(ckpt_dir: str, like, shardings, step: int | None = None,
+                    *, aliases: dict | None = None, missing_ok=()):
+    """Restore, then keep each rank's block: ``shardings`` matches ``like``
+    with a ``Sharding(mesh, spec)`` (``distributed.sharding``) or None at
+    each leaf, and ``like`` has the whole leaves' shapes (meta tensors do).
+    The files are host arrays, the same whatever mesh wrote them, so this
+    is the one conversion either way: a one-device checkpoint lands
+    sharded on a mesh, and a mesh's lands on one device. Returns (step,
+    tree of host arrays, each sharded one a copy of its block)."""
+    step, tree = restore(ckpt_dir, like, step, aliases=aliases,
+                         missing_ok=missing_ok)
+
+    def place(s, arr):
+        if s is None or not isinstance(arr, np.ndarray):
+            return arr
+        block = shard_block(arr, s.spec, s.mesh)
+        return block.copy() if block is not arr else arr
+
+    return step, tree_map(place, shardings, tree)
 
 
 class AsyncCheckpointer:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import core, optim, training
 from repro_torch.device import check_device
+from repro_torch.distributed.collectives import all_reduce
 from repro_torch.optim.adam import leaves, unflatten
 
 from .base import (BF16, I32, Arch, Cell, abstract_opt, abstract_params,
@@ -42,7 +43,17 @@ CONV_BATCH = dict(users=512, hist=100, cands=2)  # conventional baseline
 CONV_ONE_CARD = dict(users=32, hist=100, cands=2)
 
 
-def make_sf_train_step(cfg: core.SpeedyFeedConfig):
+def _sum_over_ranks(grads, p_leaves, mesh):
+    """The gradients summed over the mesh's ranks in one all-reduce of a
+    flat f32 buffer; each returned gradient is a view of it."""
+    flat = torch.cat([(g if g is not None else torch.zeros_like(p))
+                      .reshape(-1).float() for g, p in zip(grads, p_leaves)])
+    all_reduce(flat, mesh)
+    return [v.view_as(p).to(p.dtype) for v, p in
+            zip(flat.split([p.numel() for p in p_leaves]), p_leaves)]
+
+
+def make_sf_train_step(cfg: core.SpeedyFeedConfig, mesh=None):
     """``step_fn(params, opt, cache, step, rng, batch, *, u=None,
     neg_idx=None) -> (params, opt, cache, metrics)``:
     ``speedyfeed_forward``, its backward, then ``adam_update`` with
@@ -53,19 +64,25 @@ def make_sf_train_step(cfg: core.SpeedyFeedConfig):
     of the Adam state and the cache keep their old values;
     ``nonfinite_step`` reports it. ``u``/``neg_idx`` inject the step's
     random draws (tests feed the JAX package's).
+
+    ``mesh`` (a data mesh): the forward's mesh path, then the gradients
+    summed over the ranks before ``adam_update``, so parameters and
+    moments stay replicated; the cache is this rank's row block. Every
+    rank passes the whole batch and the same draws.
     """
     def step_fn(params, opt_state, cache, step, rng, batch, *, u=None,
                 neg_idx=None):
         p_leaves = [p.requires_grad_() for _, p in leaves(params)]
         out = core.speedyfeed_forward(params, cfg, batch, cache, step, rng,
-                                      u=u, neg_idx=neg_idx)
+                                      u=u, neg_idx=neg_idx, mesh=mesh)
         grads = torch.autograd.grad(out.loss, p_leaves, allow_unused=True)
-        ok = torch.isfinite(out.loss)
+        if mesh is not None and mesh.world > 1:
+            grads = _sum_over_ranks(grads, p_leaves, mesh)
+        ok = torch.isfinite(out.metrics["loss"])
         params, opt_state, om = optim.adam_update(
             params, unflatten(params, grads), opt_state, SF_OPT, commit=ok)
         metrics = dict(out.metrics)
         metrics.update(om)
-        metrics["loss"] = out.loss.detach()
         metrics["nonfinite_step"] = 1.0 - ok.float()
         return params, opt_state, out.cache, metrics
 
@@ -79,12 +96,15 @@ def _sf_init_state(cfg, gen: torch.Generator) -> training.TrainState:
 
 
 @training.register_trainer("speedyfeed")
-def make_sf_trainer(cfg=None, **kw) -> training.Trainer:
+def make_sf_trainer(cfg=None, *, mesh=None, **kw) -> training.Trainer:
     """The Algorithm-1 Trainer (PROD unless ``cfg`` is given); ``kw`` goes
-    to ``Trainer`` (e.g. ``device``)."""
+    to ``Trainer`` (e.g. ``device``). With ``mesh`` (a rank of
+    ``launch.mesh.run_on_mesh``) it trains data-parallel: the step places
+    the batch's user side by ``speedyfeed_batch_specs`` and the state by
+    ``training.state_specs``."""
     return training.Trainer(cfg if cfg is not None else PROD,
                             make_step=make_sf_train_step,
-                            init_fn=_sf_init_state, **kw)
+                            init_fn=_sf_init_state, mesh=mesh, **kw)
 
 
 def make_conventional_step(cfg: core.SpeedyFeedConfig):

@@ -17,13 +17,15 @@ def sample_negatives(gen: torch.Generator, m_cap: int, shape, n_neg: int):
 
 
 def ar_loss(mu, theta, hist_mask, emb_m, news_ids_m, neg_idx,
-            hist_inv=None):
+            hist_inv=None, n_valid=None):
     """mu: [B, L, d] user embeddings; theta: [B, L, d] dispatched news
     embeddings; hist_mask: [B, L]; emb_m: [M, d] merged-set embeddings;
     news_ids_m: [M]; neg_idx: [B, L-1, N] positions into the merged set.
 
     Position t uses mu[:, t] to score theta[:, t+1] against negatives.
-    Returns (mean loss, metrics dict).
+    Returns (mean loss, metrics dict). ``n_valid`` (a data mesh: the valid
+    predictions of every rank's users) replaces this call's own count as
+    the loss's and the accuracy's denominator.
     """
     mu_t = mu[:, :-1]                         # [B, L-1, d]
     pos_emb = theta[:, 1:]
@@ -43,7 +45,8 @@ def ar_loss(mu, theta, hist_mask, emb_m, news_ids_m, neg_idx,
 
     logits = torch.cat([pos_score[..., None], neg_score], dim=-1)
     logp = torch.log_softmax(logits, dim=-1)[..., 0]
-    n_valid = valid.sum()
+    if n_valid is None:
+        n_valid = valid.sum()
     n = n_valid.clamp_min(1)
     loss = -(logp * valid).sum() / n
     acc = ((logits.argmax(-1) == 0) & valid).sum() / n

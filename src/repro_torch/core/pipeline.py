@@ -20,9 +20,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.collectives import all_gather_grad, all_reduce
+from repro_torch.distributed.sharding import (shard_block,
+                                              speedyfeed_batch_specs)
+
 from .buslm import buslm_encode
 from .cache import (CacheConfig, CacheState, assemble_embeddings, cache_plan,
-                    cache_refresh, init_cache)
+                    cache_refresh, cache_shard, init_cache)
 from .centralized import dispatch
 from .loss import ar_loss, click_loss, sample_negatives
 from .plm import PLMConfig, init_plm
@@ -76,9 +80,22 @@ class StepOut(NamedTuple):
     metrics: dict
 
 
+def _encode_on_mesh(plm, cfg, tokens, freq, mesh, impl):
+    """This rank's E/N rows of the encode set through ``buslm_encode``,
+    all-gathered under autograd into the [E, d] whole."""
+    E, n = tokens.shape[0], mesh.world
+    if E % n:
+        raise ValueError(f"the encode budget E={E} does not split over "
+                         f"{n} ranks")
+    rows = slice(mesh.rank * (E // n), (mesh.rank + 1) * (E // n))
+    part = buslm_encode(plm, cfg, tokens[rows], freq[rows], impl=impl)
+    return all_gather_grad(part, mesh)
+
+
 def speedyfeed_forward(params, cfg: SpeedyFeedConfig, batch,
                        cache: CacheState, step: int, gen=None, *, u=None,
-                       neg_idx=None, impl: str = "kernel") -> StepOut:
+                       neg_idx=None, impl: str = "kernel",
+                       mesh=None) -> StepOut:
     """Algorithm 1. ``batch`` holds the loader's centralized tensors:
       news_tokens [M, K, S]  news_freq [M, K, S]  news_ids [M]
       hist_inv [B, L]        hist_mask [B, L]
@@ -88,32 +105,66 @@ def speedyfeed_forward(params, cfg: SpeedyFeedConfig, batch,
     Exactly E rows are encoded every step, pad slots included. The cache
     is refreshed in place, and only when the loss is finite (the
     trainer's non-finite guard). ``impl`` is passed to ``buslm_encode``.
+    ``metrics["loss"]`` is the step's loss.
+
+    ``mesh`` (a data mesh, ``launch/mesh.py``; the counterpart of JAX's
+    ``constrain(..., "encode_batch")``): every rank holds the whole batch
+    and the same draws, and the cache is row-sharded (``cache_shard``).
+    Each rank encodes its E/N slice of the encode set (the bus kernels run
+    on every rank), and the slices are all-gathered into the [E, d]
+    embeddings. The merged news set stays whole; the user side
+    (``hist_inv``, ``hist_mask``, the negatives) is this rank's block
+    where the ranks divide B (``speedyfeed_batch_specs``), else the
+    whole, weighted 1/N. The returned loss is this rank's part,
+    normalised by the global count of valid predictions, so the ranks'
+    gradients sum to the one-process gradient; ``metrics["loss"]`` and
+    ``"ar_acc"`` are summed over the ranks.
     """
     news_ids = batch["news_ids"]
     if u is None:
         u = torch.rand((), generator=gen, device=gen.device)
-    plan = cache_plan(cache, news_ids, step, u, cfg.cache)
+    sharded = mesh is not None and mesh.world > 1
+    shard = cache_shard(cfg.cache, mesh)
+    plan = cache_plan(cache, news_ids, step, u, cfg.cache, shard=shard)
     enc_tokens = batch["news_tokens"][plan.enc_pos]
     enc_freq = batch["news_freq"][plan.enc_pos]
-    new_emb = buslm_encode(params["plm"], cfg.plm, enc_tokens, enc_freq,
-                           impl=impl)
+    if sharded:
+        new_emb = _encode_on_mesh(params["plm"], cfg.plm, enc_tokens,
+                                  enc_freq, mesh, impl)
+    else:
+        new_emb = buslm_encode(params["plm"], cfg.plm, enc_tokens, enc_freq,
+                               impl=impl)
 
-    emb_m = assemble_embeddings(cache, plan, news_ids, new_emb)
-    theta = dispatch(emb_m, batch["hist_inv"])            # [B, L, d]
-    mask = batch["hist_mask"]
-
-    mu = user_embeddings(params["user"], cfg.user, theta, mask)
+    emb_m = assemble_embeddings(cache, plan, news_ids, new_emb, shard=shard)
+    hist_inv, mask = batch["hist_inv"], batch["hist_mask"]
     if neg_idx is None:
         neg_idx = sample_negatives(gen, cfg.merged_cap, mask[:, 1:].shape,
                                    cfg.n_neg)
+    n_valid = None
+    if sharded:
+        n_valid = (mask[:, 1:] & mask[:, :-1]).sum()
+        spec = speedyfeed_batch_specs(mesh, {"hist_inv": hist_inv})[
+            "hist_inv"]
+        hist_inv, mask, neg_idx = (shard_block(t, spec, mesh)
+                                   for t in (hist_inv, mask, neg_idx))
+        weight = 1.0 if spec[0] is not None else 1.0 / mesh.world
+    theta = dispatch(emb_m, hist_inv)                     # [B, L, d]
+    mu = user_embeddings(params["user"], cfg.user, theta, mask)
     loss, m = ar_loss(mu, theta, mask, emb_m, news_ids, neg_idx,
-                      hist_inv=batch["hist_inv"])
+                      hist_inv=hist_inv, n_valid=n_valid)
+    total = loss.detach()
+    if sharded:
+        loss = loss * weight
+        sums = all_reduce(torch.stack([total * weight,
+                                       m["ar_acc"] * weight]), mesh)
+        total, m["ar_acc"] = sums[0], sums[1]
 
     cache = cache_refresh(cache, plan, news_ids, new_emb, step,
-                          commit=torch.isfinite(loss))
+                          commit=torch.isfinite(total), shard=shard)
 
     n_tok = (enc_tokens != 0).sum()
     m.update({
+        "loss": total,
         "p_t": plan.p_t,
         "encoded": plan.enc_valid.sum(),
         "reused": plan.reuse.sum(),

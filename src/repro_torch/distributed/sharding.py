@@ -1,0 +1,287 @@
+"""Partition rules: parameter and batch specs per model family, copied
+from the JAX package's ``distributed/sharding.py`` as data.
+
+A ``Spec`` is a tuple with ``PartitionSpec``'s meaning: one entry per
+dim, each an axis name, a tuple of names, or ``None`` (replicated).
+Rules are (path-regex, Spec) tables matched against the flattened
+parameter path (first match wins; default replicated). The mesh axes are
+(pod, data, model): ``pod`` and ``data`` are data parallel, ``model``
+tensor/expert/table parallel.
+
+JAX hands a tree of specs to GSPMD, which places every leaf and inserts
+the collectives. PyTorch runs one process per rank: ``shard_block`` cuts
+this rank's block of a leaf, and the code that reads a sharded leaf
+calls the collectives itself (``distributed/collectives.py``). The port
+places only what SpeedyFeed's pure data parallelism needs (the row-
+sharded cache and the user side of a batch); the LM, recsys and GNN
+tables are here as data.
+
+A mesh is anything with ``axis_names``, a ``shape`` mapping each axis to
+its size and, for ``shard_block``, a ``rank`` (``launch/mesh.py:Mesh``).
+"""
+from __future__ import annotations
+
+import re
+from typing import NamedTuple
+
+DATA_AXES = ("pod", "data")     # present subset used automatically
+
+
+class Spec(tuple):
+    """``PartitionSpec``: ``Spec("data", None)``, ``Spec()`` replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"Spec{tuple.__repr__(self)}"
+
+
+class Sharding(NamedTuple):
+    """``NamedSharding``: a spec on a mesh."""
+    mesh: object
+    spec: Spec
+
+
+# ---------------------------------------------------------------------------
+# activation specs: launchers register names, models call ``constrain``.
+# The port places activations explicitly (the pipeline cuts its encode
+# batch by rank), so ``constrain`` returns its input; the registry keeps
+# the names a launcher set, as JAX's does.
+# ---------------------------------------------------------------------------
+
+_ACTIVATION_SPECS: dict = {}
+
+
+def set_activation_specs(specs: dict):
+    """specs: {name: Spec}. Pass {} to clear."""
+    _ACTIVATION_SPECS.clear()
+    _ACTIVATION_SPECS.update(specs)
+
+
+def constrain(x, name: str):
+    del name
+    return x
+
+
+# ---------------------------------------------------------------------------
+# trees: dicts, lists and tuples (NamedTuples too); a Spec is a leaf
+# ---------------------------------------------------------------------------
+
+def _map(fn, tree, *rest, path=()):
+    if isinstance(tree, (Spec, Sharding)) or tree is None:
+        return fn(path, tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map(fn, v, *(r[i] for r in rest), path=path + (i,))
+               for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):             # a NamedTuple
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(path, tree, *rest)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *rest_leaves)`` over a tree, Specs and Shardings as
+    leaves."""
+    return _map(lambda _, *leaves: fn(*leaves), tree, *rest)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def data_spec(mesh, *dims):
+    """Spec with the batch dim over the present data axes; the rest as
+    given."""
+    present = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+    return Spec(present if present else None, *dims)
+
+
+def spec_tree(params, rules, default=Spec()):
+    """Match flattened param paths against (regex, spec) rules."""
+    compiled = [(re.compile(r), s) for r, s in rules]
+
+    def match(path, leaf):
+        s = "/".join(str(p) for p in path)
+        for rx, spec in compiled:
+            if rx.search(s):
+                return _fit(spec, leaf)
+        return default
+
+    return _map(match, params)
+
+
+def _fit(spec, leaf):
+    """Pad a spec with Nones to the leaf rank (specs are right-anchored on
+    the trailing dims, since stacked-layer params add a leading L dim)."""
+    ndim = len(_shape(leaf))
+    pad = ndim - len(spec)
+    if pad < 0:
+        return Spec(*spec[-ndim:]) if ndim else Spec()
+    return Spec(*([None] * pad + list(spec)))
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _axes_size(mesh, axes) -> int:
+    size = 1
+    for a in _axes(axes):
+        size *= mesh.shape[a]
+    return size
+
+
+def guard_divisible(specs, tree, mesh):
+    """Per-leaf spec sanitizer: a dim whose size the product of its mesh
+    axes does not divide falls back to replicated. ``tree`` supplies the
+    shapes and matches ``specs`` structurally."""
+    def fix(spec, leaf):
+        shape = _shape(leaf)
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        return Spec(*(axes if axes is not None
+                      and shape[i] % _axes_size(mesh, axes) == 0 else None
+                      for i, axes in enumerate(dims[:len(shape)])))
+
+    return tree_map(fix, specs, tree)
+
+
+def batch_specs(mesh, batch_like):
+    """Dim-0 data-parallel specs for a batch tree, with the divisibility
+    guard (a leaf whose leading dim does not divide is replicated)."""
+    specs = tree_map(lambda leaf: data_spec(mesh) if _shape(leaf) else Spec(),
+                     batch_like)
+    return guard_divisible(specs, batch_like, mesh)
+
+
+def named(mesh, specs):
+    """A tree of Specs -> the same tree of ``Sharding(mesh, spec)``."""
+    return tree_map(lambda s: Sharding(mesh, s), specs)
+
+
+def global_shape(shape, spec, mesh) -> tuple:
+    """The whole leaf's shape from the shape of one rank's block."""
+    return tuple(n * (_axes_size(mesh, spec[d]) if d < len(spec)
+                      and spec[d] is not None else 1)
+                 for d, n in enumerate(shape))
+
+
+def _coords(mesh) -> dict:
+    """This rank's index along each axis (row-major over ``axis_names``)."""
+    out, r = {}, mesh.rank
+    for a in reversed(mesh.axis_names):
+        out[a] = r % mesh.shape[a]
+        r //= mesh.shape[a]
+    return out
+
+
+def shard_block(x, spec, mesh):
+    """This rank's block of the leaf ``x`` under ``spec``: a view (a
+    narrow of each sharded dim) of a tensor or array; ``x`` itself when
+    the spec shards nothing. The port's counterpart of ``device_put``
+    with a ``NamedSharding``."""
+    coords = _coords(mesh)
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        names = _axes(axes)
+        blocks, index = 1, 0
+        for a in names:
+            blocks *= mesh.shape[a]
+            index = index * mesh.shape[a] + coords[a]
+        size = _shape(x)[d]
+        if size % blocks:
+            raise ValueError(f"dim {d} of {size} does not divide into "
+                             f"{blocks} blocks over {names}")
+        n = size // blocks
+        x = x[(slice(None),) * d + (slice(index * n, (index + 1) * n),)]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# per-family rule tables
+# ---------------------------------------------------------------------------
+
+def lm_rules(fsdp: bool = False):
+    dp = "data" if fsdp else None
+    return [
+        # attention: column-parallel qkv, row-parallel o
+        (r"attn/q/w$", Spec(dp, "model")),
+        (r"attn/[kv]/w$", Spec(dp, "model")),
+        (r"attn/o/w$", Spec("model", dp)),
+        (r"attn/[qkv]/b$", Spec("model")),
+        (r"attn/o/b$", Spec()),
+        # dense mlp: column-parallel up/gate, row-parallel down
+        (r"ffn/(gate|up)/w$", Spec(dp, "model")),
+        (r"ffn/down/w$", Spec("model", dp)),
+        (r"shared/(gate|up)/w$", Spec(dp, "model")),
+        (r"shared/down/w$", Spec("model", dp)),
+        # moe: experts over model axis
+        (r"moe/router$", Spec()),
+        (r"moe/w[13]$", Spec("model", dp, None)),
+        (r"moe/w2$", Spec("model", None, dp)),
+        # embeddings: vocab-sharded; head column-parallel
+        (r"embed/table$", Spec("model", dp)),
+        (r"^head/w$", Spec(dp, "model")),
+        # norms replicated
+        (r"ln", Spec()),
+        (r"_norm", Spec()),
+    ]
+
+
+def recsys_rules():
+    return [
+        (r"tables/fused$", Spec("model", None)),     # row-sharded big table
+        (r"wide/fused$", Spec("model", None)),
+        (r"item_emb/table$", Spec("model", None)),
+        (r"(bot|top|deep|mlp)/l\d+/w$", Spec()),     # small towers replicated
+        (r"cross/\d+/w$", Spec()),
+        (r".*", Spec()),
+    ]
+
+
+def gnn_rules():
+    # node/edge model params are small -> replicated
+    return [(r".*", Spec())]
+
+
+def speedyfeed_rules(tp: bool = False):
+    """SpeedyFeed PLM sharding. ``tp=False`` (default): the 110M-param
+    encoder is replicated and the encode batch shards over every mesh
+    axis, pure data parallelism, the paper's own setup. ``tp=True`` is
+    the Megatron layout of the JAX package's measured baseline."""
+    if not tp:
+        return [(r".*", Spec())]
+    return [
+        (r"plm/layers/attn/[qkv]/w$", Spec(None, "model")),
+        (r"plm/layers/attn/[qkv]/b$", Spec("model")),
+        (r"plm/layers/attn/o/w$", Spec("model", None)),
+        (r"plm/layers/ffn_up/w$", Spec(None, "model")),
+        (r"plm/layers/ffn_up/b$", Spec("model")),
+        (r"plm/layers/ffn_down/w$", Spec("model", None)),
+        (r"plm/(tok|pos)_emb/table$", Spec("model", None)),
+        (r"plm/(seg|freq)_emb/table$", Spec()),     # tiny tables: replicate
+        (r".*", Spec()),
+    ]
+
+
+def speedyfeed_cache_spec(mesh):
+    return {"emb": data_spec(mesh, None), "written_step": data_spec(mesh)}
+
+
+def speedyfeed_batch_specs(mesh, batch_like):
+    """Centralized-batch specs: the merged news set (``news_*``) stays
+    replicated (it feeds a global argsort over the whole set), the
+    per-user history side shards its leading dim over every mesh axis;
+    the divisibility guard replicates what does not divide."""
+    all_ax = tuple(mesh.axis_names)
+
+    def spec(path, leaf):
+        if str(path[-1]).startswith("news_"):
+            return Spec()
+        return Spec(all_ax) if _shape(leaf) else Spec()
+
+    return guard_divisible(_map(spec, batch_like), batch_like, mesh)

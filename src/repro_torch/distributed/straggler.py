@@ -101,3 +101,15 @@ class WorkStealingQueue:
     def qsize(self):
         with self._cv:
             return sum(len(q) for q in self._qs)
+
+
+def plan_elastic_mesh(n_devices: int, *, model: int = 16,
+                      min_data: int = 1):
+    """Largest (data, model) mesh for the surviving device count.
+
+    Model parallelism is fixed by the checkpoint's weight sharding; the data
+    axis absorbs elasticity. Returns (data, model) or None if impossible."""
+    if n_devices < model * min_data:
+        return None
+    data = n_devices // model
+    return (data, model)

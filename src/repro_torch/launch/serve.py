@@ -30,10 +30,14 @@ e2e}``, ``serve_batch_size``, ``sched_*``, ...); ``ServeStats`` is a view
 rendered from that registry after the loop, and ``--metrics-out``
 snapshots the whole registry (train + publish + serve) to JSONL.
 
+``--mesh data=N`` shards the IVF index's CSR rows across N devices
+(``serving/sharded.py``, one process): the cards ``cuda:0`` ..
+``cuda:N-1``, or N shards on the CPU with ``--device cpu``.
+
 Run: python -m repro_torch.launch.serve --requests 64 --batch 16 \
          [--index ivf-pq|ivf-flat|exact] [--nprobe 16] [--k-prime 64] \
          [--rebuild-mid-loop] [--train-steps 6] [--metrics-out m.jsonl] \
-         [--device cuda|cpu]
+         [--device cuda|cpu] [--mesh data=N]
      python -m repro_torch.launch.serve --open-loop --sweep 50 100 200 \
          --slo-ms 250 [--duration 2.0] [--bench-out sweep.json]
 """
@@ -49,6 +53,7 @@ import torch
 
 from repro_torch import core, obs, serving
 from repro_torch.device import check_device
+from repro_torch.launch.mesh import parse_mesh_arg
 from repro_torch.resilience import FaultPlan, faults
 
 
@@ -150,12 +155,17 @@ class Recommender:
     def __init__(self, cfg: core.SpeedyFeedConfig, params, store, *, k=10,
                  index_kind: str = "ivf-pq", nprobe: int = 8,
                  k_prime: int | None = None, compact_threshold: int = 512,
-                 probe_metric: str = "ip", service_kw=None, device="cuda"):
+                 probe_metric: str = "ip", service_kw=None, device="cuda",
+                 mesh=None):
         # probe_metric: the launcher serves raw MIPS over unnormalized
         # encoder embeddings, where ranking cells by raw inner product
         # recalls the large-norm winners the spherical ("l2") ranking
         # misses; "l2" stays the library default for normalized corpora.
-        self.device = check_device(device)
+        # mesh (launch.mesh.Mesh): the IVF index's rows shard across its
+        # devices, the first of which serves everything else
+        self.mesh = mesh
+        self.device = check_device(device if mesh is None
+                                   else mesh.devices[0])
         self.cfg, self.store, self.k = cfg, store, k
         self.params = params_to(params, self.device)
         self.index_kind = index_kind
@@ -203,12 +213,15 @@ class Recommender:
         (by ``_encode_corpus``)."""
         n = emb.shape[0]
         nlist = ivf_nlist(n)
+        devices = None
+        if self.mesh is not None and self.index_kind != "exact":
+            devices = list(self.mesh.devices)
         builder = serving.IndexBuilder(
             self.index_kind, emb.shape[1],
             ivf=serving.IVFConfig(nlist=nlist,
                                   nprobe=min(self.nprobe, nlist),
                                   metric=self.probe_metric),
-            seed=seed, device=self.device)
+            seed=seed, device=self.device, devices=devices)
         self.service = serving.RetrievalService(
             builder, emb, k=self.k, k_prime=min(self.k_prime, n - 1),
             compact_threshold=self.compact_threshold, auto_compact=False,
@@ -513,12 +526,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for")
+    ap.add_argument("--mesh", default=None, metavar="data=N",
+                    help="shard the IVF index's CSR rows across N devices "
+                         "(cuda:0..N-1, or N shards on the CPU with "
+                         "--device cpu; data=1 / omitted: one device)")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = check_device(args.device)
+    mesh = parse_mesh_arg(args.mesh, device)
 
     # one launcher run = one registry's worth of numbers (tests call
     # main() in-process)
@@ -548,7 +566,7 @@ def main(argv=None):
                       nprobe=args.nprobe, k_prime=args.k_prime,
                       probe_metric=args.probe_metric,
                       service_kw=chaos_service_kw(chaos_n) if chaos_n > 0
-                      else None, device=device)
+                      else None, device=device, mesh=mesh)
     t0 = time.time()
     rec.build_index(seed=args.seed)
     svc = rec.service
@@ -558,8 +576,10 @@ def main(argv=None):
         # arms inside the harness instead, after its warm cycle)
         chaos_plan = faults.arm(FaultPlan().fail(
             "index.rebuild", calls=range(1, chaos_n + 1)))
+    shards = getattr(svc.snapshot(), "n_shards", 1)
     print(f"index built: {store.tokens.shape[0]} news "
-          f"({args.index}, ntotal={svc.ntotal}, v{svc.version}) in "
+          f"({args.index}, ntotal={svc.ntotal}, v{svc.version}"
+          + (f", {shards} shards" if shards > 1 else "") + ") in "
           f"{time.time() - t0:.1f}s")
     reqs = list(log.histories[:args.requests])
 

@@ -3,7 +3,7 @@ corpus helpers the launchers share.
 
   python -m repro_torch.launch.train --steps 200 [--seed 0] [--device cuda]
       [--ckpt-dir ckpt --ckpt-every 50] [--max-restarts 2]
-      [--chaos-crash-at STEP] [--metrics-out metrics.jsonl]
+      [--chaos-crash-at STEP] [--metrics-out metrics.jsonl] [--mesh data=N]
   python -m repro_torch.launch.train --arch dimenet [--device cpu]
 
 ``--arch`` names an architecture of the registry (``configs.get_arch``;
@@ -17,6 +17,11 @@ on the card unless ``device="cpu"`` is asked for. With ``ckpt_dir`` it
 checkpoints the state (the JAX package's format) and resumes from the
 newest valid step on boot; ``max_restarts > 0`` runs it under
 ``resilience.fit_supervised``.
+
+``--mesh data=N`` trains data-parallel on N ranks (``launch.mesh.
+run_on_mesh``): one card each (``cuda:0`` .. ``cuda:N-1``, over NCCL;
+fewer cards than N exit), or N gloo processes with ``--device cpu``.
+Every rank runs the same fit; rank 0 loads, prints and checkpoints.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 
 from repro_torch import configs, core, data, obs, training
 from repro_torch.device import check_device
+from repro_torch.launch.mesh import parse_mesh_arg, run_on_mesh
 from repro_torch.resilience import FaultPlan, faults, fit_supervised
 
 
@@ -79,19 +85,21 @@ def train_speedyfeed(*, steps: int, ckpt_dir: str | None = None,
                      fail_at: int | None = None, log_every: int = 20,
                      async_ckpt: bool = True, prefetch_depth: int = 2,
                      max_restarts: int = 0, backoff_s: float = 0.05,
-                     device="cuda") -> training.TrainResult:
+                     device="cuda", mesh=None) -> training.TrainResult:
     """Train end to end at ``cfg`` (the small configuration unless given)
     on ``make_loader``'s corpus. ``fail_at`` injects a crash (restart
-    tests).
+    tests). ``mesh``: this rank's mesh (every rank of ``run_on_mesh``
+    calls this; the device is the rank's).
 
     ``max_restarts > 0`` runs the loop under ``fit_supervised``: a
     transient crash (injected fault, lost batch, non-finite-loss bailout)
     restarts from the latest valid checkpoint with backoff, up to
     ``max_restarts`` times."""
-    device = check_device(device)
+    device = check_device(device if mesh is None else mesh.device)
     cfg = cfg or small_speedyfeed_config()
     _, log, store, lcfg = make_loader(cfg, seed=seed)
-    trainer = training.get_trainer("speedyfeed", cfg=cfg, device=device)
+    trainer = training.get_trainer("speedyfeed", cfg=cfg, device=device,
+                                   mesh=mesh)
 
     def make_batcher(epoch: int):
         return data.DynamicBatcher(log, store, lcfg, n_threads=2,
@@ -106,6 +114,32 @@ def train_speedyfeed(*, steps: int, ckpt_dir: str | None = None,
                               backoff_s=backoff_s, **fit_kw)
     return trainer.fit(make_batcher, steps=steps, ckpt_dir=ckpt_dir,
                        **fit_kw)
+
+
+def _summary(res: training.TrainResult) -> dict:
+    return {"steps_done": res.steps_done, "losses": res.losses,
+            "wall_seconds": res.wall_seconds,
+            "bucket_steps": res.bucket_steps,
+            "host_stall_fraction": res.host_stall_fraction,
+            "restarts": res.restarts, "resumed_from": res.resumed_from}
+
+
+def _train_rank(mesh, kw: dict, metrics_out, metrics_every: float,
+                chaos_crash_at):
+    """One rank of ``main``'s ``--mesh`` run: the same fit in every rank;
+    rank 0 keeps the metrics file."""
+    obs.reset()
+    if metrics_out and mesh.rank == 0:
+        obs.configure_reporter(path=metrics_out, every_s=metrics_every)
+    if chaos_crash_at is not None:
+        faults.arm(FaultPlan().fail("train.step", step=[chaos_crash_at]))
+    try:
+        res = train_speedyfeed(mesh=mesh, **kw)
+    finally:
+        faults.disarm()
+    if metrics_out and mesh.rank == 0:
+        obs.tick(force=True)
+    return _summary(res)
 
 
 def main(argv=None):
@@ -134,6 +168,10 @@ def main(argv=None):
                          "(fires through repro_torch.resilience.faults, so "
                          "the restarted attempt runs through); pair with "
                          "--max-restarts to smoke-test auto-resume")
+    ap.add_argument("--mesh", default=None, metavar="data=N",
+                    help="train data-parallel on N ranks: one card each "
+                         "(cuda:0..N-1, NCCL), or N gloo processes with "
+                         "--device cpu (data=1 / omitted: one process)")
     args = ap.parse_args(argv)
     if args.arch != "speedyfeed":
         arch = configs.get_arch(args.arch)
@@ -141,6 +179,17 @@ def main(argv=None):
         metrics = arch.smoke(device=args.device)
         print(metrics)
         return metrics
+    mesh = parse_mesh_arg(args.mesh, args.device)
+    if mesh is not None:
+        kw = dict(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                  ckpt_every=args.ckpt_every, seed=args.seed,
+                  max_restarts=args.max_restarts)
+        res = run_on_mesh(_train_rank, mesh.world, mesh.devices, args=(
+            kw, args.metrics_out, args.metrics_every,
+            args.chaos_crash_at))[0]
+        print(f"done on {mesh.world} ranks: {res['steps_done']} steps in "
+              f"{res['wall_seconds']:.1f}s; losses {res['losses']}")
+        return res
     obs.reset()      # this run's registry export is exactly this run
     if args.metrics_out:
         obs.configure_reporter(path=args.metrics_out,

@@ -9,7 +9,9 @@
                                before it writes, then re-freeze.
 
 Both return a new immutable ``IndexSnapshot`` carrying the next version;
-the caller installs it with ``RetrievalService.swap``.
+the caller installs it with ``RetrievalService.swap``. With ``devices``
+every snapshot comes back device-sharded (``serving/sharded.py``), its
+rows one block a device; a build or compaction runs on the first device.
 """
 from __future__ import annotations
 
@@ -22,22 +24,35 @@ import torch
 
 from .index import IVFConfig, IVFPQIndex, make_index
 from .pq import PQCodebook, PQConfig
+from .sharded import (ShardedIndexSnapshot, shard_mesh, shard_snapshot,
+                      unshard_snapshot)
 from .snapshot import KINDS, IndexSnapshot, empty_snapshot, snapshot_from_index
 
 
 class IndexBuilder:
     """Produces immutable IndexSnapshots for one (kind, dim, config) cell
     on one device. ``seed`` seeds the k-means/PQ training generator, so
-    rebuilds over identical data are deterministic on one device."""
+    rebuilds over identical data are deterministic on one device.
+
+    ``devices`` (a list, repeats allowed; it replaces ``device``, which
+    becomes its first): every snapshot is a ``ShardedIndexSnapshot`` over
+    those devices, the same list for the builder's lifetime. The exact
+    kind has no CSR rows and refuses it."""
 
     def __init__(self, kind: str, dim: int, *, ivf: IVFConfig = IVFConfig(),
-                 pq: PQConfig = PQConfig(), seed: int = 0, device="cuda"):
+                 pq: PQConfig = PQConfig(), seed: int = 0, device="cuda",
+                 devices=None):
         if kind not in KINDS:
             raise ValueError(f"unknown index kind: {kind!r}")
+        if devices is not None and kind == "exact":
+            raise ValueError("the exact kind has no CSR rows to shard; "
+                             "use an IVF kind with devices=")
         self.kind, self.dim = kind, dim
         self.ivf, self.pq = ivf, pq
         self.seed = seed
-        self.device = torch.device(device)
+        self.devices = None if devices is None else shard_mesh(devices)
+        self.device = torch.device(device) if devices is None \
+            else self.devices[0]
         self._versions = itertools.count(1)    # next() is atomic under GIL
 
     def empty(self) -> IndexSnapshot:
@@ -59,7 +74,7 @@ class IndexBuilder:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
         idx.train(gen, emb)
         idx.add(ids, emb)
-        return snapshot_from_index(idx, next(self._versions), time.time())
+        return self._freeze(idx)
 
     def compact(self, snapshot: IndexSnapshot, ids, emb) -> IndexSnapshot:
         """Absorb fresh rows into ``snapshot`` without retraining (upsert:
@@ -74,11 +89,21 @@ class IndexBuilder:
                                        built_at=time.time())
         idx = self._materialize(snapshot)
         idx.add(ids, emb)
-        return snapshot_from_index(idx, next(self._versions), time.time())
+        return self._freeze(idx)
+
+    def _freeze(self, idx):
+        """Snapshot the index; with ``devices``, sharded across them."""
+        snap = snapshot_from_index(idx, next(self._versions), time.time())
+        if self.devices is None:
+            return snap
+        return shard_snapshot(snap, self.devices)
 
     def _materialize(self, snap: IndexSnapshot):
         """Mutable index over a snapshot's tensors, marked shared so its
-        first write copies them (the snapshot keeps serving unchanged)."""
+        first write copies them (the snapshot keeps serving unchanged). A
+        sharded snapshot is joined on the first device first."""
+        if isinstance(snap, ShardedIndexSnapshot):
+            snap = unshard_snapshot(snap)
         if snap.kind != self.kind:
             raise ValueError(
                 f"snapshot kind {snap.kind!r} != builder kind {self.kind!r}")

@@ -15,6 +15,9 @@ The prefetcher also owns epoch turnover: on ``EPOCH_END`` it stops the
 exhausted batcher and starts the next epoch's, so the consumer sees one
 uninterrupted batch stream.
 
+On a data mesh only rank 0 runs a prefetcher; ``broadcast_batch`` hands
+each of its batches to every rank.
+
 Obs: the ``prefetch.h2d`` fault site fires before each copy (its
 exception reaches ``get`` with its own type), the copy is timed as the
 ``prefetch_h2d`` span, ``prefetch_queue_depth`` gauges the batches
@@ -167,3 +170,29 @@ class DevicePrefetcher:
                     f"prefetch producer thread did not stop within "
                     f"{timeout}s and was abandoned (daemon)", stacklevel=2)
             self._thread = None
+
+
+def broadcast_batch(pb, mesh):
+    """Rank 0's ``get`` result on every rank of ``mesh``: a
+    ``PrefetchedBatch`` (its tensors on each rank's device), ``STREAM_END``
+    or ``None``. Rank 0 passes its own; the others pass None. The layout
+    (keys, shapes, dtypes, bucket, stats) goes as one pickled object, then
+    each tensor by a broadcast."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import broadcast
+    head = [None]
+    if mesh.rank == 0:
+        head[0] = ("end",) if pb is STREAM_END else ("none",) \
+            if pb is None else (
+                "batch", pb.bucket, pb.stats, pb.epoch,
+                [(k, tuple(v.shape), v.dtype) for k, v in pb.arrays.items()])
+    dist.broadcast_object_list(head, src=0, group=mesh.group)
+    kind = head[0][0]
+    if kind != "batch":
+        return STREAM_END if kind == "end" else None
+    _, bucket, stats, epoch, layout = head[0]
+    arrays = {k: broadcast(pb.arrays[k] if mesh.rank == 0 else torch.empty(
+        shape, dtype=dtype, device=mesh.device), mesh)
+        for k, shape, dtype in layout}
+    return PrefetchedBatch(bucket, arrays, stats, epoch)

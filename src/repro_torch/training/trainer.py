@@ -17,6 +17,14 @@ such steps in a row (checked when the metrics are drained).
 package's format (``training/state.py``) and resumes from the newest valid
 step of ``ckpt_dir``, a JAX run's included; ``resilience.fit_supervised``
 restarts it through transient failures.
+
+On a data mesh (``Trainer(mesh=)``, in every rank of
+``launch.mesh.run_on_mesh``) the state is placed by ``state_shardings``
+(the cache row-sharded, the rest replicated), only rank 0 runs the
+batcher, and each batch is broadcast from rank 0 on the step's thread
+(``prefetch.broadcast_batch``), so every rank trains on the same batches
+whatever the loader's thread count. Checkpoints are gathered to rank 0
+and written there; only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -29,12 +37,14 @@ import torch
 
 from repro_torch import checkpoint as ckpt, obs
 from repro_torch.device import check_device
+from repro_torch.distributed.collectives import barrier
 from repro_torch.distributed.straggler import StepTimeMonitor
 from repro_torch.resilience import faults
 from repro_torch.resilience.supervise import NonFiniteLossError
 
-from .prefetch import STREAM_END, DevicePrefetcher
-from .state import TrainState, restore_state, save_state
+from .prefetch import STREAM_END, DevicePrefetcher, broadcast_batch
+from .state import (TrainState, place_state, restore_state, save_state,
+                    state_shardings)
 
 
 class MetricsBuffer:
@@ -178,28 +188,48 @@ class Trainer:
     device. Both come from the configuration module (see
     ``training.get_trainer``). ``device`` defaults to the card and raises
     without one; pass ``device="cpu"`` to train on the CPU.
+
+    ``mesh`` (this rank's mesh, ``launch.mesh``): the device is the
+    rank's, ``make_step(cfg, mesh=mesh)`` gives the data-parallel step,
+    and ``init_state`` returns this rank's placed state
+    (``state_shardings``, kept as ``self.state_shardings``).
     """
 
-    def __init__(self, cfg, *, make_step, init_fn, device="cuda"):
+    def __init__(self, cfg, *, make_step, init_fn, device="cuda",
+                 mesh=None):
         self.cfg = cfg
-        self.device = check_device(device)
-        self._raw_step = make_step(cfg)
+        self.mesh = mesh
+        self.device = check_device(device if mesh is None else mesh.device)
+        self._raw_step = make_step(cfg) if mesh is None else \
+            make_step(cfg, mesh=mesh)
         self._init_fn = init_fn
+        self.state_shardings: TrainState | None = None
         self.bucket_steps: dict = {}      # bucket -> steps run
         self.monitor: StepTimeMonitor | None = None   # set by fit()
         self.last_state: TrainState | None = None     # final state of fit()
 
     def init_state(self, seed: int = 0) -> TrainState:
+        """The state from ``seed`` (every rank of a mesh draws the same
+        one), placed on the mesh when there is one."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self._init_fn(self.cfg, gen)
+        state = self._init_fn(self.cfg, gen)
+        if self.mesh is None:
+            return state
+        self.state_shardings = state_shardings(state, self.mesh)
+        return place_state(state, self.state_shardings)
 
-    def step(self, state: TrainState, batch: dict, bucket=None):
+    @property
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def step(self, state: TrainState, batch: dict, bucket=None, **draws):
         """One train step on a batch of device tensors. Parameters, Adam
         state and cache are updated in place; returns (the next
-        TrainState, device metrics)."""
+        TrainState, device metrics). ``draws`` (``u``, ``neg_idx``) inject
+        the step's random draws in place of the generator's."""
         params, opt, cache, metrics = self._raw_step(
             state.params, state.opt, state.cache, state.step, state.rng,
-            batch)
+            batch, **draws)
         if bucket is not None:
             self.bucket_steps[bucket] = self.bucket_steps.get(bucket, 0) + 1
         return TrainState(params, opt, cache, state.step + 1,
@@ -209,7 +239,8 @@ class Trainer:
             seed: int = 0, ckpt_dir: str | None = None, ckpt_every: int = 50,
             async_ckpt: bool = True, log_every: int = 20,
             fail_at: int | None = None, prefetch_depth: int = 2,
-            batch_timeout: float = 60.0,
+            batch_timeout: float = 60.0, hosts: int | None = None,
+            microbatches_per_host: int = 1,
             max_consecutive_nonfinite: int = 8) -> TrainResult:
         """Train until ``steps`` total steps, resuming from the newest
         *valid* checkpoint in ``ckpt_dir`` when one exists (corrupt
@@ -227,14 +258,27 @@ class Trainer:
         ``max_consecutive_nonfinite`` non-finite losses in a row raise
         ``NonFiniteLossError`` (0 disables), which ``fit_supervised``
         classifies as transient: a rollback to the last checkpoint.
+
+        ``hosts`` (default: the mesh's ranks, else 1) sets the straggler
+        monitor's host count; with more than one, each step's wall time
+        is attributed round-robin to the hosts, and the monitor's
+        ``stragglers()`` / ``rebalance(microbatches_per_host)`` feed the
+        ``straggler_hosts`` / ``microbatch_alloc{host=}`` gauges at the
+        drain cadence. On a mesh, ``state`` must come from this trainer's
+        ``init_state`` (or be None).
         """
         t0 = time.time()
         bs0 = dict(self.bucket_steps)
+        mesh = self.mesh
         state = state if state is not None else self.init_state(seed)
+        if mesh is not None and self.state_shardings is None:
+            raise ValueError("on a mesh, fit's state comes from this "
+                             "trainer's init_state")
         resumed = None
         if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
             try:
-                resumed, state = restore_state(ckpt_dir, state)
+                resumed, state = restore_state(
+                    ckpt_dir, state, shardings=self.state_shardings)
             except FileNotFoundError as e:
                 # every snapshot failed verification (all quarantined by
                 # restore): degrade to a fresh start, don't die on resume
@@ -246,11 +290,13 @@ class Trainer:
         # restored step
         epoch0 = step if resumed is not None else 0
         writer = ckpt.AsyncCheckpointer(ckpt_dir) \
-            if (ckpt_dir and async_ckpt) else None
-        prefetcher = DevicePrefetcher(lambda e: make_batcher(e + epoch0),
-                                      depth=prefetch_depth,
-                                      device=self.device).start()
-        monitor = StepTimeMonitor(n_hosts=1)
+            if (ckpt_dir and async_ckpt and self._rank0) else None
+        prefetcher = DevicePrefetcher(
+            lambda e: make_batcher(e + epoch0), depth=prefetch_depth,
+            device=self.device).start() if self._rank0 else None
+        n_hosts = hosts if hosts is not None else \
+            (mesh.world if mesh is not None else 1)
+        monitor = StepTimeMonitor(n_hosts=max(n_hosts, 1))
         buf = MetricsBuffer(on_drain=_feed_cache_obs)
         stall, de_sum, de_n = 0.0, 0.0, 0
         drain_mark, drain_step = time.perf_counter(), step
@@ -260,7 +306,10 @@ class Trainer:
             while step < steps:
                 t_iter = tw = time.perf_counter()
                 with obs.span("train_host_stall"):
-                    pb = prefetcher.get(timeout=batch_timeout)
+                    pb = prefetcher.get(timeout=batch_timeout) \
+                        if prefetcher is not None else None
+                    if mesh is not None:
+                        pb = broadcast_batch(pb, mesh)
                 stall += time.perf_counter() - tw
                 if pb is STREAM_END:       # bounded-epoch source ran dry
                     break
@@ -284,12 +333,18 @@ class Trainer:
                         "train_steps_total", bucket=b)
                 hist.observe((time.perf_counter() - t_iter) * 1e3)
                 step_ctrs[pb.bucket].inc()
+                if monitor.n_hosts > 1:
+                    # the step's loop wall, attributed round-robin (each
+                    # rank runs every step, so the hosts are simulated)
+                    monitor.record((step - 1) % monitor.n_hosts,
+                                   time.perf_counter() - t_iter)
                 obs.tick()
                 if fail_at is not None and step >= fail_at:
                     raise RuntimeError("injected failure")
                 faults.fire("train.step", step=step)
                 if ckpt_dir and step % ckpt_every == 0:
-                    save_state(ckpt_dir, step, state, writer=writer)
+                    save_state(ckpt_dir, step, state, writer=writer,
+                               shardings=self.state_shardings)
                 if log_every and step % log_every == 0:
                     m = buf.drain()
                     bad = _trailing_nonfinite(buf.history)
@@ -301,19 +356,33 @@ class Trainer:
                             f"values by the guard; rolling back to the "
                             f"last checkpoint", step=step, consecutive=bad)
                     now = time.perf_counter()
-                    monitor.record(0, (now - drain_mark)
-                                   / max(step - drain_step, 1))
+                    if monitor.n_hosts == 1:
+                        # the true wall a step at the (blocking) drain
+                        monitor.record(0, (now - drain_mark)
+                                       / max(step - drain_step, 1))
+                    else:
+                        slow = monitor.stragglers()
+                        obs.gauge("straggler_hosts").set(float(len(slow)))
+                        for h, a in enumerate(
+                                monitor.rebalance(microbatches_per_host)):
+                            obs.gauge("microbatch_alloc",
+                                      host=str(h)).set(float(a))
                     drain_mark, drain_step = now, step
-                    print(f"step {step}: loss={m.get('loss', 0):.4f} "
-                          f"acc={m.get('ar_acc', 0):.3f} "
-                          f"reused={int(m.get('reused', 0))} "
-                          f"p_t={m.get('p_t', 0):.2f} "
-                          f"de={de_sum / max(de_n, 1):.2f} "
-                          f"[bucket {pb.bucket}]", flush=True)
+                    if self._rank0:
+                        print(f"step {step}: loss={m.get('loss', 0):.4f} "
+                              f"acc={m.get('ar_acc', 0):.3f} "
+                              f"reused={int(m.get('reused', 0))} "
+                              f"p_t={m.get('p_t', 0):.2f} "
+                              f"de={de_sum / max(de_n, 1):.2f} "
+                              f"[bucket {pb.bucket}]", flush=True)
         finally:
-            prefetcher.stop()
+            if prefetcher is not None:
+                prefetcher.stop()
             if writer:
                 writer.wait()
+        if mesh is not None and ckpt_dir:
+            # every rank sees rank 0's last checkpoint once fit returns
+            barrier(mesh)
         self.monitor = monitor
         self.last_state = state
         final = dict(buf.drain())

@@ -313,6 +313,82 @@ def test_train_step_on_the_card_matches_the_plain_path(cuda):
                 b.abs().max()), n
 
 
+def test_mesh_step_on_the_card_matches_one_process(cuda):
+    """2 gloo ranks on cuda:0 (each encoding half of E through the bus
+    kernels) against the one-process step from the same seeded state,
+    batch and draws: losses within 1e-4, parameters within 1e-4 of each
+    leaf's largest magnitude (those that start at 0 of the largest of any
+    leaf), the cache blocks joined the one-process cache."""
+    import _torch_mesh_ranks as ranks
+    from repro_torch import data, training
+    from repro_torch.configs.speedyfeed_arch import make_sf_train_step
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.optim.adam import leaves
+    over = dict(n_news=2004, encode_budget=32)
+    cfg = train.small_speedyfeed_config(**over)
+    batches = [data.synth_centralized_batch(
+        m_cap=cfg.merged_cap, n_segments=cfg.plm.n_segments,
+        seg_len=cfg.plm.seg_len, b_cap=cfg.batch_users,
+        hist_len=cfg.hist_len, vocab=cfg.plm.vocab, seed=i)
+        for i in range(3)]
+    g = np.random.default_rng(0)
+    draws = [(float(g.random()), g.integers(
+        1, cfg.merged_cap, (cfg.batch_users, cfg.hist_len - 1, cfg.n_neg)))
+        for _ in batches]
+    out = run_on_mesh(ranks.port_steps, 2, ["cuda:0"] * 2,
+                      args=(over, 3, batches, draws), timeout=300)
+    state = training.get_trainer("speedyfeed", cfg=cfg,
+                                 device=cuda).init_state(3)
+    step_fn = make_sf_train_step(cfg)
+    p, o, c = state.params, state.opt, state.cache
+    for i, (batch, (u, neg)) in enumerate(zip(batches, draws)):
+        b = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()}
+        p, o, c, m = step_fn(p, o, c, 100 + i, None, b, u=u,
+                             neg_idx=torch.as_tensor(neg, device=cuda))
+        for r in out:
+            assert abs(r["losses"][i] - float(m["loss"])) <= 1e-4, i
+    for r in out:
+        assert r["launches"]["bus_attention"] == 3 * cfg.plm.n_layers
+        assert r["launches"]["bus_attention_bwd"] == 3 * cfg.plm.n_layers
+    # leaves that start at 0 (the biases) against the largest of any leaf:
+    # Adam's steps on near-eps gradient entries amplify the sum's order
+    zero_init = {n for n, t in leaves(training.get_trainer(
+        "speedyfeed", cfg=cfg, device=cuda).init_state(3).params)
+        if not bool(t.any())}
+    got = [(n, a, b.detach().cpu().numpy())
+           for a, (n, b) in zip(out[0]["params"], leaves(p))]
+    top = max(np.abs(b).max() for _, _, b in got)
+    for n, a, b in got:
+        scale = top if n in zero_init else max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() <= 1e-4 * scale, n
+    emb = np.concatenate([r["emb"] for r in out])
+    assert np.abs(emb - c.emb.cpu().numpy()).max() <= 1e-4
+    np.testing.assert_array_equal(
+        np.concatenate([r["written_step"] for r in out]),
+        c.written_step.cpu().numpy())
+
+
+def test_sharded_pq_snapshot_on_the_card_matches_unsharded(cuda):
+    """The IVF-PQ snapshot in 4 shards on the one card: the unsharded
+    top-k id for id, scores within 1e-4, one PQ scan launch a shard."""
+    from repro_torch import serving
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 32)).astype(np.float32)
+    q = rng.normal(size=(16, 32)).astype(np.float32)
+    snap = serving.IndexBuilder(
+        "ivf-pq", 32, ivf=serving.IVFConfig(nlist=37, nprobe=8),
+        pq=serving.PQConfig(n_subvec=8, n_codes=32), device=cuda).build(
+        np.arange(1, 3001), x)
+    ssnap = serving.shard_snapshot(snap, ["cuda"] * 4)
+    s_ref, i_ref = snap.search(q, 10)
+    ops.reset_launch_counts()
+    s_got, i_got = ssnap.search(q, 10)
+    assert ops.launch_counts()["pq_lut_scores"] == 4
+    assert torch.equal(i_got, i_ref)
+    assert float((s_got - s_ref).abs().max()) <= 1e-4
+
+
 def test_trainer_fit_on_the_card(cuda):
     from repro_torch.launch import train
     ops.reset_launch_counts()

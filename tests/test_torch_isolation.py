@@ -44,7 +44,8 @@ def test_the_walk_covers_the_package():
             "_default.py", "base.py", "state.py", "bridge.py", "news.py",
             "tables.py", "scheduler.py", "loadgen.py", "tune.py",
             "online.py", "service.py", "graph.py", "dimenet.py",
-            "gnn_family.py"} <= names
+            "gnn_family.py", "sharding.py", "collectives.py", "mesh.py",
+            "sharded.py"} <= names
     # the registry: configs/__init__.py beside base.py's Cell and Arch
     assert ROOT / "src" / "repro_torch" / "configs" / "__init__.py" in \
         PORT_FILES
@@ -165,3 +166,26 @@ def test_registry_smokes_and_arch_launcher_default_device_raise_without_a_gpu():
             configs.get_arch(name).smoke()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "dimenet"])
+
+
+def test_mesh_entry_points_default_device_raises_without_a_gpu():
+    """The data mesh and the sharded index run on the card unless given
+    CPU devices: ``run_on_mesh``, ``shard_mesh``, ``IndexBuilder(devices=)``
+    and ``parse_mesh_arg`` refuse CUDA without a GPU, and take the CPU."""
+    _require_no_gpu()
+    from repro_torch import serving
+    from repro_torch.launch import mesh, serve, train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.run_on_mesh(print, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.shard_mesh(["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.IndexBuilder("ivf-flat", 8, devices=["cuda:0"] * 2)
+    for main in (train.main, serve.main):
+        with pytest.raises((RuntimeError, SystemExit)):
+            main(["--mesh", "data=2"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        mesh.parse_mesh_arg("data=2")
+    assert serving.shard_mesh(["cpu"] * 2) == (torch.device("cpu"),) * 2
+    assert mesh.parse_mesh_arg("data=2", "cpu").devices == \
+        (torch.device("cpu"),) * 2
