@@ -106,6 +106,16 @@ def params_from_jax(tree, device="cuda"):
                        split_layers(tree))
 
 
+def lm_params_from_jax(tree, cfg, mesh, device="cuda", fsdp: bool = True):
+    """A JAX LM parameter tree (numpy leaves, stacked layers) -> this
+    rank's blocks on ``mesh``: ``params_from_jax``'s whole tree, placed by
+    ``lm_rules(fsdp)`` (``models.lm_parallel.place_params``). Gathered
+    back (``unplace_params``) the blocks are the whole tree bit for
+    bit."""
+    from repro_torch.models.lm_parallel import place_params
+    return place_params(params_from_jax(tree, device), cfg, mesh, fsdp)
+
+
 def lm_cache_from_jax(cache, device="cuda") -> dict:
     """A JAX LM KV cache (``models/lm.py:init_cache``'s dict of stacked
     [L, ...] arrays, as numpy) -> the port's cache dict: ``{k, v}`` or the

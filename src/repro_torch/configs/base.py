@@ -14,9 +14,11 @@ step's arguments at the cell's own shape as meta tensors (the JAX cell's
 ``abstract_params`` and ``abstract_opt`` of theirs), which the dry-run
 (``launch/dryrun.py``) counts without allocating, and, where the port
 has a batch builder at the cell's shape, ``concrete_args(device)``,
-which it measures. The mesh half of the JAX cells
-(``activation_specs``, ``shard_abstract``) waits for the multi-card
-port.
+which it measures. On a mesh, ``make_fn(device=, mesh=)`` gives the
+step on the ranks' blocks where the family has one (the LM family), and
+``shard_abstract`` is the JAX package's: the meta blocks a rank holds
+(the JAX cells' ``activation_specs`` stay unported: the port's
+``constrain`` is the identity).
 """
 from __future__ import annotations
 
@@ -87,6 +89,24 @@ def abstract_params(init_fn, dtype=None):
         return meta(t.shape, t.dtype)
 
     return tree_map(to_meta, fake)
+
+
+def shard_abstract(tree, specs, mesh):
+    """One rank's blocks of a meta tree by ``specs`` (a tree of Specs of
+    its layout): each leaf a meta tensor of its block's shape (the JAX
+    package's ``shard_abstract``, whose arrays carry their sharding; a
+    rank of the port holds its block). ``mesh`` None: the tree as it
+    is."""
+    if mesh is None:
+        return tree
+    from repro_torch.distributed.sharding import _axes_size, tree_map
+
+    def block(spec, leaf):
+        return meta(tuple(n // (_axes_size(mesh, spec[d]) if d < len(spec)
+                                and spec[d] is not None else 1)
+                          for d, n in enumerate(leaf.shape)), leaf.dtype)
+
+    return tree_map(block, specs, tree)
 
 
 def abstract_opt(params):

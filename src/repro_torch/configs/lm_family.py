@@ -13,9 +13,14 @@ tokens, the bf16 decode cache) and the JAX package's reduced smoke.
 
 One 80 GB card holds neither MoE config whole (264 and 218 GB of bf16
 weights), so each serves on the card at a cut depth
-(``ONE_CARD_SERVE``), at full width; training them waits for more than
-one card (an Adam step keeps 12 bytes a parameter: 39 GB for one DBRX
-layer, 106 GB for one Scout super-block).
+(``ONE_CARD_SERVE``), at full width. Training them needs a mesh (an
+Adam step keeps 12 bytes a parameter: 39 GB for one DBRX layer, 106 GB
+for one Scout super-block): ``make_fn(cfg, kind, mesh)`` is the
+counterpart of a JAX ``Cell.make_fn(mesh)`` on a (data, model) mesh of
+ranks (``launch/mesh.py``), the parameters placed by
+``lm_rules(fsdp=True)`` (``place_params``, ``place_opt``, or drawn
+placed by ``init_placed``) and ``moe_impl="ep"`` meaning ``nn.moe_ep``;
+``models/lm_parallel.py`` says how the steps run there.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ import torch
 from repro_torch import optim
 from repro_torch.device import check_device
 from repro_torch.models import lm
+from repro_torch.models import lm_parallel as tp
+# a whole tree's blocks on a mesh by lm_rules(fsdp) (the JAX cells' rules)
+from repro_torch.models.lm_parallel import place_params  # noqa: F401
 
 from .base import (I32, Arch, Cell, abstract_opt, abstract_params,
                    assert_finite, meta)
@@ -115,7 +123,24 @@ def train_batch(cfg: lm.LMConfig, batch: int, seq: int,
     return {"tokens": toks, "labels": torch.cat([toks[:, 1:], ignore], 1)}
 
 
-def make_fn(cfg: lm.LMConfig, kind: str):
+def place_opt(opt, cfg: lm.LMConfig, mesh, fsdp: bool = True):
+    """This rank's blocks of a whole Adam state: the moments as their
+    parameters (the JAX package's ``opt_spec_tree``), the count whole."""
+    return {"m": place_params(opt["m"], cfg, mesh, fsdp),
+            "v": place_params(opt["v"], cfg, mesh, fsdp),
+            "count": opt["count"]}
+
+
+def init_placed(gen: torch.Generator, cfg: lm.LMConfig, mesh,
+                param_dtype=torch.float32, fsdp: bool = True):
+    """``place_params(lm.init(gen, cfg, param_dtype), cfg, mesh, fsdp)``
+    with at most one whole layer (or the embedding, or the head) live:
+    each part is placed as soon as it is drawn, from the same draws."""
+    return lm.init(gen, cfg, param_dtype, place=lambda path, tree:
+                   place_params(tree, cfg, mesh, fsdp, prefix=path))
+
+
+def make_fn(cfg: lm.LMConfig, kind: str, mesh=None):
     """The step of ``kind`` for ``cfg``:
     ``train``: (params, opt_state, {tokens, labels} [B, S]) -> (params,
     opt_state, metrics), ``lm_loss`` and its Adam step (the JAX cell's
@@ -124,14 +149,25 @@ def make_fn(cfg: lm.LMConfig, kind: str):
     ``prefill``: (params, tokens [B, S]) -> last-position logits [B, V];
     ``decode``: (params, token [B, 1], cache, cache_index) -> (logits,
     cache), the cache updated in place. The serving steps run without
-    autograd."""
+    autograd.
+
+    With ``mesh`` (in each rank of it): the same steps on this rank's
+    blocks (``place_params``, ``place_opt``; the cache from
+    ``lm.init_cache(mesh=)``), the batch whole; the train step sums the
+    gradients of the leaves whole over ``data`` and clips by the global
+    norm (``optim.make_train_step(mesh=)``); prefill and decode return
+    this rank's batch block's logits [B/D, V]."""
     if kind == "train":
-        return optim.make_train_step(lambda p, b: lm.lm_loss(p, cfg, b),
-                                     TRAIN_OPT, TRAIN_SCHEDULE)
+        specs = None if mesh is None else (
+            lambda p: tp.specs_by_path(p, cfg, mesh))
+        return optim.make_train_step(
+            lambda p, b: lm.lm_loss(p, cfg, b, mesh=mesh), TRAIN_OPT,
+            TRAIN_SCHEDULE, mesh=mesh, specs=specs)
     if kind == "prefill":
-        fn = lambda p, t: lm.prefill(p, cfg, t)              # noqa: E731
+        fn = lambda p, t: lm.prefill(p, cfg, t, mesh=mesh)   # noqa: E731
     elif kind == "decode":
-        fn = lambda p, t, c, i: lm.decode_step(p, cfg, t, c, i)  # noqa: E731
+        fn = lambda p, t, c, i: lm.decode_step(  # noqa: E731
+            p, cfg, t, c, i, mesh=mesh)
     else:
         raise ValueError(f"unknown LM step kind: {kind!r}")
     return torch.no_grad()(fn)
@@ -185,8 +221,8 @@ def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
                 else None)
         cells[shape] = Cell(
             arch=cfg.name, shape=shape, kind=kind,
-            make_fn=lambda device="cuda", cfg=cfg, kind=kind: make_fn(
-                cfg, kind), skip=skip,
+            make_fn=lambda device="cuda", mesh=None, cfg=cfg, kind=kind:
+            make_fn(cfg, kind, mesh), skip=skip,
             meta={"model_flops": float(mf), "params": cfg.param_count(),
                   "active_params": act},
             abstract_args=functools.partial(_abstract_args, cfg, shape))
@@ -221,7 +257,8 @@ def archs():
         lm_arch(CHATGLM3_6B, notes="GQA kv=2, partial (2D) RoPE, QKV bias"),
         lm_arch(QWEN2_72B, notes="GQA kv=8, QKV bias"),
         lm_arch(DBRX_132B, notes="MoE 16e top-4 (fine-grained); experts "
-                                 "through nn.moe_gather on one card"),
+                                 "through nn.moe_gather on one card, "
+                                 "nn.moe_ep over the model axis of a mesh"),
         lm_arch(LLAMA4_SCOUT, sub_quadratic=True,
                 notes="MoE 16e top-1 + shared expert; iRoPE chunked-local "
                       "attention (sub-quadratic) -> long_500k runs. "

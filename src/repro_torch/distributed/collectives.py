@@ -1,6 +1,24 @@
-"""The collectives a data mesh needs, which GSPMD inserts for the JAX
+"""The collectives a mesh needs, which GSPMD inserts for the JAX
 package: a differentiable all-gather, a sum (and max) all-reduce, a
-broadcast and a gather to rank 0, over ``mesh.group``.
+reduce-scatter, a broadcast and a gather to rank 0, over ``mesh.group``
+or, with ``axis=``, over one axis's group (``Mesh.group_of``); a call
+over an axis of size 1 returns at once.
+
+Tensor parallelism (the LM family on the model axis) uses three
+autograd-aware ones:
+
+- ``copy_to(x, mesh, axis)`` -- Megatron's *f*, "copy to the model
+  region": identity forward, an all-reduce of the gradient backward. It
+  stands where a tensor that every rank of the axis holds whole enters
+  a computation each rank does on its own block of the weights.
+- ``reduce_from(x, mesh, axis)`` -- Megatron's *g*, "reduce from the
+  model region": an all-reduce forward, identity backward. It sums the
+  partial outputs of a row-parallel product (or any value each rank
+  holds a part of), and each rank's gradient is its own part's.
+- ``gather_weight(w, mesh, dim)`` -- FSDP: the data axis's blocks of a
+  weight joined along ``dim`` forward; the gradient of the whole summed
+  over the data axis and this rank's block kept (a reduce-scatter)
+  backward.
 
 NCCL runs them on the card's tensors. gloo runs them on host tensors: its
 CUDA paths copy to the host anyway and not every collective has one (no
@@ -18,21 +36,29 @@ import torch
 import torch.distributed as dist
 
 
-def _staged(mesh, t) -> bool:
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _staged(mesh, t, group=None) -> bool:
     return t.device.type == "cuda" and \
-        dist.get_backend(mesh.group) == dist.Backend.GLOO
+        _gloo(mesh.group if group is None else group)
 
 
-def all_reduce(t, mesh, op: str = "sum"):
-    """``t`` reduced over the ranks (``op`` "sum" or "max"), in place;
-    returns ``t``. The result is the same on every rank."""
+def all_reduce(t, mesh, op: str = "sum", axis: str | None = None):
+    """``t`` reduced over the ranks (``op`` "sum" or "max"), or over
+    ``axis``'s, in place; returns ``t``. The result is the same on every
+    rank of the group."""
+    if mesh.size(axis) == 1:
+        return t
+    group = mesh.group_of(axis)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    if not _staged(mesh, t):
-        dist.all_reduce(t, red, group=mesh.group)
+    if not _staged(mesh, t, group):
+        dist.all_reduce(t, red, group=group)
         return t
     host = mesh.staging(t.shape, t.dtype)
     host.copy_(t)
-    dist.all_reduce(host, red, group=mesh.group)
+    dist.all_reduce(host, red, group=group)
     return t.copy_(host)
 
 
@@ -51,22 +77,56 @@ def broadcast(t, mesh, src: int = 0):
     return t.copy_(host)
 
 
-def all_gather(t, mesh):
-    """Every rank's ``t`` (the same shape on each) stacked along dim 0 in
-    rank order: [world * t.shape[0], ...], on ``t``'s device."""
-    if dist.get_backend(mesh.group) != dist.Backend.GLOO:
-        out = torch.empty((mesh.world * t.shape[0],) + tuple(t.shape[1:]),
+def all_gather(t, mesh, axis: str | None = None, dim: int = 0):
+    """Every rank's ``t`` (the same shape on each) joined along ``dim``
+    in rank order (over ``axis``'s ranks, in their order along it), on
+    ``t``'s device: dim 0 of [world * t.shape[0], ...] by default."""
+    n = mesh.size(axis)
+    if n == 1:
+        return t
+    group = mesh.group_of(axis)
+    if not _gloo(group):
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, t.contiguous(), group=mesh.group)
-        return out
-    if _staged(mesh, t):
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.movedim(0, dim) if dim else out
+    if _staged(mesh, t, group):
         host = mesh.staging(t.shape, t.dtype)
         host.copy_(t)
     else:
         host = t.detach().contiguous()
-    parts = [torch.empty_like(host) for _ in range(mesh.world)]
-    dist.all_gather(parts, host, group=mesh.group)
-    return torch.cat(parts).to(t.device)
+    parts = [torch.empty_like(host) for _ in range(n)]
+    dist.all_gather(parts, host, group=group)
+    if t.device.type == "cpu":
+        return torch.cat(parts, dim)
+    # each part straight into its place on the card (no joined host copy)
+    shape = list(t.shape)
+    size = shape[dim]
+    shape[dim] = n * size
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    for i, part in enumerate(parts):
+        out.narrow(dim, i * size, size).copy_(part)
+    return out
+
+
+def reduce_scatter(t, mesh, axis: str | None = None, dim: int = 0):
+    """``t`` summed over the ranks (of ``axis``), and this rank's block
+    along ``dim`` kept: [t.shape[dim] / n] there, a tensor of its own.
+    gloo has no reduce-scatter: an all-reduce, then the block."""
+    n = mesh.size(axis)
+    if n == 1:
+        return t
+    group = mesh.group_of(axis)
+    i, size = mesh.index(axis), t.shape[dim] // n
+    if not _gloo(group):
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((size,) + tuple(src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim) if dim else out
+    whole = all_reduce(t.detach().contiguous().clone(), mesh, axis=axis)
+    return whole.narrow(dim, i * size, size).clone()
 
 
 def gather_to_rank0(t, mesh):
@@ -106,5 +166,95 @@ def all_gather_grad(t, mesh):
     return _AllGather.apply(t, mesh)
 
 
-def barrier(mesh):
-    dist.barrier(group=mesh.group)
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.mesh,
+                          axis=ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.contiguous().clone(), mesh, axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    """FSDP: all-gather along ``dim`` forward, reduce-scatter (a sum)
+    backward."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(w, mesh, axis=axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.mesh, axis=ctx.axis,
+                              dim=ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """reduce_scatter forward; all_gather of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(x, mesh, axis=axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad.contiguous(), ctx.mesh, axis=ctx.axis,
+                          dim=ctx.dim), None, None, None
+
+
+def reduce_scatter_grad(x, mesh, axis: str, dim: int = 0):
+    """``reduce_scatter`` under autograd: the sum over ``axis`` and this
+    rank's block along ``dim`` forward; the blocks' gradients joined
+    backward (each rank's partial input feeds every rank's block)."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def copy_to(x, mesh, axis: str = "model"):
+    """Megatron's *f* over ``axis``: x forward; the gradient all-reduced
+    over the axis backward (x itself where the axis has size 1)."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x, mesh, axis: str = "model"):
+    """Megatron's *g* over ``axis``: x summed over the axis forward (a new
+    tensor); the gradient passed through backward."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_weight(w, mesh, dim: int, axis: str = "data"):
+    """FSDP's gather of a weight's blocks over ``axis`` along ``dim``; the
+    backward sums the gradient of the whole over the axis and keeps this
+    rank's block."""
+    if mesh is None or mesh.size(axis) == 1:
+        return w
+    return _GatherWeight.apply(w, mesh, axis, dim)
+
+
+def barrier(mesh, axis: str | None = None):
+    if mesh.size(axis) > 1:
+        dist.barrier(group=mesh.group_of(axis))

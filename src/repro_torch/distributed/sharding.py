@@ -10,11 +10,13 @@ tensor/expert/table parallel.
 
 JAX hands a tree of specs to GSPMD, which places every leaf and inserts
 the collectives. PyTorch runs one process per rank: ``shard_block`` cuts
-this rank's block of a leaf, and the code that reads a sharded leaf
-calls the collectives itself (``distributed/collectives.py``). The port
-places only what SpeedyFeed's pure data parallelism needs (the row-
-sharded cache and the user side of a batch); the LM, recsys and GNN
-tables are here as data.
+this rank's block of a leaf, ``place`` every leaf of a tree, and the code
+that reads a sharded leaf calls the collectives itself
+(``distributed/collectives.py``). The port places SpeedyFeed's pure data
+parallelism (the row-sharded cache and the user side of a batch) and
+the LM family by ``lm_rules`` and ``lm_batch_specs``
+(``models/lm_parallel.py``); the recsys and GNN tables are here as
+data.
 
 A mesh is anything with ``axis_names``, a ``shape`` mapping each axis to
 its size and, for ``shard_block``, a ``rank`` (``launch/mesh.py:Mesh``).
@@ -100,8 +102,10 @@ def data_spec(mesh, *dims):
     return Spec(present if present else None, *dims)
 
 
-def spec_tree(params, rules, default=Spec()):
-    """Match flattened param paths against (regex, spec) rules."""
+def spec_tree(params, rules, default=Spec(), prefix=()):
+    """Match flattened param paths against (regex, spec) rules; ``prefix``
+    is the path of ``params`` in its whole tree (a subtree's leaves match
+    by their whole path)."""
     compiled = [(re.compile(r), s) for r, s in rules]
 
     def match(path, leaf):
@@ -111,7 +115,7 @@ def spec_tree(params, rules, default=Spec()):
                 return _fit(spec, leaf)
         return default
 
-    return _map(match, params)
+    return _map(match, params, path=tuple(prefix))
 
 
 def _fit(spec, leaf):
@@ -178,6 +182,24 @@ def _coords(mesh) -> dict:
     return out
 
 
+def place(tree, specs, mesh):
+    """Every leaf of ``tree`` cut to this rank's block by its spec in
+    ``specs`` (a tree of the same layout), each block a tensor of its own
+    (a copy, so the whole can be freed); a leaf the spec does not shard
+    is kept as it is."""
+    def cut(spec, leaf):
+        block = shard_block(leaf, spec, mesh)
+        return block if block is leaf else block.clone(
+            memory_format=_contiguous(block))
+
+    return tree_map(cut, specs, tree)
+
+
+def _contiguous(t):
+    import torch
+    return torch.contiguous_format if isinstance(t, torch.Tensor) else None
+
+
 def shard_block(x, spec, mesh):
     """This rank's block of the leaf ``x`` under ``spec``: a view (a
     narrow of each sharded dim) of a tensor or array; ``x`` itself when
@@ -230,6 +252,25 @@ def lm_rules(fsdp: bool = False):
         (r"ln", Spec()),
         (r"_norm", Spec()),
     ]
+
+
+def lm_batch_specs(mesh, kind: str):
+    """The LM family's batch specs: tokens and labels over the data axes;
+    a decode step's cache [L, B, S, Hkv, hd] with B over the data axes and
+    the KV heads over ``model`` (the JAX package's table, whose cells'
+    ``_cache_spec`` puts S over ``model`` in the dry-run instead; the
+    port's per-head attention needs whole heads on a rank)."""
+    present = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+    if kind == "train":
+        return {"tokens": data_spec(mesh), "labels": data_spec(mesh)}
+    if kind == "prefill":
+        return {"tokens": data_spec(mesh)}
+    if kind == "decode":
+        return {"token": data_spec(mesh),
+                "cache": {k: Spec(None, present, None, "model", None)
+                          for k in ("k", "v")},
+                "index": Spec()}
+    raise ValueError(kind)
 
 
 def recsys_rules():

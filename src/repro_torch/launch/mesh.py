@@ -14,6 +14,16 @@ run on the CPU. Repeats are allowed in ``devices``: ``["cuda:0"] * 4``
 puts four ranks on one card (over gloo), ``["cpu"] * 4`` four on the
 CPU, the counterpart of the JAX package's forced host devices.
 
+``run_on_mesh(..., model=M)`` lays the ranks out as a (data, model) mesh
+in row-major order, as the JAX package's ``make_mesh_for(n, model=M)``
+lays out its devices: rank ``r`` sits at data ``r // M``, model ``r % M``.
+Each rank gets a process group per axis (``Mesh.groups``): its ``data``
+group (the ranks that share its model coordinate) and its ``model`` group
+(the ranks that share its data coordinate), which the collectives of
+``distributed/collectives.py`` take by name. ``submesh`` cuts a mesh's
+ranks into smaller meshes of another shape (the tests run a (1, 2) and a
+(2, 2) mesh in one group of 4 ranks).
+
 ``make_mesh_for`` and ``make_production_mesh`` give meshes of shapes
 only (rank 0, no process group), which the sharding rules read.
 """
@@ -39,33 +49,68 @@ RANK_TIMEOUT_S = 600.0     # a collective that waits longer fails its rank
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A (data, model) mesh: ``shape`` maps each axis to its size. Inside
-    a rank of ``run_on_mesh``, ``rank`` is this process's and ``group``
-    the process group; ``devices`` are the ranks' devices in rank order."""
+    a rank of ``run_on_mesh``, ``rank`` is this process's place in the
+    mesh (row-major over ``axis_names``) and ``group`` the process group
+    of the whole mesh; ``groups`` maps an axis to this rank's group along
+    it (absent where the axis has size 1, or the mesh is the world's one
+    data axis, whose group is ``group``); ``devices`` are the mesh's
+    ranks' devices in mesh order."""
     axis_names: tuple
     shape: dict
     rank: int = 0
     devices: tuple = ()
     group: object = None
+    groups: dict = dataclasses.field(default_factory=dict, repr=False)
     _staging: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def world(self) -> int:
         return int(np.prod([self.shape[a] for a in self.axis_names]))
 
+    def size(self, axis: str | None = None) -> int:
+        """The ranks along ``axis`` (the whole mesh for None; 1 for an
+        axis the mesh lacks)."""
+        return self.world if axis is None else int(self.shape.get(axis, 1))
+
+    def index(self, axis: str | None = None) -> int:
+        """This rank's coordinate along ``axis`` (its rank for None)."""
+        if axis is None:
+            return self.rank
+        r = self.rank
+        for a in reversed(self.axis_names):
+            if a == axis:
+                return r % self.shape[a]
+            r //= self.shape[a]
+        return 0
+
+    def group_of(self, axis: str | None = None):
+        """The process group along ``axis`` (the mesh's for None, or for
+        the only axis of size above 1)."""
+        if axis is None:
+            return self.group
+        g = self.groups.get(axis)
+        if g is None and self.size(axis) == self.world:
+            return self.group
+        return g
+
     @property
     def device(self) -> torch.device | None:
         return self.devices[self.rank] if self.devices else None
 
     def staging(self, shape, dtype) -> torch.Tensor:
-        """A pinned host buffer of ``shape`` and ``dtype``, kept for the
-        mesh's lifetime (``distributed/collectives.py`` stages CUDA
-        tensors through it on a gloo group)."""
-        key = (tuple(shape), dtype)
-        buf = self._staging.get(key)
-        if buf is None:
-            buf = self._staging[key] = torch.empty(
-                key[0], dtype=dtype, pin_memory=torch.cuda.is_available())
-        return buf
+        """A pinned host buffer of ``shape`` and ``dtype`` (a view of one
+        buffer a dtype, kept for the mesh's lifetime and grown to the
+        largest request: ``distributed/collectives.py`` stages CUDA
+        tensors through it on a gloo group, one collective at a time, so
+        the pinned bytes stay those of the largest tensor staged, whatever
+        the count of shapes)."""
+        n = int(np.prod(shape))
+        buf = self._staging.get(dtype)
+        if buf is None or buf.numel() < n:
+            self._staging.pop(dtype, None)
+            buf = self._staging[dtype] = torch.empty(
+                n, dtype=dtype, pin_memory=torch.cuda.is_available())
+        return buf[:n].view(tuple(shape))
 
 
 def make_mesh_for(n: int, *, model: int = 1, devices=()) -> Mesh:
@@ -135,7 +180,54 @@ def _to_host(obj):
     return obj
 
 
-def _rank_main(rank, n, devices, backend, init_file, threads, fn, args, out):
+def _axis_groups(shape: tuple, base: int = 0) -> list:
+    """For a (data, model) mesh of ``shape`` over ranks ``base`` ..
+    ``base + data * model - 1`` (row-major), every group of each axis as
+    (axis, ranks): the model groups (one a data row), then the data
+    groups (one a model column)."""
+    D, M = shape
+    return ([("model", [base + d * M + m for m in range(M)])
+             for d in range(D)]
+            + [("data", [base + d * M + m for d in range(D)])
+               for m in range(M)])
+
+
+def _new_groups(rank: int, specs: list) -> dict:
+    """``dist.new_group`` for every (axis, ranks) of ``specs``, in order
+    (each rank of the world must make every group, its own or not);
+    returns {axis: group} of the groups that hold ``rank``."""
+    import torch.distributed as dist
+    mine = {}
+    for axis, ranks in specs:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine[axis] = g
+    return mine
+
+
+def submesh(mesh: Mesh, *, data: int, model: int) -> Mesh:
+    """This rank's (data, model) mesh when ``mesh``'s ranks are cut into
+    ``mesh.world // (data * model)`` meshes of that shape, each of
+    consecutive ranks. Collective: every rank of ``mesh`` calls it with
+    the same shape, in the same order (it makes process groups)."""
+    n = data * model
+    if mesh.world % n:
+        raise ValueError(f"{mesh.world} ranks do not cut into "
+                         f"(data={data}, model={model}) meshes")
+    specs = []
+    for b in range(0, mesh.world, n):
+        specs += [("world", list(range(b, b + n)))] + \
+            _axis_groups((data, model), b)
+    groups = _new_groups(mesh.rank, specs)
+    base = mesh.rank - mesh.rank % n
+    return Mesh(("data", "model"), {"data": data, "model": model},
+                rank=mesh.rank - base,
+                devices=tuple(mesh.devices[base:base + n]),
+                group=groups.pop("world"), groups=groups)
+
+
+def _rank_main(rank, n, devices, backend, init_file, threads, fn, args, out,
+               model=1):
     import torch.distributed as dist
     try:
         if threads:
@@ -147,10 +239,12 @@ def _rank_main(rank, n, devices, backend, init_file, threads, fn, args, out):
             backend, init_method=f"file://{init_file}", world_size=n,
             rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
         try:
-            mesh = Mesh(("data", "model"), {"data": n, "model": 1},
-                        rank=rank,
+            groups = (_new_groups(rank, _axis_groups((n // model, model)))
+                      if model > 1 else {})
+            mesh = Mesh(("data", "model"),
+                        {"data": n // model, "model": model}, rank=rank,
                         devices=tuple(torch.device(d) for d in devices),
-                        group=dist.group.WORLD)
+                        group=dist.group.WORLD, groups=groups)
             result = _to_host(fn(mesh, *args))
         finally:
             dist.destroy_process_group()
@@ -160,10 +254,12 @@ def _rank_main(rank, n, devices, backend, init_file, threads, fn, args, out):
 
 
 def run_on_mesh(fn, n: int, devices=None, backend: str | None = None, *,
-                args=(), timeout: float = 1800.0) -> list:
+                args=(), timeout: float = 1800.0, model: int = 1) -> list:
     """Spawn ``n`` ranks and return ``[fn(mesh, *args) for each rank]`` in
     rank order (tensors in the results come back as numpy arrays).
 
+    ``model`` lays the ranks out as (n // model, model), row-major, with a
+    group per axis (``Mesh.groups``); the default is one data axis.
     ``devices`` (one a rank, repeats allowed) default to ``cuda:0`` ..
     ``cuda:n-1`` and raise without a GPU; pass ``["cpu"] * n`` for the
     CPU. ``backend`` defaults to ``backend_for(devices)``; NCCL with
@@ -176,6 +272,8 @@ def run_on_mesh(fn, n: int, devices=None, backend: str | None = None, *,
         devices if devices is not None else [f"cuda:{i}" for i in range(n)])]
     if len(devices) != n:
         raise ValueError(f"{n} ranks need {n} devices, got {len(devices)}")
+    if n % model:
+        raise ValueError(f"{n} ranks do not divide into model={model}")
     backend = backend or backend_for(devices)
     if backend == "nccl" and backend_for(devices) != "nccl":
         raise ValueError(f"NCCL needs a card of its own for each rank, got "
@@ -189,7 +287,7 @@ def run_on_mesh(fn, n: int, devices=None, backend: str | None = None, *,
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, n, [str(d) for d in devices], backend,
                                os.path.join(tmp, "rendezvous"), threads, fn,
-                               tuple(args), out))
+                               tuple(args), out, model))
              for r in range(n)]
     results, errors = {}, {}
     try:

@@ -8,8 +8,8 @@ from .core import (dense, embed, init_dense, init_embedding, init_layernorm,
                    init_mlp, init_rmsnorm, layernorm, mlp, normal_init,
                    rmsnorm, xavier_init)
 from .embedding_bag import embedding_bag, embedding_bag_flat, offsets_to_fixed
-from .moe import (MoEConfig, capacity_for, init_moe, moe_dense,
-                  moe_gather)
+from .moe import (MoEConfig, capacity_for, init_moe, moe_dense, moe_ep,
+                  moe_ep_partial, moe_gather)
 from .rope import apply_rope, positions_for_decode, rope_cos_sin, rope_freqs
 
 __all__ = ["NEG_INF", "AttnConfig", "attention", "blocked_sdpa",
@@ -19,6 +19,6 @@ __all__ = ["NEG_INF", "AttnConfig", "attention", "blocked_sdpa",
            "init_rmsnorm", "layernorm", "mlp", "normal_init", "rmsnorm",
            "xavier_init", "embedding_bag", "embedding_bag_flat",
            "offsets_to_fixed", "MoEConfig", "capacity_for", "init_moe",
-           "moe_dense", "moe_gather",
+           "moe_dense", "moe_ep", "moe_ep_partial", "moe_gather",
            "apply_rope", "positions_for_decode", "rope_cos_sin",
            "rope_freqs"]

@@ -13,6 +13,13 @@ package routes it to its Pallas kernel. An unmasked chunked-local call
 sequence of its own (``chunked_flash``), where the JAX package runs XLA's
 ``chunked_sdpa``: the same function. Every other call, and every decode
 step, is plain PyTorch.
+
+Under tensor parallelism (``models/lm_parallel.py``) a rank runs both
+on its own heads: the caller passes an ``AttnConfig`` of the rank's
+``n_heads / M`` query and ``n_kv / M`` KV heads and the rank's column
+blocks of q, k, v (and row block of o), and ``reduce`` sums the o
+projection's partial products over the model axis before the o bias is
+added, once.
 """
 from __future__ import annotations
 
@@ -151,8 +158,19 @@ def _project(params, x, cfg: AttnConfig, positions):
     return q, k, v
 
 
+def _out(params, out, reduce=None):
+    """The o projection of the heads' output [..., H hd]: ``dense``, or
+    with ``reduce`` (a row-parallel block of o) the product summed by
+    ``reduce``, then the bias, once."""
+    if reduce is None:
+        return dense(params["o"], out)
+    y = reduce(out @ params["o"]["w"])
+    b = params["o"].get("b")
+    return y if b is None else y + b
+
+
 def attention(params, x, cfg: AttnConfig, *, positions=None, mask=None,
-              impl: str = "kernel"):
+              impl: str = "kernel", reduce=None):
     """Self-attention over x: [B, S, d_model] -> [B, S, d_model].
 
     An unmasked call with no chunked-local window, whose S passes
@@ -164,7 +182,7 @@ def attention(params, x, cfg: AttnConfig, *, positions=None, mask=None,
     goes to the flash kernel chunk by chunk (``chunked_flash``) with
     ``impl="kernel"``, and to ``chunked_sdpa`` with ``impl="plain"``.
     Masked calls and other lengths take plain attention under either
-    impl, as in the JAX package.
+    impl, as in the JAX package. ``reduce``: see the module docstring.
     """
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown attn impl: {impl!r}")
@@ -190,7 +208,8 @@ def attention(params, x, cfg: AttnConfig, *, positions=None, mask=None,
                            block_q=cfg.block_q)
     else:
         out = sdpa(q, k, v, causal=cfg.causal, mask=mask)
-    return dense(params["o"], out.reshape(B, S, cfg.n_heads * cfg.head_dim))
+    return _out(params, out.reshape(B, S, cfg.n_heads * cfg.head_dim),
+                reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +246,8 @@ def _dq8(q, s, dtype):
     return (q.float() * s[..., None]).to(dtype)
 
 
-def decode_attention(params, x, cache, cache_index, cfg: AttnConfig):
+def decode_attention(params, x, cache, cache_index, cfg: AttnConfig, *,
+                     reduce=None):
     """One token against a KV cache. x: [B, 1, d]; cache: ``{k, v}``
     [B, S_max, Hkv, D] or the int8 layout ``{k_q, k_s, v_q, v_s}``;
     cache_index: the number of valid entries already in the cache (an int
@@ -239,7 +259,8 @@ def decode_attention(params, x, cache, cache_index, cfg: AttnConfig):
     ``min(cache_index, S_max - 1)``, as ``jax.lax.dynamic_update_slice``
     clamps its start. A chunked-local layer attends over the trailing
     ``chunk_size`` slots that end at cache_index; a global one over the
-    whole cache, masked to the first cache_index + 1 slots.
+    whole cache, masked to the first cache_index + 1 slots. ``reduce``:
+    see the module docstring (the cache then holds the rank's KV heads).
     """
     B = x.shape[0]
     hq, hk, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -278,4 +299,4 @@ def decode_attention(params, x, cache, cache_index, cfg: AttnConfig):
     kw, vw = read(start, w)
     valid = (torch.arange(w, device=x.device) + start <= idx)[None, :]
     out = sdpa(q, kw, vw, causal=False, mask=valid.expand(B, w))
-    return dense(params["o"], out.reshape(B, 1, hq * hd)), cache
+    return _out(params, out.reshape(B, 1, hq * hd), reduce), cache

@@ -1,19 +1,25 @@
 """Mixture-of-Experts substrate.
 
-Two interchangeable implementations of one routing:
+Three implementations of one routing:
   * ``moe_dense``  -- every expert runs on every token, gated by the top-k
                       mask. O(E) FLOPs; only for small tests.
   * ``moe_gather`` -- sort-based capacity dispatch: top-k -> stable argsort
                       by expert -> fixed-capacity gather -> grouped GEMMs
-                      -> combine. The serving path.
+                      -> combine. The one-process path.
+  * ``moe_ep``     -- expert parallelism on a mesh (``launch/mesh.py``):
+                      the experts over the ``model`` axis, each model rank
+                      running ``moe_gather`` on its E/M experts over its
+                      data shard's tokens, the outputs summed over
+                      ``model``, the balance loss averaged over ``data``.
 
 The routing (router logits in the activation dtype, softmax in f32, top-k
 with ties to the lower expert index, renormalised gates, the switch
 balance loss, the capacity drop) is the JAX package's, so both packages
-send every token to the same experts and drop the same assignments. The
-JAX package's expert-parallel ``moe_ep`` (a mesh over the expert axis)
-has no counterpart here: with no mesh its LM falls back to
-``moe_gather``, and so does the port's.
+send every token to the same experts and drop the same assignments. As
+in the JAX package, ``moe_ep``'s capacity comes from the data shard's
+tokens, so it drops differently from one ``moe_gather`` over the whole
+batch once an expert overflows, and its balance loss is the mean of the
+shards' (a function of each shard's routing, not the whole batch's).
 
 The stages of ``moe_gather`` run under ``torch.profiler.record_function``
 ranges (``moe.route``, ``moe.dispatch``, ``moe.experts``,
@@ -28,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+
+from repro_torch.distributed.collectives import copy_to, reduce_from
 
 from .core import normal_init
 
@@ -169,3 +177,69 @@ def moe_gather(p, x, cfg: MoEConfig, *, expert_start: int = 0,
         w = (gate.reshape(-1) * valid[inv]).to(y_e.dtype)
         y = (y_e[slot_read] * w[:, None]).view(T, k, d).sum(dim=1)
     return y.reshape(shp), aux
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """x forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def moe_ep_partial(p, x, cfg: MoEConfig, mesh):
+    """This model rank's part of ``moe_ep``: (y_partial, aux), y_partial
+    the contributions of its own experts only (summed over ``model`` by
+    the caller, with any other partial output of the layer: Scout's
+    shared expert joins the same all-reduce).
+
+    ``x`` [..., d] holds this rank's tokens, whole over ``model`` and
+    already through ``copy_to`` (whose backward sums the model ranks'
+    gradients of x); ``p["router"]`` is whole, ``p["w*"]`` this rank's
+    E/M experts (``expert_start = index("model") * E/M``), whole over
+    ``data``. The capacity is ``capacity_for`` of this rank's tokens.
+
+    Every model rank routes the same tokens and so computes the same
+    balance loss, while each gate weighs only its own experts' outputs.
+    So the router is read through ``copy_to`` (its gradient summed over
+    ``model``: the gates' parts added, as the one-process gradient has
+    them) and the balance loss's gradient is scaled by 1/M on each model
+    rank (counted once in that sum, and once in x's). ``aux`` is the mean
+    of the data shards' balance losses (``reduce_from`` over ``data``,
+    over D: each rank's gradient is its own shard's share), the JAX
+    package's ``pmean``; the same value on every rank.
+    """
+    M = mesh.size("model")
+    if cfg.n_experts % M:
+        raise ValueError(f"moe_ep: {cfg.n_experts} experts do not divide "
+                         f"over model={M}")
+    E_local = cfg.n_experts // M
+    if p["w1"].shape[0] != E_local:
+        raise ValueError(f"moe_ep: p holds {p['w1'].shape[0]} experts, "
+                         f"a model rank's block is {E_local}")
+    T = x.numel() // x.shape[-1]
+    local = dict(p, router=copy_to(p["router"], mesh, "model"))
+    y, aux = moe_gather(local, x, cfg, expert_start=mesh.index("model")
+                        * E_local, n_local=E_local,
+                        capacity=capacity_for(T, cfg))
+    if M > 1:
+        aux = _ScaleGrad.apply(aux, 1.0 / M)
+    D = mesh.size("data")
+    return y, reduce_from(aux, mesh, "data") / D if D > 1 else aux
+
+
+def moe_ep(p, x, cfg: MoEConfig, mesh):
+    """Expert-parallel MoE, the JAX package's ``moe_ep`` on a mesh of
+    ranks: x [..., d] is this rank's block of the batch over ``data`` (the
+    whole batch where the data axes cannot divide it: routing is then
+    recomputed on each data rank, as JAX drops those axes), whole over
+    ``model``; ``p`` the router and this rank's E/M experts (see
+    ``moe_ep_partial``). Returns (y, aux): y this rank's block, summed
+    over ``model``; aux the mean of the data shards' balance losses."""
+    y, aux = moe_ep_partial(p, copy_to(x, mesh, "model"), cfg, mesh)
+    return reduce_from(y, mesh, "model"), aux

@@ -16,6 +16,16 @@ still moves.
 ``make_train_step`` builds a step over any loss (the JAX package's
 generic factory), with gradient accumulation over microbatches.
 
+On a mesh (``launch/mesh.py``) ``make_train_step(..., mesh=, specs=)``
+takes each leaf's placement (``specs(params)``: {path: Spec}): it sums
+over ``data`` the gradients of the leaves the data axis does not cut
+(one all-reduce of their concatenation; the loss gives each rank its own
+part's gradient, and an FSDP leaf's arrives summed by its gather's
+reduce-scatter), clips by the global norm over every block of the mesh
+(each block counted on one rank only, ``replica_mask``: a norm taken on
+each rank alone would clip each rank by another factor, and the replicas
+of a leaf would part), and Adam updates each rank's blocks in place.
+
 ``compressed_all_reduce`` is the JAX package's ``compressed_psum`` on a
 data mesh: int8 gradients with error feedback, one int32 sum and one max
 of the scales across the ranks. As in JAX, no trainer calls it;
@@ -110,15 +120,65 @@ def _row_chunks(t: torch.Tensor):
     yield from t.split(rows)
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
+def _axes_of(spec) -> set:
+    out = set()
+    for entry in spec:
+        if entry is not None:
+            out.update((entry,) if isinstance(entry, str) else entry)
+    return out
+
+
+def replica_mask(specs: list, mesh) -> list:
+    """Per leaf, whether this rank counts its block in a global norm: the
+    first rank along every mesh axis the leaf's spec does not cut (where
+    the block is repeated), so each block counts once."""
+    return [all(mesh.index(a) == 0 for a in mesh.axis_names
+                if a not in _axes_of(s)) for s in specs]
+
+
+def sync_grads(grads: list, params: list, specs: list, mesh) -> list:
+    """The gradients of the leaves whole over ``data`` summed over it, in
+    one all-reduce a dtype of their concatenation (a missing one counts as
+    zeros); the others as they are."""
+    if mesh.size("data") == 1:
+        return grads
+    grads = list(grads)
+    todo = [i for i, s in enumerate(specs) if "data" not in _axes_of(s)]
+    for i in todo:
+        if grads[i] is None:
+            grads[i] = torch.zeros_like(params[i])
+    for dtype in sorted({grads[i].dtype for i in todo}, key=str):
+        idx = [i for i in todo if grads[i].dtype == dtype]
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                          mesh, axis="data")
+        at = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[at:at + n].view(grads[i].shape)
+            at += n
+    return grads
+
+
+def clip_by_global_norm(grads: list, max_norm: float, *, mesh=None,
+                        counted: list | None = None):
     """Scale ``grads`` (a list of tensors) in place by min(1, max_norm /
     max(norm, 1e-9)), the scale cast to each gradient's dtype, as the JAX
     package does; returns the global norm (f32). The sum of squares runs
     by row chunks, so no f32 copy of a whole leaf is made. A tensor that
     appears twice in the list (autograd may hand one to two leaves) is
-    scaled once."""
-    gn = torch.sqrt(sum(c.float().square().sum() for g in grads
-                        for c in _row_chunks(g)))
+    scaled once. With ``mesh``, ``grads`` are this rank's blocks and the
+    squares of those ``counted`` marks (``replica_mask``) are summed over
+    the whole mesh: the norm of the whole gradient, the same on every
+    rank."""
+    if counted is None:
+        counted = [True] * len(grads)
+    gn = sum(c.float().square().sum() for g, n in zip(grads, counted)
+             if n for c in _row_chunks(g))
+    if not torch.is_tensor(gn):
+        gn = torch.zeros((), device=grads[0].device)
+    if mesh is not None:
+        gn = all_reduce(gn.reshape(1).clone(), mesh)[0]
+    gn = torch.sqrt(gn)
     scale = torch.clamp(max_norm / gn.clamp_min(1e-9), max=1.0)
     seen = set()
     for g in grads:
@@ -148,13 +208,16 @@ def _put(dst, new, commit):
 
 @torch.no_grad()
 def adam_update(params, grads, state, cfg: AdamConfig,
-                lr_schedule: Callable | None = None, *, commit=None):
+                lr_schedule: Callable | None = None, *, commit=None,
+                mesh=None, specs: dict | None = None):
     """One step. ``grads`` has the tree layout of ``params`` (a leaf may be
     ``None``); the clip scales them in place. Updates ``params`` and
     ``state``'s moments in place, row chunk by row chunk, and returns
     (params, new state, metrics). ``commit`` (a bool scalar tensor) holds
     the parameters, both moments and the step count at their old values
-    when False: the trainer's non-finite guard, decided on the device."""
+    when False: the trainer's non-finite guard, decided on the device.
+    With ``mesh`` and ``specs`` ({path: Spec}), ``params`` are this
+    rank's blocks and the clip takes the global norm over the mesh."""
     if cfg.dp_compression is not None:
         raise NotImplementedError(
             "adam_update does not apply dp_compression: reduce the "
@@ -165,8 +228,11 @@ def adam_update(params, grads, state, cfg: AdamConfig,
     g_by_path = dict(leaves(grads))
     gs = [_writable(g_by_path.get(path)) for path, _ in p_leaves]
     if cfg.grad_clip > 0:
-        gnorm = clip_by_global_norm([g for g in gs if g is not None],
-                                    cfg.grad_clip)
+        counted = (replica_mask([specs[path] for path, _ in p_leaves], mesh)
+                   if mesh is not None else [True] * len(gs))
+        gnorm = clip_by_global_norm(
+            [g for g in gs if g is not None], cfg.grad_clip, mesh=mesh,
+            counted=[n for g, n in zip(gs, counted) if g is not None])
     else:
         gnorm = torch.zeros((), device=count.device)
     b1, b2 = cfg.b1, cfg.b2
@@ -239,7 +305,8 @@ def compressed_all_reduce(grads, mesh, residual):
     return unflatten(grads, out), unflatten(residual, err)
 
 
-def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None):
+def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None, *,
+                    mesh=None, specs: Callable | None = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss's gradients, then ``adam_update``; parameters and moments
     are updated in place. ``loss_fn(params, batch)`` returns a loss or
@@ -249,7 +316,11 @@ def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None):
     With ``accum_steps > 1`` the batch's leading axis is split into that
     many microbatches; their gradients are summed in f32 and divided by
     ``accum_steps``, the loss is their mean, and the loss's own metrics
-    are the last microbatch's (the JAX package's ``lax.scan``)."""
+    are the last microbatch's (the JAX package's ``lax.scan``).
+
+    With ``mesh``, ``params`` are this rank's blocks, ``specs(params)``
+    gives {path: Spec}, and the step is the mesh's (module docstring):
+    ``sync_grads``, then the global-norm clip and Adam on the blocks."""
     n = cfg.accum_steps
 
     def grads_of(params, flat, batch):
@@ -286,8 +357,14 @@ def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None):
             loss = loss / n
         else:
             loss, metrics, grads = grads_of(params, flat, batch)
+        spec_of = None
+        if mesh is not None:
+            spec_of = specs(params)
+            grads = sync_grads(grads, flat, [spec_of[path] for path, _ in
+                                             leaves(params)], mesh)
         params, opt_state, om = adam_update(
-            params, unflatten(params, grads), opt_state, cfg, lr_schedule)
+            params, unflatten(params, grads), opt_state, cfg, lr_schedule,
+            mesh=mesh, specs=spec_of)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         metrics.update(om)

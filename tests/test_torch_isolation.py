@@ -45,7 +45,7 @@ def test_the_walk_covers_the_package():
             "tables.py", "scheduler.py", "loadgen.py", "tune.py",
             "online.py", "service.py", "graph.py", "dimenet.py",
             "gnn_family.py", "sharding.py", "collectives.py", "mesh.py",
-            "sharded.py"} <= names
+            "sharded.py", "lm_parallel.py"} <= names
     # the registry: configs/__init__.py beside base.py's Cell and Arch
     assert ROOT / "src" / "repro_torch" / "configs" / "__init__.py" in \
         PORT_FILES
