@@ -69,7 +69,9 @@ Phases, each of which exits non-zero on failure:
               each non-skipped cell of the eleven archs counted on meta
               tensors on the host (FLOPs by dtype, bytes, peak live
               bytes, against the H100's peaks, TF32 off), with no kernel
-              counter moving; each that fits one card and has a batch
+              counter moving, in ROOFLINE_WORKERS processes at once (the
+              count is Python on the host), all counted before any is
+              measured; each that fits one card and has a batch
               builder at its own shape (``Cell.concrete_args``: at least
               ROOFLINE_MUST) measured on the card, one warm-up and 3
               synchronised steps: ``measured_s``, ``achieved``
@@ -319,8 +321,9 @@ Phases, each of which exits non-zero on failure:
               flash kernels alone, the launch counts set to 0 just before
               and read just after, per rank, each run timed once between
               barriers (the slowest rank's) with each rank's peak memory:
-              on (2, 2), Qwen3-14B prefill at all 40 layers (B=2,
-              S=LM_MESH_PREFILL_SEQ) and a train step at ONE_CARD_TRAIN's
+              on (2, 2), Qwen3-14B prefill at LM_MESH_PREFILL_LAYERS of
+              its 40 layers (B=2, S=LM_MESH_PREFILL_SEQ; the depth cut
+              for the smoke's time) and a train step at ONE_CARD_TRAIN's
               8 layers (B=2, S=4,096); on the world re-cut as a (data=1,
               model=4) mesh, where nothing is gathered over ``data``, a
               Qwen3-14B decode step at B=16 on 8,192 slots, DBRX at
@@ -387,6 +390,55 @@ Phases, each of which exits non-zero on failure:
               and exactly 1, 2, 1, 0 launches of ``embedding_bag`` and
               of ``embedding_bag_bwd`` a step. Each config is freed
               before the next.
+  12b. recsys-mesh the recsys family on a (data, model) mesh:
+              RS_MESH_RANKS gloo ranks share the one card
+              (``run_on_mesh(..., model=2)``), started once for the
+              phase while the parent runs each run of RS_MESH_PLAN in one
+              process on the card, then waiting for a ``go`` file. All
+              four configs at full width, f32, TF32 off, seeded weights
+              (``recsys_family.init_placed``: ``recsys_rules``, the
+              tables cut by rows over ``model``, one rank drawing at a
+              time), ``recsys_synth`` batches, through ``make_fn(cfg,
+              kind, mesh=)``: DCN-v2 and Wide&Deep on (2, 2), serve_p99
+              (B=512) and a train hold; DLRM-RM2 serve_p99 and
+              retrieval_cand (1 query, 10^6 x 128 candidates over the
+              data axes) on (2, 2), its train hold on the world re-cut as
+              (1, 4) (its 8.37 GB table, gradient and moments a quarter a
+              rank); BERT4Rec ``serve_sharded`` at B=512 on (1, 4) and
+              (2, 2), a serve_bulk cut of RS_MESH_BULK_B (of 262,144;
+              its [B, 3M] scores would be 196 GB) on (2, 2), its first
+              RS_MESH_BULK_HELD rows of each data block held to one
+              process's ``serve`` on those rows, retrieval_cand and a
+              train hold of RS_MESH_B4R_MICRO microbatches of 4,096
+              (``accum_steps``, B4R_ONE_CARD_ACCUM's microbatch) on (2,
+              2). The CTR train holds take RS_MESH_TRAIN_B (a cut of
+              train_batch's 65,536). Holds against one process: logits
+              within TOL_RS_MESH["logits"] of the largest; top-100 ids
+              equal (as sets over scores tied within the limit), scores
+              within TOL_RS_MESH["scores"]; a train hold's 2 steps:
+              losses within TOL_RS_MESH["loss"]; at the first step each
+              leaf (the parameters before and after it, its gradient as
+              Adam gets it, both moments after it) read at up to
+              RS_MESH_ROWS of the rows the batch names in a table and
+              LM_MESH_SAMPLE positions elsewhere, each rank its own,
+              within TOL_RS_MESH["leaf"] of the leaf's largest; over
+              both steps each leaf's change within TOL_RS_MESH["change"]
+              of the norm of one process's, which the unchanged state
+              must miss (the parameters after the second step read,
+              not held element by element: ``rs_mesh_train_holds``).
+              One call or
+              step each timed between barriers (serve and retrieval after
+              a warm-up call, the hold's second step; the slowest
+              rank's), each rank's peak memory (x RS_MESH_RANKS under 80
+              GB). The EmbeddingBag launches of each rank, set to 0 just
+              before the runs and read just after, exactly
+              ``rs_mesh_expected_launches``, under the rows'
+              ``launches_by_path["recsys_mesh"]`` by rank; each rank's
+              first forward and backward kept on the host and held to
+              plain one rank at a time at the rank's shapes
+              (``registry_hold``: 1e-6 and 1e-5 of the largest, each
+              beside a control that must miss), their launches apart
+              under ``check_launches["recsys_mesh_holds"]``.
   13. quality the paper's quality experiments. (a) The news baselines
               (``models.news``: NPA, NAML, LSTUR, NRMS) at
               ``NewsBaselineConfig``'s full defaults (vocab 30,522,
@@ -681,6 +733,9 @@ ROOFLINE_MUST = ("dimenet/molecule", "dimenet/full_graph_sm",
                  "wide-deep/train_batch", "dcn-v2/serve_p99",
                  "dcn-v2/train_batch")
 ROOFLINE_SLACK = 1.05
+# processes that count the cells on meta, beside this one (the card's
+# host has 8 cores)
+ROOFLINE_WORKERS = 6
 RS_TRAIN_TIMED, TOL_RS_TRAIN_GRAD = 3, 1e-5
 TOL_EBAG_BWD, EBAG_BF16_RTOL = 1e-5, 2.0 ** -7
 TOL_RS_LOGITS, TOL_RS_BULK, TOL_RS_BF16 = 1e-5, 1e-6, 2e-2
@@ -707,8 +762,8 @@ MESH_RANKS, MESH_TIMED, TOL_MESH, MESH_PHASE_S = 4, 2, 1e-4, 150.0
 # element's own gradient RMS, so where a gradient is near 0 rounding sets
 # the step: element by element changes differ far more than over a leaf;
 # the CPU tests' worst is 2.7e-4 against JAX, 1.9e-4 against one
-# process); the bf16 prefill's sequence (B=2), decode's batch and slots,
-# its timed steps
+# process); the bf16 prefill's sequence (B=2) and depth, decode's batch
+# and slots, its timed steps
 LM_MESH_RANKS, LM_MESH_SHAPE = 4, (2, 2)
 LM_MESH_HOLD = {"qwen3-14b": 2, "dbrx-132b": 1}
 LM_MESH_HOLD_B, LM_MESH_HOLD_SEQ, LM_MESH_HOLD_SLOTS = 2, 256, 16
@@ -717,9 +772,37 @@ LM_MESH_OPT_COUNT = 200
 LM_MESH_SAMPLE = 1 << 16
 TOL_LM_MESH = {"logits": 1e-4, "loss": 1e-4, "grad_norm": 1e-4,
                "param": 1e-4, "moment": 1e-4, "change": 1e-3}
-LM_MESH_PREFILL_SEQ = 8192
+LM_MESH_PREFILL_SEQ, LM_MESH_PREFILL_LAYERS = 8192, 20
 LM_MESH_DECODE = (16, 8192)
 LM_MESH_DECODE_STEPS = 1
+
+# the recsys-mesh phase: RS_MESH_RANKS gloo ranks on the one card; its runs
+# in order, each (config, (data, model), what it runs); the CTR train
+# holds' batch (a cut of train_batch's 65,536) and BERT4Rec's microbatches
+# of train_batch // B4R_ONE_CARD_ACCUM (4,096) a train hold takes (16 at
+# 65,536); the BERT4Rec serve_bulk cut (of 262,144) and the rows of each
+# rank's block held there to one process; up to RS_MESH_ROWS of the rows
+# a train batch names read in each table leaf (LM_MESH_SAMPLE positions in
+# every other leaf); the seed; the limits: logits and scores over the
+# largest, the loss absolute (a loss near 0.69), leaves over their
+# largest (a leaf that starts at 0 over the largest leaf's), a leaf's
+# change over the norm of one process's change; BERT4Rec's key biases,
+# whose gradient is 0 in exact arithmetic (their gradients and moments
+# held over the largest leaf, their parameters not)
+RS_MESH_RANKS, RS_MESH_SHAPE = 4, (2, 2)
+RS_MESH_PLAN = (("dcn-v2", (2, 2), ("serve", "train")),
+                ("wide-deep", (2, 2), ("serve", "train")),
+                ("dlrm-rm2", (2, 2), ("serve", "retrieval")),
+                ("dlrm-rm2", (1, 4), ("train",)),
+                ("bert4rec", (1, 4), ("serve",)),
+                ("bert4rec", (2, 2), ("serve", "bulk", "retrieval",
+                                      "train")))
+RS_MESH_TRAIN_B, RS_MESH_B4R_MICRO = 16384, 2
+RS_MESH_BULK_B, RS_MESH_BULK_HELD = 16384, 256
+RS_MESH_ROWS, RS_MESH_SEED = 1 << 12, 35
+TOL_RS_MESH = {"logits": 1e-5, "scores": 1e-5, "loss": 1e-5, "leaf": 1e-4,
+               "change": 1e-3}
+RS_MESH_NOISE = "attn/k/b"
 
 # the sharded index: shards over the one card; the int8 reduction's
 # gradients (PROD's attention and FFN shapes)
@@ -847,16 +930,21 @@ def bus_kernel(symbol: str):
     return f"{m[1]}<{dtypes[m[2]]},{m[3]},{m[4]}>" if m else None
 
 
+_SASS: dict = {}
+
+
 def sass_count(lib, namer=wgmma_kernel, instr: str = "HGMMA") -> dict:
-    """``instr`` instructions in the SASS (``cuobjdump -sass``) of each
-    kernel instantiation ``namer`` names in the built library (by default
-    HGMMA in each wgmma kernel<D>)."""
+    """``instr`` instructions in the SASS (``cuobjdump -sass``, run once a
+    library) of each kernel instantiation ``namer`` names in the built
+    library (by default HGMMA in each wgmma kernel<D>)."""
     from repro_torch.kernels._build import find_nvcc
-    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
+    if str(lib) not in _SASS:
+        cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+        _SASS[str(lib)] = subprocess.run(
+            [str(cuobjdump), "-sass", str(lib)], capture_output=True,
+            text=True, check=True).stdout
     return {namer(fn.split(None, 1)[0]): fn.count(instr)
-            for fn in sass.split("Function : ")[1:]
+            for fn in _SASS[str(lib)].split("Function : ")[1:]
             if namer(fn.split(None, 1)[0])}
 
 
@@ -3578,6 +3666,44 @@ ROOFLINE_KEYS = ("flops_per_chip", "flops_by_dtype", "bytes_per_chip",
                  "max_memory_allocated", "allocated_before", "args_build_s")
 
 
+def roofline_count(name: str, shape: str, tf32: bool) -> dict:
+    """The dry-run's count of the cell (``name``, ``shape``) in a worker
+    process of ``roofline_phase`` (imports in here, as a spawned process
+    starts bare): its record, with the kernel launches the count made
+    (none may be) under ``count_launches``; or ``error``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    ops.reset_launch_counts()
+    try:
+        rec = dryrun.run_cell(configs.get_arch(name).cells[shape],
+                              verbose=False)
+    except Exception as e:          # reported, then fatal in the phase
+        return {"error": f"{type(e).__name__}: {e}"}
+    rec["count_launches"] = {k: n for k, n in ops.launch_counts().items()
+                             if n}
+    return rec
+
+
+def roofline_counts(torch, configs) -> dict:
+    """{(arch, shape): ``roofline_count``'s record} of every non-skipped
+    registry cell, counted in ROOFLINE_WORKERS spawned processes."""
+    import concurrent.futures
+    import multiprocessing
+    keys = [(name, shape) for name in configs.list_archs()
+            for shape, cell in configs.get_arch(name).cells.items()
+            if not cell.skip]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    with concurrent.futures.ProcessPoolExecutor(
+            ROOFLINE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: pool.submit(roofline_count, *k, tf32) for k in keys}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def roofline_phase(torch, dev, ops):
     """The dry-run on the card (see the module docstring, phase 1d).
     Returns (report, launches by measured cell)."""
@@ -3589,6 +3715,8 @@ def roofline_phase(torch, dev, ops):
     out = ROOT / "chiprun_out" / "roofline.jsonl"
     out.parent.mkdir(exist_ok=True)
     out.write_text("")
+    counts = roofline_counts(torch, configs)
+    rep["count_wall_s"] = time.perf_counter() - t_phase
     count_s = 0.0
     for name in configs.list_archs():
         arch = configs.get_arch(name)
@@ -3599,15 +3727,14 @@ def roofline_phase(torch, dev, ops):
                        "reason": cell.skip}
                 summary = {"status": "skip"}
             else:
-                ops.reset_launch_counts()
-                try:
-                    rec = dryrun.run_cell(cell, verbose=False)
-                except Exception as e:          # reported, then fatal
+                rec = counts[(name, shape)]
+                if "error" in rec:
                     fail(f"roofline {key}: does not count on meta: "
-                         f"{type(e).__name__}: {e}")
+                         f"{rec['error']}")
                 count_s += rec["t_count_s"]
-                went = {k: n for k, n in ops.launch_counts().items() if n}
+                went = rec.pop("count_launches")
                 check(not went, f"roofline {key}: counting launched {went}")
+                ops.reset_launch_counts()
                 if dryrun.measures(cell, rec):
                     rec.update(dryrun.measure_cell(cell, rec, device=dev))
                     went = {k: n for k, n in ops.launch_counts().items()
@@ -4076,13 +4203,15 @@ def lm_mesh_sample(torch, n: int):
                                        dtype=torch.float64).long())
 
 
-def lm_mesh_read(torch, np, tree, specs=None, mesh=None) -> dict:
+def lm_mesh_read(torch, np, tree, specs=None, mesh=None,
+                 rows=None) -> dict:
     """{path: (positions, values, largest magnitude)} of every leaf of
-    ``tree``: of ``lm_mesh_sample``'s flat positions in the whole leaf,
-    those this rank's block holds (its spec in ``specs``, {path: Spec},
-    on ``mesh``; every one with no mesh), the leaf's values there, and
-    the block's largest magnitude. No leaf is gathered: the parent joins
-    the ranks' reads."""
+    ``tree``: of ``lm_mesh_sample``'s flat positions in the whole leaf
+    (for a path in ``rows``, {path: sorted row ids}, every element of
+    those rows instead), those this rank's block holds (its spec in
+    ``specs``, {path: Spec}, on ``mesh``; every one with no mesh), the
+    leaf's values there, and the block's largest magnitude. No leaf is
+    gathered: the parent joins the ranks' reads."""
     from repro_torch.optim.adam import leaves
     out = {}
     for path, leaf in leaves(tree):
@@ -4090,7 +4219,11 @@ def lm_mesh_read(torch, np, tree, specs=None, mesh=None) -> dict:
         local = list(leaf.shape)
         whole = [n * (mesh.size(spec[d]) if d < len(spec) and spec[d]
                       else 1) for d, n in enumerate(local)]
-        pos = lm_mesh_sample(torch, int(np.prod(whole))).numpy()
+        if rows is not None and path in rows:
+            width = int(np.prod(whole[1:]))
+            pos = (rows[path][:, None] * width + np.arange(width)).ravel()
+        else:
+            pos = lm_mesh_sample(torch, int(np.prod(whole))).numpy()
         coords = list(np.unravel_index(pos, whole))
         own = np.ones(len(pos), bool)
         for d, axis in enumerate(spec):
@@ -4442,7 +4575,8 @@ def lm_mesh_bf16_plan() -> list:
     S_train = lm_family.LM_SHAPES["train_4k"]["seq"]
     tp4 = (1, LM_MESH_RANKS)
     return [
-        dict(name="qwen3-14b", kind="prefill", layers=40, batch=2,
+        dict(name="qwen3-14b", kind="prefill",
+             layers=LM_MESH_PREFILL_LAYERS, batch=2,
              seq=LM_MESH_PREFILL_SEQ, mesh=LM_MESH_SHAPE),
         dict(name="qwen3-14b", kind="decode", layers=40, batch=B_dec,
              seq=slots, mesh=tp4),
@@ -4707,6 +4841,601 @@ def lm_mesh_phase(torch, np, dev, card):
     return rep, launches, held
 
 
+def rs_mesh_batch(np, cfg, kind: str, device):
+    """A recsys-mesh run's batch for ``kind``, the same in every process
+    (``recsys_synth`` from a seed of its own): serve_p99's B=512, the bulk
+    cut's RS_MESH_BULK_B, retrieval's one query, the train hold's
+    RS_MESH_TRAIN_B (CTR) or RS_MESH_B4R_MICRO microbatches of 4,096
+    (BERT4Rec); the label and BERT4Rec's Cloze keys only to train."""
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.data import recsys_synth
+    rng = np.random.default_rng(
+        [RS_MESH_SEED, ("serve", "bulk", "retrieval", "train").index(kind)])
+    if isinstance(cfg, rf.ctr.CTRConfig):
+        B = {"serve": rf.RS_SHAPES["serve_p99"]["batch"], "retrieval": 1,
+             "train": RS_MESH_TRAIN_B}[kind]
+        b = recsys_synth.ctr_batch(
+            rng, batch=B, n_dense=cfg.n_dense,
+            vocab_sizes=cfg.sparse.vocab_sizes, nnz=cfg.sparse.nnz,
+            device=device)
+        return b if kind == "train" else {k: v for k, v in b.items()
+                                          if k != "label"}
+    micro = rf.RS_SHAPES["train_batch"]["batch"] // rf.B4R_ONE_CARD_ACCUM
+    B = {"serve": rf.RS_SHAPES["serve_p99"]["batch"], "bulk": RS_MESH_BULK_B,
+         "retrieval": 1, "train": RS_MESH_B4R_MICRO * micro}[kind]
+    b = recsys_synth.bert4rec_batch(
+        rng, batch=B, seq_len=cfg.seq_len, n_items=cfg.n_items,
+        n_mask=cfg.n_mask, n_neg=cfg.n_neg, mask_token=cfg.mask_token,
+        device=device)
+    return b if kind == "train" else {"tokens": b["tokens"]}
+
+
+def rs_mesh_cand(torch, np, cfg, device):
+    """retrieval_cand's 10^6 candidates, the same in every process: CTR
+    [N, ctr_repr_dim] N(0, 1) from a generator on the card, BERT4Rec item
+    ids [N] int32 over the catalogue."""
+    from repro_torch.configs import recsys_family as rf
+    n = rf.RS_SHAPES["retrieval_cand"]["n_cand"]
+    if isinstance(cfg, rf.ctr.CTRConfig):
+        return torch.randn((n, rf.ctr_repr_dim(cfg)), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(RS_MESH_SEED))
+    return torch.as_tensor(rs_mesh_cand_ids(np, cfg, n), device=device)
+
+
+def rs_mesh_cand_ids(np, cfg, n: int):
+    """BERT4Rec's n candidate item ids, int32 over the catalogue (with
+    repeats, as any id list may have them)."""
+    rng = np.random.default_rng(RS_MESH_SEED)
+    return rng.integers(0, cfg.n_items, n).astype(np.int32)
+
+
+def rs_mesh_touched(np, cfg, batch):
+    """Up to RS_MESH_ROWS of the table rows a train batch names (the CTR
+    tables' rows of the offset indices, BERT4Rec's items of the tokens,
+    labels and negatives), evenly spaced in the sorted set: the rows a
+    train hold reads in each table leaf (the others do not move)."""
+    from repro_torch.configs import recsys_family as rf
+    if isinstance(cfg, rf.ctr.CTRConfig):
+        off = np.concatenate([[0], np.cumsum(cfg.sparse.vocab_sizes[:-1])])
+        ids = batch["sparse_idx"].cpu().numpy() + off[None, :, None]
+    else:
+        ids = np.concatenate([batch[k].cpu().numpy().ravel()
+                              for k in ("tokens", "labels", "neg")])
+    rows = np.unique(ids)
+    pick = np.unique(np.linspace(0, len(rows) - 1, min(len(rows),
+                                                       RS_MESH_ROWS))
+                     .round().astype(np.int64))
+    return rows[pick].astype(np.int64)
+
+
+def rs_mesh_run(torch, np, dev, run, mesh=None):
+    """One run of RS_MESH_PLAN, (name, (data, model), kinds), on ``mesh``
+    (in a rank: its blocks, drawn one rank at a time) or in one process
+    (the reference: the same draws, batches and candidates). Returns host
+    results: serve's logits (CTR) or top-100 (BERT4Rec) of this rank's
+    batch block, retrieval's top-100, the bulk cut's first
+    RS_MESH_BULK_HELD rows of each data block (one process: serve on
+    those rows alone) and its shape, range and order checks, the train
+    hold's losses, grad norms and reads (``lm_mesh_read`` at the touched
+    rows of each table leaf): the parameters before and after 2 steps,
+    the first step's gradient as Adam receives it, both moments after;
+    and each kind's seconds (one call or step, between barriers; serve
+    and retrieval after a warm-up call, the train hold's second step) and
+    peak memory."""
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.distributed.collectives import barrier
+    from repro_torch.models.recsys import bert4rec
+    name, _, kinds = run
+    cfg = rf.CONFIGS[name]
+    gen = torch.Generator(device=dev).manual_seed(
+        RS_MESH_SEED + sorted(rf.CONFIGS).index(name))
+    if mesh is None:
+        params = rf._init(cfg)(gen, cfg)
+    else:
+        # one rank at a time: a rank draws the whole table before it keeps
+        # its block (8.37 GB of DLRM-RM2's)
+        for turn in range(mesh.world):
+            if turn == mesh.rank:
+                params = rf.init_placed(gen, cfg, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            barrier(mesh)
+    out = {"s": {}, "peak_gb": {}}
+
+    def timed(fn):
+        if mesh is not None:
+            barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        if mesh is not None:
+            barrier(mesh)
+        return r, time.perf_counter() - t0
+
+    def host(r):
+        return tuple(t.cpu().numpy() for t in r) if isinstance(r, tuple) \
+            else r.cpu().numpy()
+
+    for kind in kinds:
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        b = rs_mesh_batch(np, cfg, kind, dev)
+        if kind in ("serve", "retrieval"):
+            args = (b,) if kind == "serve" else (b, rs_mesh_cand(
+                torch, np, cfg, dev))
+            fn = rf.make_fn(cfg, kind, device=dev, mesh=mesh)
+            fn(params, *args)                                  # warm-up
+            r, out["s"][kind] = timed(lambda: fn(params, *args))
+            out[kind] = host(r)
+            del args
+        elif kind == "bulk":
+            D, n = run[1][0], RS_MESH_BULK_B // run[1][0]
+            held = np.concatenate([np.arange(i * n, i * n + RS_MESH_BULK_HELD)
+                                   for i in range(D)])
+            if mesh is None:
+                out[kind] = host(bert4rec.serve(params, cfg, {
+                    "tokens": b["tokens"][torch.as_tensor(held, device=dev)]},
+                    k=100))
+            else:
+                fn = rf.make_fn(cfg, "serve", device=dev, mesh=mesh)
+                (v, i), out["s"][kind] = timed(lambda: fn(params, b))
+                out[kind] = (v[:RS_MESH_BULK_HELD].cpu().numpy(),
+                             i[:RS_MESH_BULK_HELD].cpu().numpy())
+                out["bulk_check"] = {
+                    "shape": list(v.shape),
+                    "finite": bool(torch.isfinite(v).all()),
+                    "ids_in_catalogue": bool(((i >= 0) & (i < cfg.n_items))
+                                             .all()),
+                    "descending": bool((v[:, 1:] <= v[:, :-1]).all())}
+        else:
+            out[kind] = rs_mesh_train(torch, np, dev, cfg, params, b, mesh,
+                                      timed)
+            out["s"][kind] = out[kind].pop("s")
+            params = out[kind].pop("params_live")
+        out["peak_gb"][kind] = torch.cuda.max_memory_allocated() / 1e9
+        del b
+    del params
+    gc_collect(torch)
+    return out
+
+
+def rs_mesh_train(torch, np, dev, cfg, params, batch, mesh, timed):
+    """The train hold of ``rs_mesh_run``: 2 steps (``make_fn(cfg,
+    "train")``; BERT4Rec's through ``optim.make_train_step`` with
+    ``accum_steps`` RS_MESH_B4R_MICRO), the first step's gradient read
+    where Adam receives it (after ``sync_grads``, before the clip), the
+    parameters and both moments after it, the parameters after the
+    second step, the second step timed. Each read's values a part, the
+    positions once (``pos``): every part reads a leaf at the same ones."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.models.recsys import parallel as rp
+    specs = None if mesh is None else rp.specs_by_path(params, mesh)
+    rows = rs_mesh_touched(np, cfg, batch)
+    tables = {p: rows for p, _ in optim.adam.leaves(params)
+              if p.endswith(("fused", "item_emb/table"))}
+
+    def read(tree):
+        return lm_mesh_read(torch, np, tree, specs, mesh, tables)
+
+    if isinstance(cfg, rf.ctr.CTRConfig):
+        step = rf.make_fn(cfg, "train", device=dev, mesh=mesh)
+    else:
+        step = optim.make_train_step(
+            lambda p, b: bert4rec.loss(p, cfg, b, mesh=mesh),
+            dataclasses.replace(rf.RS_OPT, accum_steps=RS_MESH_B4R_MICRO),
+            mesh=mesh, specs=None if mesh is None else (
+                lambda p: rp.specs_by_path(p, mesh)))
+    out = {"before": read(params), "losses": [], "grad_norms": [],
+           "rows": len(rows)}
+    opt = optim.adam_init(params)
+    real = optim.adam.adam_update
+
+    def spy(p, g, *a, **k):
+        first = "grad" not in out
+        if first:
+            out["grad"] = read(g)
+        r = real(p, g, *a, **k)
+        if first:
+            out["step1"] = read(r[0])
+            out["m1"], out["v1"] = read(r[1]["m"]), read(r[1]["v"])
+        return r
+
+    optim.adam.adam_update = spy
+    try:
+        for i in range(2):
+            r, s = timed(lambda: step(params, opt, batch))
+            params, opt, m = r
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+    finally:
+        optim.adam.adam_update = real
+    out["s"] = s
+    out["params"] = read(params)
+    out["pos"] = {p: r[0] for p, r in out["before"].items()}
+    for part in ("before", "step1", "grad", "m1", "v1", "params"):
+        out[part] = {p: r[1:] for p, r in out[part].items()}
+    out["params_live"] = params
+    return out
+
+
+def spy_ebag_to_host(torch, captured: dict):
+    """Spies on the EmbeddingBag pair's wrappers as ``kernels/ops.py``
+    calls them (``embedding_bag_cuda``, ``embedding_bag_bwd_cuda``): each
+    keeps a host copy of the inputs of its wrapper's first call in
+    ``captured``, by the wrapper's name. Returns the function that takes
+    the spies off."""
+    from repro_torch.kernels import embedding_bag as eb
+    saved = {a: getattr(eb, a) for a in ("embedding_bag_cuda",
+                                          "embedding_bag_bwd_cuda")}
+
+    def spy_of(attr, fn):
+        def spy(*args):
+            if attr not in captured:
+                captured[attr] = [a.detach().cpu() if isinstance(
+                    a, torch.Tensor) else a for a in args]
+            return fn(*args)
+        return spy
+
+    for attr, fn in saved.items():
+        setattr(eb, attr, spy_of(attr, fn))
+    return lambda: [setattr(eb, a, fn) for a, fn in saved.items()]
+
+
+def rs_mesh_rank(mesh, go, plan):
+    """One rank of the recsys-mesh phase (``run_on_mesh``; imports in
+    here, as a spawned process starts bare), once the file ``go`` exists:
+    every run of ``plan`` (RS_MESH_PLAN; ``rs_mesh_run``; a (1, 4) run on
+    the world re-cut by ``submesh``) with the launch counts set to 0 just
+    before and read just after, the EmbeddingBag pair's first calls kept
+    on the host; then, one rank at a time, those calls held to plain at
+    the rank's shapes (``registry_hold``: 1e-6 forward, 1e-5 backward,
+    each beside a control that must miss), their launches apart."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.collectives import barrier
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import submesh
+    marks = {"entered": time.time()}
+    go, waited = pathlib.Path(go), time.time()
+    while not go.exists():
+        if time.time() - waited > 900:
+            raise TimeoutError(f"rank {mesh.rank}: no {go} in 900 s")
+        time.sleep(0.05)
+    marks["go"] = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"recsys-mesh rank {mesh.rank} is on {dev}")
+    out = {"rank": mesh.rank, "marks": marks, "runs": [], "index": {}}
+    meshes = {RS_MESH_SHAPE: mesh}
+    captured = {}
+    restore = spy_ebag_to_host(torch, captured)
+    ops.reset_launch_counts()
+    try:
+        for run in plan:
+            shape = tuple(run[1])
+            if shape not in meshes:
+                meshes[shape] = submesh(mesh, data=shape[0], model=shape[1])
+            m = meshes[shape]
+            r = rs_mesh_run(torch, np, dev, run, m)
+            r["index"] = {a: m.index(a) for a in ("data", "model")}
+            out["runs"].append(r)
+            if mesh.rank == 0:
+                print(f"recsys-mesh: rank 0 ran {run[0]} {run[1]} {run[2]} "
+                      f"at {time.time() - marks['go']:.1f} s after go: "
+                      f"{r['s']}", flush=True)
+        torch.cuda.synchronize()
+        out["launches"] = ops.launch_counts()
+    finally:
+        restore()
+    marks["ran"] = time.time()
+    ops.reset_launch_counts()
+    out["ebag_holds"] = {}
+    for turn in range(mesh.world):
+        if turn == mesh.rank:
+            for attr, args in captured.items():
+                out["ebag_holds"][attr] = registry_hold(torch, attr, [
+                    a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args])
+            gc_collect(torch)
+        barrier(mesh)
+    torch.cuda.synchronize()
+    out["ebag_hold_launches"] = ops.launch_counts()
+    import resource
+    out["host_peak_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+    marks["held"] = time.time()
+    return out
+
+
+def rs_mesh_expected_launches(plan) -> dict:
+    """The EmbeddingBag launches a rank makes over ``plan``: a CTR
+    forward one a table (Wide&Deep's two), two forwards a serve and a
+    retrieval (the warm-up and the timed call; retrieval reads the fused
+    table only), two steps a train hold, each one forward and one
+    backward a table; BERT4Rec none."""
+    from repro_torch.configs import recsys_family as rf
+    want = {"embedding_bag": 0, "embedding_bag_bwd": 0}
+    for name, _, kinds in plan:
+        cfg = rf.CONFIGS[name]
+        if not isinstance(cfg, rf.ctr.CTRConfig):
+            continue
+        t = 1 + cfg.wide
+        want["embedding_bag"] += 2 * t * (("serve" in kinds)
+                                          + ("train" in kinds)) \
+            + 2 * ("retrieval" in kinds)
+        want["embedding_bag_bwd"] += 2 * t * ("train" in kinds)
+    return want
+
+
+def rs_mesh_same_topk(np, vals, ids, e_vals, e_ids, tol) -> float:
+    """The scores' error over the largest (``inf`` if an id differs):
+    ids equal where the scores are apart, as sets over each run of scores
+    tied within ``tol`` of the largest (``torch.topk`` orders a tie its
+    own way)."""
+    big = float(np.abs(e_vals).max())
+    err = float(np.abs(vals - e_vals).max()) / big
+    limit = tol * big
+    for r in range(e_ids.shape[0]):
+        start = 0
+        for c in range(1, e_ids.shape[1] + 1):
+            if c == e_ids.shape[1] or e_vals[r, c - 1] - e_vals[r, c] > limit:
+                if set(ids[r, start:c].tolist()) != set(
+                        e_ids[r, start:c].tolist()):
+                    return float("inf")
+                start = c
+    return err
+
+
+def rs_mesh_train_holds(np, key, got: list, ref: dict) -> dict:
+    """A train hold's checks, each rank against one process (module
+    docstring, phase 12b): the 2 steps' losses; every leaf's read at the
+    first step (the parameters before and after it, its gradient as Adam
+    gets it, both moments after it) at the rank's positions within
+    TOL_RS_MESH["leaf"] of one process's largest (the key biases'
+    gradient and moments of the largest leaf's, their parameters not
+    held; the parameters of a leaf that starts at 0, whose largest is a
+    step of lr, of the largest leaf's); the ranks' positions covering
+    one process's; each leaf's change over the 2 steps within
+    TOL_RS_MESH["change"] of the norm of one process's change over the
+    rank's positions, a limit the unchanged state must miss. The
+    parameters after the second step are read against one process's
+    largest, not held element by element: the second step's forward runs
+    on parameters whose first Adam step (lr times the gradient over its
+    own RMS) differs where a gradient element is near 0, so a
+    second-step gradient element that is a sum cancelling over the batch
+    moves by a share of itself (``PERF.md``, the recsys model axis)."""
+    h = {"losses": got[0]["losses"], "losses_one_process": ref["losses"],
+         "grad_norms": got[0]["grad_norms"],
+         "grad_norms_one_process": ref["grad_norms"], "rows": ref["rows"]}
+    h["loss_max_abs_err"] = max(abs(a - b) for g in got for a, b in zip(
+        g["losses"], ref["losses"]))
+    check(h["loss_max_abs_err"] <= TOL_RS_MESH["loss"], f"recsys-mesh: "
+          f"{key} losses {h['losses']} vs one process {ref['losses']}")
+    worst, change, control = {}, {}, {}
+    zero = [p for p, e in ref["before"].items() if e[1] == 0]
+    h["params_of_the_largest_leaf"] = zero
+    held = ("before", "step1", "grad", "m1", "v1")
+    for part in held + ("params",):
+        top = max(e[1] for e in ref[part].values())
+        w_path, w_err = None, -1.0
+        for path, (e_vals, e_max) in ref[part].items():
+            e_pos = ref["pos"][path]
+            if RS_MESH_NOISE in path and part in ("before", "step1",
+                                                  "params"):
+                continue
+            scale = top if RS_MESH_NOISE in path or (
+                part == "step1" and path in zero) else max(e_max, 1e-30)
+            seen = []
+            for g in got:
+                pos, vals = g["pos"][path], g[part][path][0]
+                at = np.searchsorted(e_pos, pos)
+                check(bool((at < len(e_pos)).all()) and np.array_equal(
+                    e_pos[np.minimum(at, len(e_pos) - 1)], pos),
+                      f"recsys-mesh: {key} {part} {path}: a rank read a "
+                      f"position one process did not")
+                seen.append(at)
+                err = float(np.abs(vals - e_vals[at]).max()) / scale \
+                    if len(pos) else 0.0
+                if err > w_err:
+                    w_path, w_err = path, err
+                if part == "params" and len(pos):
+                    b_vals = ref["before"][path][0][at]
+                    moved = float(np.linalg.norm(e_vals[at] - b_vals))
+                    check(moved > 0, f"recsys-mesh: {key} {path} did not "
+                          f"change in one process at a rank's positions")
+                    change[path] = max(change.get(path, 0.0), float(
+                        np.linalg.norm(vals - e_vals[at]) / moved))
+                    control[path] = min(control.get(path, np.inf), float(
+                        np.linalg.norm(g["before"][path][0] - e_vals[at])
+                        / moved))
+            check(np.unique(np.concatenate(seen)).size == len(e_pos),
+                  f"recsys-mesh: {key} {part} {path}: the ranks' blocks do "
+                  f"not cover the read")
+        worst[part] = (w_path, w_err)
+        check(part not in held or w_err <= TOL_RS_MESH["leaf"],
+              f"recsys-mesh: {key} {part} {w_path} differs by {w_err} of "
+              f"its largest")
+    c_worst = max(change, key=change.get)
+    h.update({f"{part}_max_rel_err": e for part, (_, e) in worst.items()})
+    h.update({f"{part}_worst_leaf": w[0] for part, w in worst.items()})
+    h.update(leaves=len(change),
+             change_max_rel_err=change[c_worst], change_worst_leaf=c_worst,
+             control_min_rel_err=min(control.values()))
+    check(change[c_worst] <= TOL_RS_MESH["change"], f"recsys-mesh: {key} "
+          f"{c_worst}'s change differs by {change[c_worst]} of its norm")
+    check(h["control_min_rel_err"] > TOL_RS_MESH["change"], f"recsys-mesh: "
+          f"{key} the unchanged state passes the change limit")
+    return h
+
+
+def recsys_mesh_phase(torch, np, dev, card, plan=RS_MESH_PLAN):
+    """The recsys-mesh phase (module docstring, phase 12b) over ``plan``.
+    Returns (report, the EmbeddingBag launches of the runs by rank, the
+    holds' launches by rank)."""
+    import shutil
+
+    from repro_torch.configs import recsys_family as rf
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_on_mesh
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "recsys_mesh_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    go, ranks = root / "go", {}
+    card0 = f"cuda:{torch.cuda.current_device()}"
+
+    def spawn():
+        try:
+            ranks["out"] = run_on_mesh(
+                rs_mesh_rank, RS_MESH_RANKS, [card0] * RS_MESH_RANKS, "gloo",
+                args=(str(go), plan), timeout=1100.0,
+                model=RS_MESH_SHAPE[1])
+        except BaseException as e:      # raised again on the main thread
+            ranks["error"] = e
+
+    spawned = time.time()
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    rep = {"ranks": RS_MESH_RANKS, "card": card, "tol": TOL_RS_MESH,
+           "train_batch_ctr": RS_MESH_TRAIN_B,
+           "train_batch_bert4rec": [RS_MESH_B4R_MICRO, rf.RS_SHAPES[
+               "train_batch"]["batch"] // rf.B4R_ONE_CARD_ACCUM],
+           "bulk_batch_bert4rec": RS_MESH_BULK_B}
+    try:
+        # the one-process references while the ranks start
+        refs = []
+        for run in plan:
+            t0 = time.perf_counter()
+            refs.append(rs_mesh_run(torch, np, dev, run))
+            print(f"recsys-mesh: one-process {run[0]} {run[2]} "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gc_collect(torch)
+        ops.reset_launch_counts()
+        rep["parent_resident_gb"] = {
+            "allocated": torch.cuda.memory_allocated() / 1e9,
+            "reserved": torch.cuda.memory_reserved() / 1e9}
+        go.touch()
+        rep["go_s"] = time.time() - spawned
+        thread.join()
+        if "error" in ranks:
+            raise ranks["error"]
+        out = ranks["out"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep["ranks_timeline_s"] = {k: max(r["marks"][k] for r in out) - spawned
+                               for k in out[0]["marks"]}
+    rep["ranks_host_peak_gb"] = [r["host_peak_gb"] for r in out]
+    runs = []
+    for n, (run, ref) in enumerate(zip(plan, refs)):
+        name, shape, kinds = run
+        key = f"{name} {shape[0]}x{shape[1]}"
+        got = [r["runs"][n] for r in out]
+        x = {"config": name, "mesh": list(shape),
+             "s": {k: max(g["s"][k] for g in got) for k in got[0]["s"]},
+             "peak_gb_by_rank": {k: [g["peak_gb"][k] for g in got]
+                                 for k in kinds}}
+        for k in kinds:
+            check(max(x["peak_gb_by_rank"][k]) * RS_MESH_RANKS < 80.0,
+                  f"recsys-mesh: {key} {k} peaks {x['peak_gb_by_rank'][k]}")
+        D = shape[0]
+        if "serve" in kinds:
+            err = 0.0
+            for g in got:
+                i = g["index"]["data"]
+                if name == "bert4rec":
+                    (v, ids), (ev, eids) = g["serve"], ref["serve"]
+                    n_ = len(ev) // D
+                    err = max(err, rs_mesh_same_topk(
+                        np, v, ids, ev[i * n_:(i + 1) * n_],
+                        eids[i * n_:(i + 1) * n_], TOL_RS_MESH["scores"]))
+                else:
+                    e = ref["serve"]
+                    n_ = len(e) // D
+                    exp = e[i * n_:(i + 1) * n_]
+                    check(g["serve"].shape == exp.shape, f"recsys-mesh: {key}"
+                          f" serve shape {g['serve'].shape}")
+                    err = max(err, float(np.abs(g["serve"] - exp).max())
+                              / float(np.abs(e).max()))
+            tol = TOL_RS_MESH["scores" if name == "bert4rec" else "logits"]
+            x["serve_max_rel_err"] = err
+            check(err <= tol, f"recsys-mesh: {key} serve differs by {err} "
+                  f"of the largest (ids differ where inf)")
+        if "retrieval" in kinds:
+            # BERT4Rec's winners as items: a repeated candidate id ties
+            # with itself, and either package may return either position
+            items = (rs_mesh_cand_ids(np, rf.CONFIGS[name], rf.RS_SHAPES[
+                "retrieval_cand"]["n_cand"]) if name == "bert4rec" else None)
+
+            def as_items(v, i):
+                return (v, i) if items is None else (v, items[i])
+
+            x["retrieval_max_rel_err"] = max(rs_mesh_same_topk(
+                np, *as_items(*g["retrieval"]), *as_items(*ref["retrieval"]),
+                TOL_RS_MESH["scores"]) for g in got)
+            check(x["retrieval_max_rel_err"] <= TOL_RS_MESH["scores"],
+                  f"recsys-mesh: {key} retrieval differs: "
+                  f"{x['retrieval_max_rel_err']}")
+        if "bulk" in kinds:
+            err = 0.0
+            H = RS_MESH_BULK_HELD
+            for g in got:
+                c = g["bulk_check"]
+                check(c["shape"] == [RS_MESH_BULK_B // D, 100] and c["finite"]
+                      and c["ids_in_catalogue"] and c["descending"],
+                      f"recsys-mesh: {key} bulk {c}")
+                i = g["index"]["data"]
+                ev, eids = (a[i * H:(i + 1) * H] for a in ref["bulk"])
+                err = max(err, rs_mesh_same_topk(np, *g["bulk"], ev, eids,
+                                                 TOL_RS_MESH["scores"]))
+            x["bulk_held_max_rel_err"] = err
+            x["bulk_check"] = got[0]["bulk_check"]
+            # the [B, n_items] scores a one-process serve would hold
+            x["bulk_full_scores_gb"] = RS_MESH_BULK_B * rf.CONFIGS[
+                name].n_items * 4 / 1e9
+            check(err <= TOL_RS_MESH["scores"], f"recsys-mesh: {key} bulk's "
+                  f"held rows differ from one process: {err}")
+        if "train" in kinds:
+            x["train"] = rs_mesh_train_holds(
+                np, key, [g["train"] for g in got], ref["train"])
+        runs.append(x)
+    rep["runs"] = runs
+    want = rs_mesh_expected_launches(plan)
+    launches = [{k: r["launches"][k] for k in want} for r in out]
+    rep["launches_by_rank"] = launches
+    for r, c in zip(out, launches):
+        check(c == want, f"recsys-mesh: rank {r['rank']} launched {c}, "
+              f"expected {want}")
+        other = {k: n for k, n in r["launches"].items() if n and k not in want}
+        check(not other, f"recsys-mesh: rank {r['rank']} launched {other}")
+    held = [{k: r["ebag_hold_launches"][k] for k in want} for r in out]
+    rep["hold_launches_by_rank"] = held
+    holds = {}
+    for attr in ("embedding_bag_cuda", "embedding_bag_bwd_cuda"):
+        hs = [r["ebag_holds"][attr] for r in out]
+        holds[attr] = {"shapes_by_rank": [h["shapes"] for h in hs],
+                       "tol": hs[0]["tol"],
+                       "max_abs_err": max(h["max_abs_err"] for h in hs),
+                       "rel_err": max(h["rel_err"] for h in hs),
+                       "control_rel_err": min(h["control_rel_err"]
+                                              for h in hs)}
+    rep["ebag_holds"] = holds
+    for r, c in zip(out, held):
+        check(c == {"embedding_bag": 1, "embedding_bag_bwd": 1},
+              f"recsys-mesh: rank {r['rank']}'s holds launched {c}")
+    rep["seconds"] = time.perf_counter() - t_phase
+    print("recsys-mesh: " + json.dumps(rep), flush=True)
+    print(f"recsys-mesh: {rep['seconds']:.1f} s", flush=True)
+    return rep, launches, held
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -4750,6 +5479,14 @@ def main() -> int:
 
     report = {}
     # ------------------------------------------------------------ setup
+    t_smoke = time.perf_counter()
+
+    def mark(phase):
+        """The phase's start on the smoke's clock: where a cut call was."""
+        print(f"smoke: {phase} from {time.perf_counter() - t_smoke:.1f} s",
+              flush=True)
+
+    mark("setup")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4851,15 +5588,19 @@ def main() -> int:
           f"{ptxas}")
 
     # -------------------------------------------------------------- gnn
+    mark("gnn")
     report["gnn"] = gnn_phase(torch, np, dev, ops)
     # --------------------------------------------------------- registry
+    mark("registry")
     report["registry"], registry_launches, registry_holds = registry_phase(
         torch, dev, ops)
     # --------------------------------------------------------- roofline
+    mark("roofline")
     report["roofline"], roofline_launches = roofline_phase(torch, dev, ops)
     gc_collect(torch)
 
     # ------------------------------------------------------------ slice
+    mark("slice")
     cfg = PROD
     t0 = time.perf_counter()
     corpus, log, store, serve_lcfg = make_loader(cfg, n_news=N_NEWS, seed=0)
@@ -4937,6 +5678,7 @@ def main() -> int:
           f"the closed loop served {lat['e2e'].count} of {N_REQUESTS}")
 
     # ------------------------------------------------------------ index
+    mark("index")
     # the served IVF-PQ build against the same build on the CPU, where
     # sums run in a fixed order. recall@10 on 16 users moves severalfold
     # from one build to the next (the atomic adds of index_add_ reorder);
@@ -4957,6 +5699,7 @@ def main() -> int:
           f"{dist['cpu']}")
 
     # ------------------------------------------------------------ plain
+    mark("plain")
     with torch.inference_mode():
         toks = torch.as_tensor(store.tokens[:512], device=dev).long()
         freq = torch.as_tensor(store.freq[:512], device=dev).long()
@@ -4990,11 +5733,13 @@ def main() -> int:
     check(same, "top-k id sets differ between kernel and plain scans")
 
     # ------------------------------------------------------- serve-front
+    mark("serve-front")
     report["serve_front"], front_launches = serve_front_phase(
         torch, np, dev, rec, reqs, report["slice"]["query_execute_p50_ms"],
         dist["card"])
 
     # ------------------------------------------------------------ train
+    mark("train")
     # the slice's store, read by the DynamicBatcher with the paper's token
     # budget; its first top-bucket batch (the mesh phase's too); the PROD
     # Trainer from the registry, as a user would call it
@@ -5079,6 +5824,7 @@ def main() -> int:
     print("train: " + json.dumps(report["train"]), flush=True)
 
     # ------------------------------------------------------- plain (train)
+    mark("plain (train)")
     # one step's loss and gradients, kernels against the plain path, on the
     # trained parameters, the top-bucket batch and fixed draws; E cut to 256
     pcfg = dataclasses.replace(cfg, cache=dataclasses.replace(
@@ -5108,11 +5854,13 @@ def main() -> int:
     del grads, gk, gp, flat
 
     # ------------------------------------------------------------- ckpt
+    mark("ckpt")
     report["ckpt"], state, ckpt_launches = ckpt_phase(
         torch, np, dev, cfg, card, trainer, state, top_batch, top,
         make_batcher)
 
     # ----------------------------------------------------- conventional
+    mark("conventional")
     # the trainer's memory goes first (the top-bucket batch stays for the
     # quality phase)
     del trainer, state, res, watch, now, neg
@@ -5120,6 +5868,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- mesh
+    mark("mesh")
     # after the train phase, whose steps warmed this process's libraries;
     # the serving half on the slice's snapshot, embeddings and a batch
     t_mesh = time.perf_counter()
@@ -5137,6 +5886,7 @@ def main() -> int:
         torch, np, dev, cfg, card, log, store, lcfg)
 
     # --------------------------------------------------------------- lm
+    mark("lm")
     # the conventional trainer's memory goes with its phase; the peak
     # counts from here
     gc.collect()
@@ -5299,25 +6049,37 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- lm-moe
+    mark("lm-moe")
     report["lm_moe"], moe_launches = lm_moe_phase(torch, np, dev)
 
     # --------------------------------------------------------- lm-train
+    mark("lm-train")
     report["lm_train"], lm_train_launches = lm_train_phase(torch, np, dev)
 
     # ---------------------------------------------------------- lm-mesh
+    mark("lm-mesh")
     gc_collect(torch)
     report["lm_mesh"], lm_mesh_launches, lm_mesh_held = lm_mesh_phase(
         torch, np, dev, card)
 
     # ----------------------------------------------------------- recsys
+    mark("recsys")
     report["recsys"], ebag_row = recsys_phase(torch, np, dev)
 
     # ----------------------------------------------------- recsys-train
+    mark("recsys-train")
     report["recsys_train"], ebag_bwd_row, rs_train_fwd = recsys_train_phase(
         torch, np, dev, {k: v for k, v in report["hopper"][EBAG_LIB][
             "ptxas"].items() if "bwd" in k})
 
+    # ------------------------------------------------------ recsys-mesh
+    mark("recsys-mesh")
+    gc_collect(torch)
+    report["recsys_mesh"], rs_mesh_launches, rs_mesh_held = \
+        recsys_mesh_phase(torch, np, dev, card)
+
     # ---------------------------------------------------------- quality
+    mark("quality")
     gc.collect()
     torch.cuda.empty_cache()
     report["quality"], quality_launches = quality_phase(
@@ -5327,6 +6089,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- kernels
+    mark("kernels")
     def quality_by(name):
         return {part: c[name] for part, c in quality_launches.items()}
 
@@ -6049,6 +6812,21 @@ def main() -> int:
         if any(by_rank):
             row["launches_by_path"]["lm_mesh"] = by_rank
             row["launches"] += sum(by_rank)
+        # and the recsys-mesh phase's runs, by rank, and their first
+        # EmbeddingBag calls held to plain in the ranks, apart
+        by_rank = [sum(c.get(sym, 0) for sym in syms)
+                   for c in rs_mesh_launches]
+        if any(by_rank):
+            row["launches_by_path"]["recsys_mesh"] = by_rank
+            row["launches"] += sum(by_rank)
+            by_rank = [sum(c.get(sym, 0) for sym in syms)
+                       for c in rs_mesh_held]
+            row.setdefault("check_launches", {})["recsys_mesh_holds"] = \
+                by_rank
+            h = report["recsys_mesh"]["ebag_holds"][
+                row["name"] + "_cuda"]
+            row["recsys_mesh_holds"] = h
+            row["max_abs_err"] = max(row["max_abs_err"], h["max_abs_err"])
         # and those runs' flash calls held to plain in the ranks, apart
         by_rank = [sum(c.get(sym, 0) for sym in syms) for c in lm_mesh_held]
         if any(by_rank):
@@ -6064,6 +6842,7 @@ def main() -> int:
                                       if fb == "bwd" else h["o"]
                                       for h in mine.values()))
 
+    mark("report")
     report["kernels"] = kernels
     report["card"] = card
     out_dir = ROOT / "chiprun_out"

@@ -15,10 +15,11 @@ step's arguments at the cell's own shape as meta tensors (the JAX cell's
 (``launch/dryrun.py``) counts without allocating, and, where the port
 has a batch builder at the cell's shape, ``concrete_args(device)``,
 which it measures. On a mesh, ``make_fn(device=, mesh=)`` gives the
-step on the ranks' blocks where the family has one (the LM family), and
-``shard_abstract`` is the JAX package's: the meta blocks a rank holds
-(the JAX cells' ``activation_specs`` stay unported: the port's
-``constrain`` is the identity).
+step on the ranks' blocks where the family has one (the LM and recsys
+families), and ``shard_abstract`` is the JAX package's: the meta blocks
+a rank holds, which a recsys cell's ``abstract_args(mesh=)`` gives (the
+JAX cells' ``args(mesh)``; their ``activation_specs`` stay unported:
+the port's ``constrain`` is the identity).
 """
 from __future__ import annotations
 

@@ -10,6 +10,13 @@ cell's ``RS_OPT``. ``archs()`` gives the registry's four arches
 (the JAX cells' shapes), ``concrete_args`` for the train and serve
 cells (``data/recsys_synth.py``'s batches) and the JAX package's reduced
 smoke.
+
+``make_fn(cfg, kind, device=, mesh=)`` is the counterpart of a JAX
+``Cell.make_fn(mesh)`` on a (data, model) mesh of ranks
+(``launch/mesh.py``): the parameters placed by ``recsys_rules``
+(``place_params``, ``place_opt``, or drawn by ``init_placed``), the
+tables cut by rows over ``model``; ``models/recsys/parallel.py`` says
+how the steps run there.
 """
 from __future__ import annotations
 
@@ -21,12 +28,17 @@ import torch
 
 from repro_torch.data import recsys_synth
 from repro_torch.device import check_device
+from repro_torch.distributed import sharding as shx
 from repro_torch.models.recsys import bert4rec, ctr
+from repro_torch.models.recsys import parallel as rp
 from repro_torch.models.recsys.common import SparseSpec, criteo_like_vocab
+# a whole tree's (and its Adam state's) blocks on a mesh by recsys_rules
+from repro_torch.models.recsys.parallel import (place_opt,  # noqa: F401
+                                                place_params)
 from repro_torch.optim import AdamConfig, adam_init, make_train_step
 
 from .base import (F32, I32, Arch, Cell, abstract_opt, abstract_params,
-                   assert_finite, meta)
+                   assert_finite, meta, shard_abstract)
 
 RS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -98,7 +110,15 @@ def reduced_b4r(cfg: bert4rec.Bert4RecConfig) -> bert4rec.Bert4RecConfig:
                                d_ff=32, n_mask=4, n_neg=8)
 
 
-def make_fn(cfg, kind: str, *, device="cuda"):
+def init_placed(gen: torch.Generator, cfg, mesh,
+                param_dtype=torch.float32):
+    """``place_params(init(gen, cfg, param_dtype), mesh)``: the whole tree
+    is drawn (the same draws as one process), this rank's blocks kept and
+    the rest freed; ranks that share a card draw one at a time."""
+    return place_params(_init(cfg)(gen, cfg, param_dtype), mesh)
+
+
+def make_fn(cfg, kind: str, *, device="cuda", mesh=None):
     """The step of ``kind`` for ``cfg`` on ``device`` (the card unless the
     caller asks for the CPU; without a GPU the default raises). The batch
     and the candidates are moved to ``device``; the parameters and the
@@ -117,16 +137,34 @@ def make_fn(cfg, kind: str, *, device="cuda"):
     (params, {"tokens"}) -> top-100 (scores, item ids) over the whole
     catalogue; ``retrieval``: (params, {"tokens"}, cand_ids [N]) ->
     top-100 (scores, positions in cand_ids).
+
+    With ``mesh`` (in each rank of it, ``device`` the rank's): the same
+    steps on this rank's blocks (``place_params``, ``place_opt``), the
+    batch and the candidates whole, each rank reading its block over the
+    data axes (``recsys_batch_specs``; what they do not divide whole).
+    The train step sums the gradients over ``data`` and clips by the
+    global norm (``optim.make_train_step(mesh=)``); serve and retrieval
+    return this rank's batch block; BERT4Rec serves by
+    ``bert4rec.serve_sharded``, as the JAX cell does on a mesh.
     """
     is_ctr = isinstance(cfg, ctr.CTRConfig)
     mod = ctr if is_ctr else bert4rec
     if kind == "train":
-        train = make_train_step(lambda p, b: mod.loss(p, cfg, b), RS_OPT)
+        train = make_train_step(
+            lambda p, b: mod.loss(p, cfg, b, mesh=mesh), RS_OPT, mesh=mesh,
+            specs=None if mesh is None else (
+                lambda p: rp.specs_by_path(p, mesh)))
     elif kind == "serve":
-        fn = ((lambda p, b: ctr.forward(p, cfg, b)) if is_ctr   # noqa: E731
-              else (lambda p, b: bert4rec.serve(p, cfg, b, k=100)))
+        if is_ctr:
+            fn = lambda p, b: ctr.forward(p, cfg, b, mesh=mesh)  # noqa: E731
+        elif mesh is not None:
+            fn = lambda p, b: bert4rec.serve_sharded(  # noqa: E731
+                p, cfg, b, mesh, k=100)
+        else:
+            fn = lambda p, b: bert4rec.serve(p, cfg, b, k=100)  # noqa: E731
     elif kind == "retrieval":
-        fn = lambda p, b, c: mod.retrieval(p, cfg, b, c, k=100)  # noqa: E731
+        fn = lambda p, b, c: mod.retrieval(  # noqa: E731
+            p, cfg, b, c, k=100, mesh=mesh)
     else:
         raise ValueError(f"unknown recsys step kind: {kind!r}")
     device = check_device(device)
@@ -216,21 +254,40 @@ def _abstract_batch(cfg, kind: str, B: int) -> dict:
     return b
 
 
-def _abstract_args(cfg, shape: str):
-    """The cell's arguments on meta, as the JAX cell's ``args(None)``:
+def _abstract_args(cfg, shape: str, mesh=None):
+    """The cell's arguments on meta, as the JAX cell's ``args(mesh)``:
     parameters (and their Adam state to train) and the batch; retrieval
     also the 10^6 candidates (CTR: [N, ctr_repr_dim] f32; BERT4Rec: item
-    ids [N] int32)."""
+    ids [N] int32). With ``mesh``: one rank's blocks
+    (``shard_abstract``): the parameters and moments by ``recsys_rules``,
+    the batch over the data axes (the retrieval query whole), the
+    candidates over the data axes."""
     shp = RS_SHAPES[shape]
     kind = shp["kind"]
     params = abstract_params(functools.partial(_init(cfg), cfg=cfg))
     batch = _abstract_batch(cfg, kind, shp["batch"])
+    cand = None
+    if kind == "retrieval":
+        cand = (meta((shp["n_cand"], ctr_repr_dim(cfg)), F32)
+                if isinstance(cfg, ctr.CTRConfig)
+                else meta((shp["n_cand"],), I32))
+    opt = abstract_opt(params) if kind == "train" else None
+    if mesh is not None:
+        specs = rp.param_specs(params, mesh)
+        if opt is not None:
+            opt = dict(opt, m=shard_abstract(opt["m"], specs, mesh),
+                       v=shard_abstract(opt["v"], specs, mesh))
+        params = shard_abstract(params, specs, mesh)
+        if kind == "retrieval":
+            cand = shard_abstract(cand, shx.guard_divisible(
+                shx.data_spec(mesh), cand, mesh), mesh)
+        else:
+            batch = shard_abstract(batch, shx.guard_divisible(
+                shx.recsys_batch_specs(mesh, batch), batch, mesh), mesh)
     if kind == "train":
-        return (params, abstract_opt(params), batch)
+        return (params, opt, batch)
     if kind == "serve":
         return (params, batch)
-    cand = (meta((shp["n_cand"], ctr_repr_dim(cfg)), F32)
-            if isinstance(cfg, ctr.CTRConfig) else meta((shp["n_cand"],), I32))
     return (params, batch, cand)
 
 
@@ -259,9 +316,10 @@ def _concrete_args(cfg, shape: str, device):
     return (params, batch)
 
 
-def _arch(cfg, notes: str = "") -> Arch:
+def recsys_arch(cfg, notes: str = "") -> Arch:
     """The four RS_SHAPES cells of ``cfg``; each cell's ``make_fn`` takes
-    ``device`` as ``make_fn`` does. The train and serve cells have
+    ``device`` and ``mesh`` as ``make_fn`` does, its ``abstract_args``
+    ``mesh`` (a rank's blocks). The train and serve cells have
     ``concrete_args``; retrieval has none (its candidates have no builder
     in the port)."""
     is_ctr = isinstance(cfg, ctr.CTRConfig)
@@ -344,9 +402,11 @@ def _b4r_smoke(cfg: bert4rec.Bert4RecConfig, device="cuda"):
 
 def archs():
     return [
-        _arch(WIDE_DEEP, notes="wide linear + deep MLP, concat interaction"),
-        _arch(DLRM_RM2, notes="dot interaction; EmbeddingBag is the hot path"),
-        _arch(BERT4REC, notes="bidirectional seq rec; the SpeedyFeed-"
-                              "applicable arch"),
-        _arch(DCN_V2, notes="cross network v2 (full-rank)"),
+        recsys_arch(WIDE_DEEP,
+                    notes="wide linear + deep MLP, concat interaction"),
+        recsys_arch(DLRM_RM2,
+                    notes="dot interaction; EmbeddingBag is the hot path"),
+        recsys_arch(BERT4REC, notes="bidirectional seq rec; the "
+                                    "SpeedyFeed-applicable arch"),
+        recsys_arch(DCN_V2, notes="cross network v2 (full-rank)"),
     ]

@@ -20,6 +20,12 @@ autograd-aware ones:
   over the data axis and this rank's block kept (a reduce-scatter)
   backward.
 
+A table cut by rows over ``model`` (the LM's vocabulary, the recsys
+families' embedding tables) is read through ``owned_rows``: the rows of
+the ids this rank's block holds, 0 for the others, whose sum over the
+axis (``reduce_from``) is the whole lookup. ``gather_tree`` joins every
+rank's blocks of a placed tree back into the whole tree.
+
 NCCL runs them on the card's tensors. gloo runs them on host tensors: its
 CUDA paths copy to the host anyway and not every collective has one (no
 CUDA all-gather or reduce-scatter in some versions), so a CUDA tensor on
@@ -253,6 +259,43 @@ def gather_weight(w, mesh, dim: int, axis: str = "data"):
     if mesh is None or mesh.size(axis) == 1:
         return w
     return _GatherWeight.apply(w, mesh, axis, dim)
+
+
+def owned_rows(table, ids, mesh, axis: str = "model", dtype=None):
+    """The rows of ``ids`` that this rank's block of a table cut by rows
+    over ``axis`` holds (``table`` is that block, rows [i V/M, (i+1)
+    V/M)), 0 for the ids it does not hold; cast to ``dtype``. Summed over
+    the axis (``reduce_from``) they are the whole lookup. The ids another
+    rank holds read row ``id % (V/M)`` before they are zeroed, spread over
+    the block: pointed at one row they would make it one hot key in the
+    gather's backward (an index-add that serialises a row's
+    duplicates)."""
+    Vl = table.shape[0]
+    local = ids - mesh.index(axis) * Vl
+    own = (local >= 0) & (local < Vl)
+    rows = table[torch.where(own, local, ids % Vl)]
+    if dtype is not None:
+        rows = rows.to(dtype)
+    return torch.where(own[..., None], rows, rows.new_zeros(()))
+
+
+def gather_tree(blocks, specs, mesh):
+    """The whole tree from every rank's ``blocks`` (``specs`` a tree of
+    Specs of the same layout): each leaf all-gathered over each axis its
+    spec names, on every rank. A check's and a checkpoint's read, not a
+    step's."""
+    from .sharding import tree_map
+
+    def whole(spec, leaf):
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            for a in reversed(axes):         # the minor axis first
+                leaf = all_gather(leaf, mesh, a, dim=d)
+        return leaf
+
+    return tree_map(whole, specs, blocks)
 
 
 def barrier(mesh, axis: str | None = None):

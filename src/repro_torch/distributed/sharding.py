@@ -13,10 +13,12 @@ the collectives. PyTorch runs one process per rank: ``shard_block`` cuts
 this rank's block of a leaf, ``place`` every leaf of a tree, and the code
 that reads a sharded leaf calls the collectives itself
 (``distributed/collectives.py``). The port places SpeedyFeed's pure data
-parallelism (the row-sharded cache and the user side of a batch) and
-the LM family by ``lm_rules`` and ``lm_batch_specs``
-(``models/lm_parallel.py``); the recsys and GNN tables are here as
-data.
+parallelism (the row-sharded cache and the user side of a batch), the
+LM family by ``lm_rules`` and ``lm_batch_specs``
+(``models/lm_parallel.py``), and the recsys family by ``recsys_rules``
+and ``recsys_batch_specs`` (``models/recsys/parallel.py``: the CTR
+tables and BERT4Rec's item table cut by rows over ``model``, the towers
+whole, the batch over the data axes); the GNN table is here as data.
 
 A mesh is anything with ``axis_names``, a ``shape`` mapping each axis to
 its size and, for ``shard_block``, a ``rank`` (``launch/mesh.py:Mesh``).
@@ -282,6 +284,11 @@ def recsys_rules():
         (r"cross/\d+/w$", Spec()),
         (r".*", Spec()),
     ]
+
+
+def recsys_batch_specs(mesh, keys):
+    """The recsys family's batch specs: every key over the data axes."""
+    return {k: data_spec(mesh) for k in keys}
 
 
 def gnn_rules():

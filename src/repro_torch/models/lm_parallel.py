@@ -68,7 +68,8 @@ import torch
 
 from repro_torch.distributed import sharding as shx
 from repro_torch.distributed.collectives import (all_gather, all_reduce,
-                                                 copy_to, gather_weight,
+                                                 copy_to, gather_tree,
+                                                 gather_weight, owned_rows,
                                                  reduce_from,
                                                  reduce_scatter_grad)
 
@@ -136,18 +137,8 @@ def unplace_params(blocks, cfg, mesh):
     """The whole tree from every rank's blocks (``place_params``'
     inverse): each leaf all-gathered over each axis its spec names, on
     every rank. A check's and a checkpoint's read, not a step's."""
-    specs = param_specs(blocks, cfg, mesh, fsdp_on(blocks, cfg, mesh))
-
-    def whole(spec, leaf):
-        for d, entry in enumerate(spec):
-            if entry is None:
-                continue
-            axes = (entry,) if isinstance(entry, str) else tuple(entry)
-            for a in reversed(axes):         # the minor axis first
-                leaf = all_gather(leaf, mesh, a, dim=d)
-        return leaf
-
-    return shx.tree_map(whole, specs, blocks)
+    return gather_tree(blocks, param_specs(blocks, cfg, mesh,
+                                           fsdp_on(blocks, cfg, mesh)), mesh)
 
 
 def gather_fsdp(tree, specs, mesh):
@@ -207,23 +198,11 @@ def embed_vp(table, ids, mesh, dtype=None, fsdp: bool = False):
     if fsdp and mesh.size(DATA) > 1:
         n, i = ids.shape[0], mesh.index(DATA)
         every = all_gather(ids.contiguous(), mesh, DATA)
-        rows = gather_weight(_lookup(table, every, mesh, dtype), mesh,
-                             dim=-1)[i * n:(i + 1) * n]
+        rows = gather_weight(owned_rows(table, every, mesh, dtype=dtype),
+                             mesh, dim=-1)[i * n:(i + 1) * n]
     else:
-        rows = _lookup(table, ids, mesh, dtype)
+        rows = owned_rows(table, ids, mesh, dtype=dtype)
     return reduce_from(rows, mesh, MODEL)
-
-
-def _lookup(table, ids, mesh, dtype):
-    """The rows of ``ids`` this model rank's vocabulary block holds, 0 for
-    the others."""
-    Vl = table.shape[0]
-    local = ids - mesh.index(MODEL) * Vl
-    own = (local >= 0) & (local < Vl)
-    rows = table[local.clamp(0, Vl - 1)]
-    if dtype is not None:
-        rows = rows.to(dtype)
-    return torch.where(own[..., None], rows, rows.new_zeros(()))
 
 
 def head_logits(w, x, mesh, dtype=None, fsdp: bool = False):

@@ -3,7 +3,8 @@
 Embedding tables are the hot path: [V, d] tables read by fixed multi-hot
 lookups. ``lookup`` goes through ``kernels.ops.embedding_bag``, the CUDA
 kernel on the card (its plain version on the CPU), for the fused table
-and the per-field tables alike.
+and the per-field tables alike; on a mesh, through the same kernel on
+this rank's block of the fused table (``parallel.sharded_bag``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag_plain
 from repro_torch.nn import init_embedding, normal_init
+
+from . import parallel as rp
 
 _IMPLS = ("kernel", "plain")
 
@@ -83,7 +86,7 @@ def field_offsets(spec: SparseSpec, device="cpu") -> torch.Tensor:
 
 
 def lookup(tables, spec: SparseSpec, idx, weights=None, *,
-           impl: str = "kernel"):
+           impl: str = "kernel", mesh=None):
     """idx: [B, F, nnz] per-field local int32 indices; weights: [B, F, nnz]
     f32 or None -> [B, F, d].
 
@@ -91,14 +94,22 @@ def lookup(tables, spec: SparseSpec, idx, weights=None, *,
     single table. ``impl="kernel"`` goes through ``ops.embedding_bag``
     (the CUDA kernel on the card); ``impl="plain"`` calls its plain
     version on whatever device the tensors are on, only as the reference
-    a card run holds the kernel against.
+    a card run holds the kernel against. With ``mesh`` the fused table is
+    this rank's block of rows over ``model``, and the lookup the bag on
+    that block summed over ``model`` (``parallel.sharded_bag``).
     """
     if impl not in _IMPLS:
         raise ValueError(f"unknown lookup impl: {impl!r}")
     bag = ops.embedding_bag if impl == "kernel" else embedding_bag_plain
     if "fused" in tables:
         shifted = idx + field_offsets(spec, idx.device)[None, :, None]
+        if mesh is not None:
+            return rp.sharded_bag(bag, tables["fused"], shifted, weights,
+                                  mesh)
         return bag(tables["fused"], shifted, weights)
+    if mesh is not None:
+        raise ValueError("on a mesh the tables are fused (recsys_rules "
+                         "cuts tables/fused by rows)")
     outs = [bag(tables[f"f{i}"]["table"], idx[:, i:i + 1].contiguous(),
                 None if weights is None
                 else weights[:, i:i + 1].contiguous())
@@ -106,10 +117,19 @@ def lookup(tables, spec: SparseSpec, idx, weights=None, *,
     return torch.cat(outs, dim=1)
 
 
-def bce_loss(logits, labels):
-    """Binary cross-entropy on logits [B] vs labels [B] in {0, 1}."""
+def bce_loss(logits, labels, *, mesh=None, split: bool = True):
+    """Binary cross-entropy on logits [B] vs labels [B] in {0, 1}. With
+    ``mesh``: this rank's data block's, and the loss and accuracy the
+    global batch's means (``parallel.data_mean``; ``split`` False where
+    the block is the whole batch)."""
     lf = logits.float()
-    loss = torch.mean(torch.clamp_min(lf, 0) - lf * labels
-                      + torch.log1p(torch.exp(-lf.abs())))
-    acc = ((lf > 0) == (labels > 0.5)).float().mean()
+    per = (torch.clamp_min(lf, 0) - lf * labels
+           + torch.log1p(torch.exp(-lf.abs())))
+    hit = ((lf > 0) == (labels > 0.5)).float()
+    if mesh is None:
+        loss, acc = torch.mean(per), hit.mean()
+    else:
+        n = torch.tensor(per.numel(), device=per.device)
+        loss = rp.data_mean(per.sum(), n, split, mesh)
+        acc = rp.data_mean(hit.sum().detach(), n, split, mesh)
     return loss, {"bce": loss, "acc": acc}

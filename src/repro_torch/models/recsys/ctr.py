@@ -13,6 +13,12 @@ Every lookup goes through ``common.lookup``: with ``impl="kernel"`` (the
 default) the CUDA EmbeddingBag kernel on the card, with ``impl="plain"``
 its plain version (a reference run only). ``retrieval`` scores one query
 batch against a precomputed candidate matrix (matmul and top-k).
+
+Every entry point takes ``mesh=``: on a (data, model) mesh of ranks
+(``launch/mesh.py``) the parameters are this rank's blocks
+(``parallel.place_params``: the fused and wide tables cut by rows over
+``model``, the towers whole), the batch comes in whole and each rank
+runs its data block (``models/recsys/parallel.py`` says how).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from repro_torch.nn import dense as dense_layer
 from repro_torch.nn import init_dense, init_mlp, mlp, normal_init
 
+from . import parallel as rp
 from .common import SparseSpec, bce_loss, init_tables, lookup
 
 
@@ -79,15 +86,22 @@ def init(gen: torch.Generator, cfg: CTRConfig, param_dtype=torch.float32):
     return p
 
 
-def forward(params, cfg: CTRConfig, batch, *, impl: str = "kernel"):
-    """-> logits [B].
+def forward(params, cfg: CTRConfig, batch, *, impl: str = "kernel",
+            mesh=None):
+    """-> logits [B] (with ``mesh``: this rank's data block's).
 
     ``impl`` reaches every lookup, the Wide&Deep wide part's too (the JAX
     package's wide lookup always takes XLA; the arithmetic is the same),
     so a forward on the card runs no plain gather.
     """
+    if mesh is not None:
+        batch = rp.batch_block(batch, mesh)[0]
+    return _forward(params, cfg, batch, impl, mesh)
+
+
+def _forward(params, cfg: CTRConfig, batch, impl: str, mesh):
     emb = lookup(params["tables"], cfg.sparse, batch["sparse_idx"],
-                 batch.get("sparse_w"), impl=impl)          # [B, F, d]
+                 batch.get("sparse_w"), impl=impl, mesh=mesh)  # [B, F, d]
     B, F, d = emb.shape
     dense_x = batch["dense"].to(emb.dtype) if cfg.n_dense else None
 
@@ -116,21 +130,38 @@ def forward(params, cfg: CTRConfig, batch, *, impl: str = "kernel"):
     logit = mlp(params["deep"], x0)[:, 0]
     if cfg.wide:
         w_emb = lookup(params["wide"], cfg.wide_spec, batch["sparse_idx"],
-                       batch.get("sparse_w"), impl=impl)    # [B, F, 1]
+                       batch.get("sparse_w"), impl=impl,
+                       mesh=mesh)                           # [B, F, 1]
         logit = logit + w_emb.sum(dim=(1, 2))
         if cfg.n_dense:
             logit = logit + dense_layer(params["wide_dense"], dense_x)[:, 0]
     return logit
 
 
-def loss(params, cfg: CTRConfig, batch, *, impl: str = "kernel"):
-    return bce_loss(forward(params, cfg, batch, impl=impl), batch["label"])
+def loss(params, cfg: CTRConfig, batch, *, impl: str = "kernel",
+         mesh=None):
+    """The mean binary cross-entropy (with ``mesh``: the global batch's,
+    each rank differentiating its own block's part)."""
+    if mesh is None:
+        return bce_loss(forward(params, cfg, batch, impl=impl),
+                        batch["label"])
+    block, split = rp.batch_block(batch, mesh)
+    return bce_loss(_forward(params, cfg, block, impl, mesh), block["label"],
+                    mesh=mesh, split=split)
 
 
-def user_repr(params, cfg: CTRConfig, batch, *, impl: str = "kernel"):
-    """Penultimate representation for retrieval scoring."""
+def user_repr(params, cfg: CTRConfig, batch, *, impl: str = "kernel",
+              mesh=None):
+    """Penultimate representation for retrieval scoring (with ``mesh``:
+    this rank's data block's)."""
+    if mesh is not None:
+        batch = rp.batch_block(batch, mesh)[0]
+    return _user_repr(params, cfg, batch, impl, mesh)
+
+
+def _user_repr(params, cfg: CTRConfig, batch, impl: str, mesh):
     emb = lookup(params["tables"], cfg.sparse, batch["sparse_idx"],
-                 batch.get("sparse_w"), impl=impl)
+                 batch.get("sparse_w"), impl=impl, mesh=mesh)
     B, F, d = emb.shape
     if cfg.interaction == "dot":
         bot = mlp(params["bot"], batch["dense"].to(emb.dtype),
@@ -143,9 +174,17 @@ def user_repr(params, cfg: CTRConfig, batch, *, impl: str = "kernel"):
 
 
 def retrieval(params, cfg: CTRConfig, batch, cand, *, k: int = 100,
-              impl: str = "kernel"):
+              impl: str = "kernel", mesh=None):
     """Score one query batch against cand [N, d_repr] (candidates are
-    precomputed offline); -> (top-k scores [B, k], their rows [B, k])."""
-    u = user_repr(params, cfg, batch, impl=impl)           # [B, D]
-    scores = u @ cand.to(u.dtype).T                        # [B, N]
-    return torch.topk(scores, k, dim=-1)
+    precomputed offline); -> (top-k scores [B, k], their rows [B, k]).
+
+    With ``mesh`` (``cand`` whole): every rank computes the whole query
+    batch and scores its block of the candidates over ``data``, then the
+    top-k is taken in two stages (``parallel.cut_topk``); returns this
+    rank's batch block of the result."""
+    if mesh is None:
+        u = user_repr(params, cfg, batch, impl=impl)       # [B, D]
+        return torch.topk(u @ cand.to(u.dtype).T, k, dim=-1)
+    u = _user_repr(params, cfg, batch, impl, mesh)
+    vals, rows = rp.cut_topk(lambda c: u @ c.to(u.dtype).T, cand, k, mesh)
+    return rp.data_block(vals, mesh)[0], rp.data_block(rows, mesh)[0]

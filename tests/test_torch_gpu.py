@@ -1724,6 +1724,83 @@ def test_recsys_train_steps_on_the_card_match_the_cpu(cuda):
                 <= 1e-4, (name, path)
 
 
+def _same_topk(vals, ids, e_vals, e_ids, tol):
+    """Scores within ``tol`` of the largest; ids equal where the scores
+    are apart, as sets over each run of scores tied within ``tol``."""
+    limit = tol * np.abs(e_vals).max()
+    assert np.abs(vals - e_vals).max() <= limit
+    for r in range(e_ids.shape[0]):
+        start = 0
+        for c in range(1, e_ids.shape[1] + 1):
+            if c == e_ids.shape[1] or e_vals[r, c - 1] - e_vals[r, c] > limit:
+                assert set(ids[r, start:c]) == set(e_ids[r, start:c]), r
+                start = c
+
+
+def test_recsys_mesh_on_the_card_matches_one_process(cuda):
+    """The CPU tests' recsys mesh cases (``_torch_recsys_mesh_ranks``: the
+    four reduced configs on (1, 2) and (2, 2)) in 4 gloo ranks sharing
+    cuda:0, against one process on the card from the same inputs: CTR
+    logits within 1e-5 of the largest (NaN where an index is past the
+    table, as one process); BERT4Rec's ``serve_sharded`` and both
+    families' two-stage retrieval, ids equal, scores within 1e-5; the
+    gradient, both moments and the parameters after 2 steps within 1e-4
+    of each leaf's largest (BERT4Rec's key biases, whose gradient is 0 in
+    exact arithmetic, against the largest leaf; their parameters not
+    held). Each CTR rank launches the EmbeddingBag forward on its table
+    block once a table per forward (serve, the gradient, 2 steps;
+    retrieval once, on the fused table) and its backward once a table
+    per backward; BERT4Rec neither."""
+    import _torch_recsys_mesh_ranks as ranks
+    from repro_torch.launch.mesh import run_on_mesh
+    inp = ranks.inputs()
+    out = run_on_mesh(ranks.recsys_mesh_cases, 4, ["cuda:0"] * 4, model=2,
+                      args=(inp, "cuda"), timeout=900)
+    tables = {"wide-deep": 2, "dlrm-rm2": 1, "dcn-v2": 1, "bert4rec": 0}
+    noise = "attn/k/b"
+    for name in ranks.NAMES:
+        one = ranks.one_process(inp, name, "cuda")
+        for r in out:
+            for mname, (D, _) in ranks.MESHES.items():
+                res, i = r[mname][name], r[mname]["index"]["data"]
+                n = ranks.B // D
+
+                def blk(a):
+                    return a[i * n:(i + 1) * n]
+
+                if name == "bert4rec":
+                    for kind in ("serve", "chunked"):
+                        _same_topk(res[f"{kind}_vals"], res[f"{kind}_ids"],
+                                   blk(one["serve_vals"]),
+                                   blk(one["serve_ids"]), 1e-5)
+                else:
+                    exp = blk(one["logits"])
+                    assert np.abs(res["logits"] - exp).max() <= \
+                        1e-5 * np.abs(exp).max(), (name, mname)
+                    exp = blk(one["edge_logits"])
+                    fin = np.isfinite(exp)
+                    assert np.array_equal(np.isnan(res["edge_logits"]),
+                                          ~fin), (name, mname)
+                    assert np.abs(res["edge_logits"][fin] - exp[fin]).max() \
+                        <= 1e-5 * np.abs(exp[fin]).max(), (name, mname)
+                _same_topk(res["retr_vals"], res["retr_ids"],
+                           one["retr_vals"], one["retr_ids"], 1e-5)
+                assert abs(res["losses"][0] - one["losses"][0]) <= 1e-5
+                for k in ("grad", "m", "v", "params"):
+                    top = max(np.abs(a).max() for a in one[k].values())
+                    for path, exp in one[k].items():
+                        if noise in path and k == "params":
+                            continue
+                        scale = top if noise in path else np.abs(exp).max()
+                        assert np.abs(res[k][path] - exp).max() <= \
+                            1e-4 * scale, (name, mname, k, path)
+                # serve, the gradient and 2 steps a table; retrieval's
+                # user_repr reads the fused table only
+                t = tables[name]
+                assert res["launches"]["embedding_bag"] == 4 * t + (t > 0)
+                assert res["launches"]["embedding_bag_bwd"] == 3 * t, name
+
+
 @pytest.mark.parametrize("name", ["npa", "naml", "lstur", "nrms"])
 def test_news_baseline_grads_on_the_card_match_the_cpu(cuda, name):
     # the Table-3 baselines at a small size: the loss and its gradients on

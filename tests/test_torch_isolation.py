@@ -45,7 +45,9 @@ def test_the_walk_covers_the_package():
             "tables.py", "scheduler.py", "loadgen.py", "tune.py",
             "online.py", "service.py", "graph.py", "dimenet.py",
             "gnn_family.py", "sharding.py", "collectives.py", "mesh.py",
-            "sharded.py", "lm_parallel.py"} <= names
+            "sharded.py", "lm_parallel.py", "parallel.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "models" / "recsys" / \
+        "parallel.py" in PORT_FILES
     # the registry: configs/__init__.py beside base.py's Cell and Arch
     assert ROOT / "src" / "repro_torch" / "configs" / "__init__.py" in \
         PORT_FILES
@@ -171,10 +173,20 @@ def test_registry_smokes_and_arch_launcher_default_device_raise_without_a_gpu():
 def test_mesh_entry_points_default_device_raises_without_a_gpu():
     """The data mesh and the sharded index run on the card unless given
     CPU devices: ``run_on_mesh``, ``shard_mesh``, ``IndexBuilder(devices=)``
-    and ``parse_mesh_arg`` refuse CUDA without a GPU, and take the CPU."""
+    and ``parse_mesh_arg`` refuse CUDA without a GPU, and take the CPU;
+    so do the recsys family's mesh steps (``make_fn(..., mesh=)``)."""
     _require_no_gpu()
     from repro_torch import serving
+    from repro_torch.configs import recsys_family
     from repro_torch.launch import mesh, serve, train
+    m = mesh.make_mesh_for(4, model=2)
+    for c in (recsys_family.reduced_ctr(recsys_family.DLRM_RM2),
+              recsys_family.BERT4REC):
+        for kind in ("train", "serve", "retrieval"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                recsys_family.make_fn(c, kind, mesh=m)
+            assert callable(recsys_family.make_fn(c, kind, device="cpu",
+                                                  mesh=m))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh.run_on_mesh(print, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
