@@ -323,8 +323,9 @@ Phases, each of which exits non-zero on failure:
               barriers (the slowest rank's) with each rank's peak memory:
               on (2, 2), Qwen3-14B prefill at LM_MESH_PREFILL_LAYERS of
               its 40 layers (B=2, S=LM_MESH_PREFILL_SEQ; the depth cut
-              for the smoke's time) and a train step at ONE_CARD_TRAIN's
-              8 layers (B=2, S=4,096); on the world re-cut as a (data=1,
+              for the smoke's time) and a train step at
+              LM_MESH_TRAIN_LAYERS of ONE_CARD_TRAIN's 8 (B=2, S=4,096;
+              cut for the same reason); on the world re-cut as a (data=1,
               model=4) mesh, where nothing is gathered over ``data``, a
               Qwen3-14B decode step at B=16 on 8,192 slots, DBRX at
               ONE_CARD_SERVE's 6 layers, prefill and a decode step the
@@ -439,6 +440,29 @@ Phases, each of which exits non-zero on failure:
               (``registry_hold``: 1e-6 and 1e-5 of the largest, each
               beside a control that must miss), their launches apart
               under ``check_launches["recsys_mesh_holds"]``.
+  12c. gnn-mesh DimeNet on a mesh: GNN_MESH_RANKS gloo ranks share the
+              one card, DimeNet at GNN_MESH_CELL (minibatch_lg) at full
+              width (6 blocks, d 128), f32, TF32 off, on each (data,
+              model) mesh of GNN_MESH_SHAPES ((4, 1) and (2, 2), the
+              world re-cut by ``submesh``), through
+              ``gnn_family.make_fn(cfg, "train", mesh=)``: the parameters
+              whole on every rank, the batch whole, each rank's block of
+              the edges and triplets (``gnn_batch_specs``). The parent
+              builds the batch (seed GNN_SEED) and draws the parameters
+              (a CPU generator of seed 0) once, and the ranks load both;
+              while they start it runs one process on the card: in f64
+              the loss and each gradient leaf (held to the port on the
+              CPU in f64 within TOL_GNN_MESH: the gnn phase's CPU check,
+              at minibatch_lg) and GNN_MESH_STEPS steps, then in f32
+              GNN_MESH_STEPS timed steps. Each mesh against it, in f64:
+              the loss, each gradient leaf as Adam takes it
+              (``sync_grads`` over ``dimenet.grad_axes``) and each
+              leaf's change over the steps within TOL_GNN_MESH (the
+              unchanged state must miss), every rank's the same; then
+              the f32 steps, each timed between barriers (the slowest
+              rank's), their losses read, each rank's peak memory (x
+              GNN_MESH_RANKS under 80 GB); no kernel launched (DimeNet's
+              path has none).
   13. quality the paper's quality experiments. (a) The news baselines
               (``models.news``: NPA, NAML, LSTUR, NRMS) at
               ``NewsBaselineConfig``'s full defaults (vocab 30,522,
@@ -772,7 +796,8 @@ LM_MESH_OPT_COUNT = 200
 LM_MESH_SAMPLE = 1 << 16
 TOL_LM_MESH = {"logits": 1e-4, "loss": 1e-4, "grad_norm": 1e-4,
                "param": 1e-4, "moment": 1e-4, "change": 1e-3}
-LM_MESH_PREFILL_SEQ, LM_MESH_PREFILL_LAYERS = 8192, 20
+LM_MESH_PREFILL_SEQ, LM_MESH_PREFILL_LAYERS = 8192, 10
+LM_MESH_TRAIN_LAYERS = 4
 LM_MESH_DECODE = (16, 8192)
 LM_MESH_DECODE_STEPS = 1
 
@@ -803,6 +828,24 @@ RS_MESH_ROWS, RS_MESH_SEED = 1 << 12, 35
 TOL_RS_MESH = {"logits": 1e-5, "scores": 1e-5, "loss": 1e-5, "leaf": 1e-4,
                "change": 1e-3}
 RS_MESH_NOISE = "attn/k/b"
+
+# the gnn-mesh phase: GNN_MESH_RANKS gloo ranks on the one card as each
+# (data, model) mesh of GNN_MESH_SHAPES, DimeNet at GNN_MESH_CELL's full
+# width (the edges and triplets over every axis), GNN_MESH_STEPS train
+# steps a run. The holds run in f64: DimeNet's f32 gradients at random
+# init part by ~1e-3 of a leaf's largest between any two summation orders
+# (one process against f64: 1.4e-3 at molecule on the CPU; the card
+# against the CPU at molecule: 4.3e-4), so an f32 hold could not tell a
+# misplaced sum from rounding, where f64's rounding sits near 1e-12. The
+# limits, against one process on the card (and that process's loss and
+# gradients against the CPU's): the losses over their magnitude, each
+# gradient leaf (as Adam takes it) over its largest, each leaf's change
+# over both steps over the norm of one process's change (the global-norm
+# clip takes its norm in f32 in both: ~1e-7 of a change). The f32 steps,
+# as the cell runs, are timed, their losses read.
+GNN_MESH_RANKS, GNN_MESH_SHAPES = 4, ((4, 1), (2, 2))
+GNN_MESH_CELL, GNN_MESH_STEPS = "minibatch_lg", 2
+TOL_GNN_MESH = {"loss": 1e-9, "grad": 1e-8, "change": 1e-5}
 
 # the sharded index: shards over the one card; the int8 reduction's
 # gradients (PROD's attention and FFN shapes)
@@ -4584,7 +4627,7 @@ def lm_mesh_bf16_plan() -> list:
              seq=LM_MESH_PREFILL_SEQ, mesh=tp4),
         dict(name="dbrx-132b", kind="decode", layers=dbrx, batch=B_dec,
              seq=slots, mesh=tp4),
-        dict(name="qwen3-14b", kind="train", layers=train["n_layers"],
+        dict(name="qwen3-14b", kind="train", layers=LM_MESH_TRAIN_LAYERS,
              batch=train["batch"], seq=S_train, mesh=LM_MESH_SHAPE),
         dict(name="dbrx-132b", kind="train", layers=1,
              batch=train["batch"], seq=S_train, mesh=tp4)]
@@ -5436,6 +5479,282 @@ def recsys_mesh_phase(torch, np, dev, card, plan=RS_MESH_PLAN):
     return rep, launches, held
 
 
+def gnn_mesh_f64(torch, cfg, batch, params):
+    """(the f64 config, the batch's floating arrays in f64, the
+    parameters in f64)."""
+    import dataclasses
+    from repro_torch.optim.adam import leaves, unflatten
+    return (dataclasses.replace(cfg, dtype="float64"),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()},
+            unflatten(params, [t.double() for _, t in leaves(params)]))
+
+
+def gnn_mesh_grads(torch, cfg, ng, params, batch):
+    """(the loss, each gradient leaf) of ``params`` on one process."""
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.optim.adam import leaves, unflatten
+    p = unflatten(params, [t.clone() for _, t in leaves(params)])
+    flat = [t.requires_grad_() for _, t in leaves(p)]
+    loss, _ = dimenet.loss(p, cfg, batch, n_graphs=ng)
+    g = torch.autograd.grad(loss, flat)
+    return float(loss.detach()), [t.detach() for t in g]
+
+
+def gnn_mesh_steps(torch, cfg, ng, params, batch, mesh=None, sync=None,
+                   grads: bool = False):
+    """GNN_MESH_STEPS steps of ``gnn_family.make_fn(cfg, "train",
+    mesh=)`` from a copy of ``params``: (losses, the parameters after,
+    each step's seconds, timed after ``sync()`` on both sides, and with
+    ``grads`` the first step's gradient leaves where Adam receives them:
+    after the mesh's sum, before the clip; else None)."""
+    from repro_torch import optim
+    from repro_torch.configs import gnn_family as gf
+    from repro_torch.optim.adam import leaves, unflatten
+    p = unflatten(params, [t.clone() for _, t in leaves(params)])
+    opt, step = optim.adam_init(p), gf.make_fn(cfg, "train", n_graphs=ng,
+                                               mesh=mesh)
+    losses, secs, first = [], [], []
+    real = optim.adam.adam_update
+
+    def spy(p_, g, *a, **k):
+        if not first:
+            first.append([t.detach().clone() for _, t in leaves(g)])
+        return real(p_, g, *a, **k)
+
+    if grads:
+        optim.adam.adam_update = spy
+    try:
+        for _ in range(GNN_MESH_STEPS):
+            if sync:
+                sync()
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, batch)
+            if sync:
+                sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+    finally:
+        optim.adam.adam_update = real
+    return (losses, [t.detach() for _, t in leaves(p)], secs,
+            first[0] if first else None)
+
+
+def gnn_mesh_rank(mesh, go, root):
+    """One rank of the gnn-mesh phase (``run_on_mesh``; imports in here,
+    as a spawned process starts bare), once the file ``go`` exists: for
+    each mesh of GNN_MESH_SHAPES (the world re-cut by ``submesh``) the
+    f64 hold (``gnn_mesh_hold``), then GNN_MESH_STEPS f32 steps of
+    ``gnn_family.make_fn(mesh=)``, each timed between barriers; the
+    launch counts set to 0 before and read after. Rank 0 returns the
+    hold's arrays, every rank a digest of each."""
+    import torch
+    from repro_torch.configs import gnn_family as gf
+    from repro_torch.distributed.collectives import barrier
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import submesh
+    marks = {"entered": time.time()}
+    go, root, waited = pathlib.Path(go), pathlib.Path(root), time.time()
+    while not go.exists():
+        if time.time() - waited > 900:
+            raise TimeoutError(f"rank {mesh.rank}: no {go} in 900 s")
+        time.sleep(0.05)
+    marks["go"] = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"gnn-mesh rank {mesh.rank} is on {dev}")
+    batch = {k: v.to(dev) for k, v in torch.load(root / "batch.pt").items()}
+    params = tree_to(torch.load(root / "params.pt"), dev)
+    cfg = gf.cell_config(GNN_MESH_CELL)
+    ng = gf.GNN_SHAPES[GNN_MESH_CELL].get("n_graphs", 1)
+    cfg64, batch64, params64 = gnn_mesh_f64(torch, cfg, batch, params)
+
+    def host(ts):
+        """(rank 0's arrays, None on the others; every rank's digests)."""
+        return ([t.cpu().numpy() for t in ts] if mesh.rank == 0 else None,
+                [float(t.double().sum()) for t in ts])
+
+    out = {"rank": mesh.rank, "marks": marks, "runs": {}}
+    ops.reset_launch_counts()
+    for shape in GNN_MESH_SHAPES:
+        m = submesh(mesh, data=shape[0], model=shape[1])
+        losses, after, _, g = gnn_mesh_steps(torch, cfg64, ng, params64,
+                                             batch64, m, grads=True)
+        r = {"loss": losses[0], "losses": losses}
+        r["grads"], r["grad_digests"] = host(g)
+        r["params"], r["param_digests"] = host(after)
+        del g, after
+        gc_collect(torch)
+
+        def sync():
+            torch.cuda.synchronize()
+            barrier(m)
+
+        # f32, as the cell runs, each step timed between barriers
+        torch.cuda.reset_peak_memory_stats(dev)
+        r["f32_losses"], _, r["s"], _ = gnn_mesh_steps(
+            torch, cfg, ng, params, batch, m, sync)
+        r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["runs"][f"{shape[0]}x{shape[1]}"] = r
+        gc_collect(torch)
+        if mesh.rank == 0:
+            print(f"gnn-mesh: rank 0 ran {shape} at "
+                  f"{time.time() - marks['go']:.1f} s after go: {r['s']}",
+                  flush=True)
+    torch.cuda.synchronize()
+    out["launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+    marks["ran"] = time.time()
+    return out
+
+
+def gnn_mesh_phase(torch, np, dev, card):
+    """The gnn-mesh phase (module docstring, phase 12c). Returns the
+    report."""
+    import shutil
+
+    from repro_torch.configs import gnn_family as gf
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.optim.adam import leaves
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "gnn_mesh_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    go, ranks = root / "go", {}
+    cfg = gf.cell_config(GNN_MESH_CELL)
+    ng = gf.GNN_SHAPES[GNN_MESH_CELL].get("n_graphs", 1)
+    rep = {"ranks": GNN_MESH_RANKS, "card": card, "cell": GNN_MESH_CELL,
+           "tol": TOL_GNN_MESH, "steps": GNN_MESH_STEPS}
+    t0 = time.perf_counter()
+    batch = gf.train_batch(GNN_MESH_CELL, np.random.default_rng(GNN_SEED),
+                           device="cpu")
+    rep["host_batch_s"] = time.perf_counter() - t0
+    params = dimenet.init(torch.Generator().manual_seed(0), cfg)
+    torch.save(batch, root / "batch.pt")
+    torch.save(params, root / "params.pt")
+    card0 = f"cuda:{torch.cuda.current_device()}"
+
+    def spawn():
+        try:
+            ranks["out"] = run_on_mesh(
+                gnn_mesh_rank, GNN_MESH_RANKS, [card0] * GNN_MESH_RANKS,
+                "gloo", args=(str(go), str(root)), timeout=900.0)
+        except BaseException as e:      # raised again on the main thread
+            ranks["error"] = e
+
+    spawned = time.time()
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    names = [k for k, _ in leaves(params)]
+
+    def worst(got, exp) -> list:
+        """[the leaf, its error] whose error over its largest is worst."""
+        errs = {n: float((torch.as_tensor(a).double() - b).abs().max())
+                / max(float(b.abs().max()), 1e-300)
+                for n, a, b in zip(names, got, exp)}
+        w = max(errs, key=errs.get)
+        return [w, errs[w]]
+
+    def cpu(ts):
+        return [t.double().cpu() for t in ts]
+
+    try:
+        # one process on the card while the ranks start: the f64 hold,
+        # its loss and gradients held to the port on the CPU; then f32
+        cfg64, b64, p64 = gnn_mesh_f64(torch, cfg, batch, params)
+        gb64 = {k: v.to(dev) for k, v in b64.items()}
+        losses64, after64, _, g_g = gnn_mesh_steps(
+            torch, cfg64, ng, tree_to(p64, dev), gb64, grads=True)
+        l_g, g_g, after64 = losses64[0], cpu(g_g), cpu(after64)
+        del gb64
+        gc_collect(torch)
+        t0 = time.perf_counter()
+        l_c, g_c = gnn_mesh_grads(torch, cfg64, ng, p64, b64)
+        rep["cpu_hold_s"] = time.perf_counter() - t0
+        rep["loss_cuda_vs_cpu_rel"] = abs(l_g - l_c) / abs(l_c)
+        rep["grad_cuda_vs_cpu_worst"] = worst(g_g, g_c)
+        del g_c, b64
+        ops.reset_launch_counts()
+        gb = {k: v.to(dev) for k, v in batch.items()}
+        torch.cuda.reset_peak_memory_stats()
+        losses32, _, secs, _ = gnn_mesh_steps(torch, cfg, ng,
+                                              tree_to(params, dev), gb,
+                                              sync=torch.cuda.synchronize)
+        rep["one_process"] = {
+            "loss_f64": l_g, "losses_f64": losses64, "losses": losses32,
+            "s": secs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        launched = [{k: n for k, n in ops.launch_counts().items() if n}]
+        del gb
+        gc_collect(torch)
+        go.touch()
+        rep["go_s"] = time.time() - spawned
+        thread.join()
+        if "error" in ranks:
+            raise ranks["error"]
+        out = ranks["out"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(rep["loss_cuda_vs_cpu_rel"] <= TOL_GNN_MESH["loss"]
+          and rep["grad_cuda_vs_cpu_worst"][1] <= TOL_GNN_MESH["grad"],
+          f"gnn-mesh: {GNN_MESH_CELL} on the card against the CPU (f64): "
+          f"loss {l_g} / {l_c}, gradient {rep['grad_cuda_vs_cpu_worst']}")
+    rep["ranks_timeline_s"] = {k: max(r["marks"][k] for r in out) - spawned
+                               for k in out[0]["marks"]}
+    before = [t.double() for _, t in leaves(params)]
+    for key, r0 in out[0]["runs"].items():
+        x = {"loss_f64": r0["loss"], "losses_f64": r0["losses"],
+             "losses": r0["f32_losses"],
+             "s": [max(r["runs"][key]["s"][i] for r in out)
+                   for i in range(GNN_MESH_STEPS)],
+             "peak_gb_by_rank": [r["runs"][key]["peak_gb"] for r in out]}
+        x["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(r0["losses"], losses64))
+        x["grad_worst"] = worst(r0["grads"], g_g)
+        change = {n: float(np.linalg.norm(a - c.numpy())
+                           / max(float((c - b).norm()), 1e-300))
+                  for n, a, b, c in zip(names, r0["params"], before,
+                                        after64)}
+        w = max(change, key=change.get)
+        x["change_worst"] = [w, change[w]]
+        # the control: the unchanged parameters must miss
+        x["control_min"] = min(
+            float((b - c).norm() / max(float((c - b).norm()), 1e-300))
+            for b, c in zip(before, after64))
+        x["f32_losses_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(r0["f32_losses"], losses32))
+        for r in out[1:]:
+            rr = r["runs"][key]
+            check(all(rr[k] == r0[k] for k in ("loss", "losses",
+                                               "grad_digests",
+                                               "param_digests")),
+                  f"gnn-mesh: {key} rank {r['rank']} differs from rank 0")
+        check(x["loss_rel_err"] <= TOL_GNN_MESH["loss"],
+              f"gnn-mesh: {key} f64 losses {r0['loss']} {r0['losses']} "
+              f"against one process's {l_g} {losses64}")
+        check(x["grad_worst"][1] <= TOL_GNN_MESH["grad"],
+              f"gnn-mesh: {key} gradient {x['grad_worst']} of its largest "
+              f"from one process's")
+        check(change[w] <= TOL_GNN_MESH["change"]
+              and x["control_min"] > TOL_GNN_MESH["change"],
+              f"gnn-mesh: {key} leaf {w}'s change differs by {change[w]} "
+              f"of its norm (the unchanged state {x['control_min']})")
+        check(all(np.isfinite(x["losses"])), f"gnn-mesh: {key} f32 losses "
+              f"{x['losses']}")
+        check(max(x["peak_gb_by_rank"]) * GNN_MESH_RANKS < 80.0,
+              f"gnn-mesh: {key} peaks {x['peak_gb_by_rank']}")
+        rep[key] = x
+    launched += [r["launches"] for r in out]
+    check(not any(launched), f"gnn-mesh: the DimeNet path launched "
+          f"kernels {launched}")
+    rep["seconds"] = time.perf_counter() - t_phase
+    print("gnn-mesh: " + json.dumps(rep), flush=True)
+    print(f"gnn-mesh: {rep['seconds']:.1f} s", flush=True)
+    return rep
+
+
 def gc_collect(torch):
     import gc
     gc.collect()
@@ -6077,6 +6396,11 @@ def main() -> int:
     gc_collect(torch)
     report["recsys_mesh"], rs_mesh_launches, rs_mesh_held = \
         recsys_mesh_phase(torch, np, dev, card)
+
+    # --------------------------------------------------------- gnn-mesh
+    mark("gnn-mesh")
+    gc_collect(torch)
+    report["gnn_mesh"] = gnn_mesh_phase(torch, np, dev, card)
 
     # ---------------------------------------------------------- quality
     mark("quality")

@@ -14,12 +14,21 @@ step's arguments at the cell's own shape as meta tensors (the JAX cell's
 ``abstract_params`` and ``abstract_opt`` of theirs), which the dry-run
 (``launch/dryrun.py``) counts without allocating, and, where the port
 has a batch builder at the cell's shape, ``concrete_args(device)``,
-which it measures. On a mesh, ``make_fn(device=, mesh=)`` gives the
-step on the ranks' blocks where the family has one (the LM and recsys
-families), and ``shard_abstract`` is the JAX package's: the meta blocks
-a rank holds, which a recsys cell's ``abstract_args(mesh=)`` gives (the
-JAX cells' ``args(mesh)``; their ``activation_specs`` stay unported:
-the port's ``constrain`` is the identity).
+which it measures.
+
+On a mesh (``launch/mesh.py``) every family's cells take ``mesh=``:
+``make_fn(device=, mesh=)`` gives one rank's step (the LM family's
+tensor parallelism and FSDP, the recsys family's row-sharded tables,
+DimeNet's edges and triplets over every axis, SpeedyFeed's pure data
+parallelism), which takes the parameters and Adam state as the rank's
+blocks and the batch whole, each rank cutting its own block; and
+``abstract_args(mesh=)`` gives a rank's meta blocks (the JAX cells'
+``args(mesh)``, through ``shard_abstract``), or with
+``whole_batch=True`` its arguments as the mesh step takes them, the
+batch whole, which the dry-run counts (``launch/dryrun.py --mesh``).
+``mesh_skip(mesh)`` gives the reason a cell cannot run on ``mesh`` (the
+LM family's ``check_tp``), or None. The JAX cells' ``activation_specs``
+stay unported: the port's ``constrain`` is the identity.
 """
 from __future__ import annotations
 
@@ -48,11 +57,17 @@ class Cell:
     make_fn: Callable
     skip: Optional[str] = None
     meta: dict = dataclasses.field(default_factory=dict)
-    # () -> the step's arguments at the cell's shape, tensors on meta
+    # (mesh=None, whole_batch=False) -> the step's arguments at the cell's
+    # shape, tensors on meta (a rank's blocks on a mesh)
     abstract_args: Optional[Callable] = None
     # (device) -> real arguments at the cell's shape, drawn from seed 0 on
     # device; None where the port has no batch builder for it
     concrete_args: Optional[Callable] = None
+    # (mesh) -> why the cell cannot run on that mesh, or None
+    mesh_skip: Optional[Callable] = None
+    # how the port's mesh step departs from the JAX cell's layout, which
+    # the dry-run's mesh records carry
+    mesh_departure: Optional[str] = None
 
     @property
     def key(self) -> str:

@@ -12,6 +12,15 @@ subsampled.
 ``abstract_args`` (the JAX cell's ``_batch_abs``, ogb_products's too:
 meta needs no triplet build) and, but ogb_products, ``concrete_args``.
 ogb_products does not fit one card (``OGB_PRODUCTS_REFUSAL``).
+
+``make_fn(cfg, "train", mesh=)`` is the JAX cell's ``make_fn(mesh)`` on a
+mesh of ranks (``launch/mesh.py``): the parameters whole on every rank
+(``gnn_rules``), the batch whole, each rank cutting its block of the
+edges and triplets (``gnn_batch_specs``, ``batch_block``);
+``models/gnn/dimenet.py`` says how the step runs there. Every cell's
+E and T are multiples of 512, so 4, 256 and 512 ranks divide them; a
+mesh that does not raises with the reason. ``abstract_args(mesh=)``
+gives a rank's meta blocks (the JAX cell's ``args(mesh)``).
 """
 from __future__ import annotations
 
@@ -26,10 +35,12 @@ from repro_torch.data.graph import (CSRGraph, build_triplets,
                                     padded_subgraph_batch, random_graph,
                                     random_molecule_batch, to_device)
 from repro_torch.device import check_device
+from repro_torch.distributed import sharding as shx
 from repro_torch.models.gnn import dimenet
+from repro_torch.optim.adam import leaves
 
 from .base import (F32, I32, Arch, Cell, abstract_opt, abstract_params,
-                   assert_finite, meta)
+                   assert_finite, meta, shard_abstract)
 
 
 def _pad512(x: int) -> int:
@@ -72,8 +83,11 @@ OGB_PRODUCTS_REFUSAL = (
     "ogb_products does not fit one 80 GB card: a single [E, 128] f32 "
     "activation over its 61,859,140 edges is 31.7 GB, a training step keeps "
     "several for each of its 6 blocks, and the host's triplet build walks "
-    "61.9M edges; it waits for the multi-card port (ROADMAP.md Queue 1, "
-    "multi-GPU); launch/dryrun.py counts it on meta")
+    "61.9M edges. Nor does it fit a rank of the mesh step: counted on meta "
+    "(launch/dryrun.py --mesh), a rank peaks at 79.6 GB on 16 x 16 and 73.8 "
+    "GB on 2 x 16 x 16, over the 72 GB a step may hold, as each block "
+    "all-gathers the whole [E, 128] messages (a triplet reads any edge's) "
+    "and its backward sums their whole gradient")
 
 
 def _cfg_for(shp) -> dimenet.DimeNetConfig:
@@ -117,11 +131,49 @@ def _batch_abs(shp) -> dict:
     return b
 
 
-def _abstract_args(shape: str):
-    """The cell's (parameters, Adam state, batch) on meta."""
+def _abstract_args(shape: str, mesh=None, whole_batch: bool = False):
+    """The cell's (parameters, Adam state, batch) on meta. With ``mesh``:
+    one rank's blocks (``shard_abstract``): the parameters and moments
+    whole (``gnn_rules``), the edge and triplet arrays cut over every
+    axis (``gnn_batch_specs``) unless ``whole_batch`` (the batch as the
+    mesh step takes it), the node arrays whole."""
     params = abstract_params(
         lambda g: dimenet.init(g, cell_config(shape)))
-    return (params, abstract_opt(params), _batch_abs(GNN_SHAPES[shape]))
+    opt = abstract_opt(params)
+    batch = _batch_abs(GNN_SHAPES[shape])
+    if mesh is not None:
+        specs = shx.spec_tree(params, shx.gnn_rules())
+        opt = dict(opt, m=shard_abstract(opt["m"], specs, mesh),
+                   v=shard_abstract(opt["v"], specs, mesh))
+        params = shard_abstract(params, specs, mesh)
+        if not whole_batch:
+            _check_divides(batch, mesh)
+            batch = shard_abstract(batch, shx.gnn_batch_specs(mesh, batch),
+                                   mesh)
+    return (params, opt, batch)
+
+
+def _check_divides(batch: dict, mesh):
+    """Raise unless the mesh's ranks divide every edge and triplet
+    array."""
+    R = mesh.world
+    bad = {k: v.shape[0] for k, v in batch.items()
+           if k.startswith(("edge_", "trip_")) and v.shape[0] % R}
+    if bad:
+        raise ValueError(
+            f"DimeNet on a mesh of {R} ranks cuts the edge and triplet "
+            f"arrays into contiguous blocks, so {R} must divide their "
+            f"lengths; it does not divide {bad} (the registry's cells pad "
+            f"E and T to multiples of 512)")
+
+
+def batch_block(batch: dict, mesh) -> dict:
+    """This rank's block of a whole batch (``gnn_batch_specs``): its
+    contiguous block of every edge and triplet array, the node arrays
+    whole."""
+    _check_divides(batch, mesh)
+    specs = shx.gnn_batch_specs(mesh, batch)
+    return {k: shx.shard_block(v, specs[k], mesh) for k, v in batch.items()}
 
 
 def _concrete_args(shape: str, device):
@@ -134,15 +186,30 @@ def _concrete_args(shape: str, device):
             train_batch(shape, np.random.default_rng(0), device=device))
 
 
-def make_fn(cfg: dimenet.DimeNetConfig, kind: str, *, n_graphs: int = 1):
+def make_fn(cfg: dimenet.DimeNetConfig, kind: str, *, n_graphs: int = 1,
+            mesh=None):
     """``train``: (params, opt_state, batch) -> (params, opt_state,
     metrics), ``dimenet.loss`` and its Adam step with ``GNN_OPT`` (the JAX
     cell's), parameters and moments updated in place. The batch must
-    already live on the parameters' device (``train_batch``)."""
+    already live on the parameters' device (``train_batch``).
+
+    With ``mesh`` (in each rank of it): the parameters and the Adam state
+    whole on every rank, the batch whole; each rank runs the loss on its
+    block of the edges and triplets (``batch_block``), the gradients are
+    summed over the axes ``dimenet.grad_axes`` names, and the clip takes
+    the global norm once (``optim.make_train_step(mesh=)``)."""
     if kind != "train":
         raise ValueError(f"unknown GNN step kind: {kind!r}")
+    if mesh is None or mesh.world == 1:
+        return optim.make_train_step(
+            lambda p, b: dimenet.loss(p, cfg, b, n_graphs=n_graphs), GNN_OPT)
+    whole = shx.Spec()
     return optim.make_train_step(
-        lambda p, b: dimenet.loss(p, cfg, b, n_graphs=n_graphs), GNN_OPT)
+        lambda p, b: dimenet.loss(p, cfg, batch_block(b, mesh),
+                                  n_graphs=n_graphs, mesh=mesh), GNN_OPT,
+        mesh=mesh,
+        specs=lambda p: {path: whole for path, _ in leaves(p)},
+        grad_axes=lambda p: dimenet.grad_axes(p, mesh))
 
 
 def train_batch(shape: str, rng: np.random.Generator, device="cuda") -> dict:
@@ -206,8 +273,8 @@ def _arch() -> Arch:
         ng = shp.get("n_graphs", 1)
         cells[shape] = Cell(
             arch="dimenet", shape=shape, kind="train",
-            make_fn=lambda device="cuda", cfg=cfg, ng=ng: make_fn(
-                cfg, "train", n_graphs=ng),
+            make_fn=lambda device="cuda", mesh=None, cfg=cfg, ng=ng: make_fn(
+                cfg, "train", n_graphs=ng, mesh=mesh),
             meta={"model_flops": _gnn_flops(cfg, shp)},
             abstract_args=functools.partial(_abstract_args, shape),
             concrete_args=(functools.partial(_concrete_args, shape)

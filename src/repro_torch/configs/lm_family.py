@@ -37,7 +37,7 @@ from repro_torch.models import lm_parallel as tp
 from repro_torch.models.lm_parallel import place_params  # noqa: F401
 
 from .base import (I32, Arch, Cell, abstract_opt, abstract_params,
-                   assert_finite, meta)
+                   assert_finite, meta, shard_abstract)
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -181,24 +181,59 @@ LONG_500K_SKIP = ("pure full-attention arch: long_500k requires "
                   "sub-quadratic attention (DESIGN.md §5)")
 
 
-def _abstract_args(cfg: lm.LMConfig, shape: str):
+def _abstract_args(cfg: lm.LMConfig, shape: str, mesh=None,
+                   whole_batch: bool = False):
     """The cell's arguments on meta, as the JAX cell's ``_train_args``,
-    ``_prefill_args`` and ``_decode_args`` give them with no mesh: bf16
-    parameters; train: their Adam state and {tokens, labels} [B, S]
-    int32; prefill: tokens [B, S]; decode: a token [B, 1], the bf16 cache
-    of S slots and the index S - 1 (a full cache; the port's decode takes
-    it as an int, and attends over the whole cache, masked, at any)."""
+    ``_prefill_args`` and ``_decode_args`` give them: bf16 parameters;
+    train: their Adam state and {tokens, labels} [B, S] int32; prefill:
+    tokens [B, S]; decode: a token [B, 1], the bf16 cache of S slots and
+    the index S - 1 (a full cache; the port's decode takes it as an int,
+    and attends over the whole cache, masked, at any).
+
+    With ``mesh``: one rank's blocks (``shard_abstract``): the parameters
+    and moments by ``lm_rules`` with FSDP, as the mesh ``make_fn`` places
+    them (``place_params``), the tokens and labels over ``data`` unless
+    ``whole_batch`` (the batch as the mesh step takes it), the decode
+    cache the rank's block (``lm.init_cache(mesh=)``). Raises where
+    ``check_tp`` does."""
     shp = LM_SHAPES[shape]
     B, S = shp["batch"], shp["seq"]
     params = abstract_params(
         lambda g: lm.init(g, cfg, param_dtype=torch.bfloat16))
+    opt = abstract_opt(params) if shp["kind"] == "train" else None
+    cut = lambda t: t                                       # noqa: E731
+    if mesh is not None:
+        specs = tp.param_specs(params, cfg, mesh, fsdp=True)
+        if opt is not None:
+            opt = dict(opt, m=shard_abstract(opt["m"], specs, mesh),
+                       v=shard_abstract(opt["v"], specs, mesh))
+        params = shard_abstract(params, specs, mesh)
+        if not whole_batch:      # tp.data_block's block, as a leaf of its own
+            cut = lambda t: meta(tp.data_block(t, mesh)[0].shape,  # noqa: E731
+                                 t.dtype)
     if shp["kind"] == "train":
-        return (params, abstract_opt(params),
-                {"tokens": meta((B, S), I32), "labels": meta((B, S), I32)})
+        return (params, opt, {"tokens": cut(meta((B, S), I32)),
+                              "labels": cut(meta((B, S), I32))})
     if shp["kind"] == "prefill":
-        return (params, meta((B, S), I32))
-    cache = lm.init_cache(cfg, B, S, torch.bfloat16, device="meta")
-    return (params, meta((B, 1), I32), cache, S - 1)
+        return (params, cut(meta((B, S), I32)))
+    cache = lm.init_cache(cfg, B, S, torch.bfloat16, device="meta",
+                          mesh=mesh)
+    return (params, cut(meta((B, 1), I32)), cache, S - 1)
+
+
+def mesh_skip(cfg: lm.LMConfig, mesh) -> str | None:
+    """Why ``cfg``'s cells cannot run on ``mesh``: ``check_tp``'s reason
+    (the model axis must divide the heads, KV heads, vocabulary, FFN
+    width and experts), else a ``pod`` axis (the LM's mesh path runs
+    (data, model) meshes); None where they can."""
+    try:
+        tp.check_tp(cfg, mesh)
+    except ValueError as e:
+        return str(e)
+    if mesh.size("pod") > 1:
+        return (f"{cfg.name}: the LM family's mesh path runs (data, model) "
+                f"meshes; a pod axis is not ported")
+    return None
 
 
 def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
@@ -225,7 +260,8 @@ def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
             make_fn(cfg, kind, mesh), skip=skip,
             meta={"model_flops": float(mf), "params": cfg.param_count(),
                   "active_params": act},
-            abstract_args=functools.partial(_abstract_args, cfg, shape))
+            abstract_args=functools.partial(_abstract_args, cfg, shape),
+            mesh_skip=functools.partial(mesh_skip, cfg))
     return Arch(name=cfg.name, family="lm", config=cfg, cells=cells,
                 smoke=functools.partial(_smoke, cfg), notes=notes)
 

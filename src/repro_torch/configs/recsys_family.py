@@ -254,14 +254,15 @@ def _abstract_batch(cfg, kind: str, B: int) -> dict:
     return b
 
 
-def _abstract_args(cfg, shape: str, mesh=None):
+def _abstract_args(cfg, shape: str, mesh=None, whole_batch: bool = False):
     """The cell's arguments on meta, as the JAX cell's ``args(mesh)``:
     parameters (and their Adam state to train) and the batch; retrieval
     also the 10^6 candidates (CTR: [N, ctr_repr_dim] f32; BERT4Rec: item
     ids [N] int32). With ``mesh``: one rank's blocks
     (``shard_abstract``): the parameters and moments by ``recsys_rules``,
     the batch over the data axes (the retrieval query whole), the
-    candidates over the data axes."""
+    candidates over the data axes; with ``whole_batch`` the batch and the
+    candidates whole, as the mesh step takes them."""
     shp = RS_SHAPES[shape]
     kind = shp["kind"]
     params = abstract_params(functools.partial(_init(cfg), cfg=cfg))
@@ -278,7 +279,9 @@ def _abstract_args(cfg, shape: str, mesh=None):
             opt = dict(opt, m=shard_abstract(opt["m"], specs, mesh),
                        v=shard_abstract(opt["v"], specs, mesh))
         params = shard_abstract(params, specs, mesh)
-        if kind == "retrieval":
+        if whole_batch:          # as the mesh step takes them
+            pass
+        elif kind == "retrieval":
             cand = shard_abstract(cand, shx.guard_divisible(
                 shx.data_spec(mesh), cand, mesh), mesh)
         else:

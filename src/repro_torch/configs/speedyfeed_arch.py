@@ -10,18 +10,32 @@ arch (``configs.get_arch``): the JAX package's three cells, their
 UniLMv2-base-scale PLM (12L x 768 x 12H), K=3 segments of 32 tokens,
 user history L=100, news universe 1.2M (Table 2), cache gamma=20 /
 beta=2e-3 (§A.3).
+
+On a mesh every cell is pure data parallelism over every axis, as the
+JAX cells lay it out: ``train_prod`` through ``make_sf_train_step(cfg,
+mesh)`` (the cache by rows, the history side over every axis, the merged
+set whole); ``train_conventional`` through ``make_conventional_step(cfg,
+mesh)`` (the instance batch over every axis, the gradients summed in one
+all-reduce a dtype); ``encode_bulk`` each rank's block of the news, no
+collective. The JAX cell shards ``train_prod``'s Adam moments ZeRO-1
+over ``data`` (``_zero1_spec``); the port keeps them whole on every rank
+(``ZERO1_DEPARTURE``), and cuts the cache over every axis where the JAX
+cell cuts it over the data axes.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch import core, optim, training
 from repro_torch.device import check_device
-from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed import sharding as shx
+from repro_torch.distributed.collectives import all_reduce, reduce_from
 from repro_torch.optim.adam import leaves, unflatten
 
 from .base import (BF16, I32, Arch, Cell, abstract_opt, abstract_params,
-                   assert_finite, meta)
+                   assert_finite, meta, shard_abstract)
 
 # paper §A.3: lr 8e-6 for the PLM, 1e-4 for everything else
 SF_OPT = optim.AdamConfig(lr=1e-4, grad_clip=1.0,
@@ -107,20 +121,61 @@ def make_sf_trainer(cfg=None, *, mesh=None, **kw) -> training.Trainer:
                             init_fn=_sf_init_state, mesh=mesh, **kw)
 
 
-def make_conventional_step(cfg: core.SpeedyFeedConfig):
+ZERO1_DEPARTURE = (
+    "Adam's moments whole on every rank: the JAX cell shards them ZeRO-1 "
+    "over data (_zero1_spec); not ported")
+
+
+def every_axis_block(t, mesh):
+    """This rank's block of ``t`` along dim 0 over every mesh axis (pure
+    data parallelism); raises where the ranks do not divide it."""
+    return shx.shard_block(t, shx.Spec(tuple(mesh.axis_names)), mesh)
+
+
+def conventional_loss(cfg: core.SpeedyFeedConfig, mesh=None):
+    """``loss_fn(params, batch) -> (loss, {"click_acc"})``, the
+    conventional workflow's loss as its step differentiates it. With
+    ``mesh`` (the JAX cell's layout: pure data parallelism over every
+    axis) the batch is whole and each rank encodes its block of the
+    instances (``every_axis_block``); the loss is the mean of the ranks'
+    means (the blocks are equal), the same on every rank, and each rank's
+    gradient is its own share's (``reduce_from``), to be summed over
+    every axis; the accuracy is averaged."""
+    if mesh is None or mesh.world == 1:
+        return lambda params, batch: core.conventional_forward(
+            params, cfg, batch)
+    R = mesh.world
+
+    def mesh_loss(params, batch):
+        block = {k: every_axis_block(v, mesh) for k, v in batch.items()}
+        loss, m = core.conventional_forward(params, cfg, block)
+        acc = all_reduce(m["click_acc"].detach().reshape(1).clone(), mesh)
+        return reduce_from(loss / R, mesh, None), {"click_acc": acc[0] / R}
+
+    return mesh_loss
+
+
+def make_conventional_step(cfg: core.SpeedyFeedConfig, mesh=None):
     """``step(params, opt, batch) -> (params, opt, metrics)``:
-    ``conventional_forward``'s loss through ``optim.make_train_step`` with
-    ``SF_OPT`` (metrics: ``loss``, ``grad_norm``, ``lr``, ``click_acc``)."""
-    def loss_fn(params, batch):
-        return core.conventional_forward(params, cfg, batch)
+    ``conventional_loss`` through ``optim.make_train_step`` with
+    ``SF_OPT`` (metrics: ``loss``, ``grad_norm``, ``lr``, ``click_acc``).
+    With ``mesh``: the parameters and Adam state whole on every rank, the
+    batch whole, the gradients summed over every axis in one all-reduce
+    a dtype (``optim.make_train_step(grad_axes=)``), as ``_sum_over_ranks``
+    sums Algorithm 1's."""
+    if mesh is None or mesh.world == 1:
+        return optim.make_train_step(conventional_loss(cfg), SF_OPT)
+    every, whole = tuple(mesh.axis_names), shx.Spec()
+    return optim.make_train_step(
+        conventional_loss(cfg, mesh), SF_OPT, mesh=mesh,
+        specs=lambda p: {path: whole for path, _ in leaves(p)},
+        grad_axes=lambda p: {path: every for path, _ in leaves(p)})
 
-    return optim.make_train_step(loss_fn, SF_OPT)
 
-
-def _make_conventional_state_step(cfg):
+def _make_conventional_state_step(cfg, mesh=None):
     """The conventional step under the TrainState step contract: the cache
     travels untouched (the baseline re-encodes everything)."""
-    raw = make_conventional_step(cfg)
+    raw = make_conventional_step(cfg, mesh)
 
     def step_fn(params, opt_state, cache, step, rng, batch):
         params, opt_state, metrics = raw(params, opt_state, batch)
@@ -146,21 +201,33 @@ def make_conventional_trainer(cfg=None, **kw) -> training.Trainer:
 ENCODE_BULK_NEWS = 65536      # encode_bulk's batch of news
 
 
-def _abstract_args(cfg: core.SpeedyFeedConfig, shape: str):
-    """The cell's arguments on meta at ``cfg``, as the JAX cells give them
-    with no mesh: bf16 parameters (the JAX dry-run's ``param_dtype``);
-    to train, their f32 Adam state, the cold cache, step 0, a seeded
-    generator (the step's draws: a CPU generator draws for meta tensors
-    too) and the batch: Algorithm 1's centralized one (merged_cap news,
-    batch_users x hist_len) or the conventional workflow's at
-    ``CONV_BATCH``; ``encode_bulk``: ENCODE_BULK_NEWS news' tokens and
-    frequencies."""
+def _abstract_args(cfg: core.SpeedyFeedConfig, shape: str, mesh=None,
+                   whole_batch: bool = False):
+    """The cell's arguments on meta at ``cfg``, as the JAX cells give them:
+    bf16 parameters (the JAX dry-run's ``param_dtype``); to train, their
+    f32 Adam state, the cold cache, step 0, a seeded generator (the
+    step's draws: a CPU generator draws for meta tensors too) and the
+    batch: Algorithm 1's centralized one (merged_cap news, batch_users x
+    hist_len) or the conventional workflow's at ``CONV_BATCH``;
+    ``encode_bulk``: ENCODE_BULK_NEWS news' tokens and frequencies.
+
+    With ``mesh``: one rank's blocks (``shard_abstract``), pure data
+    parallelism: the parameters and moments whole (``ZERO1_DEPARTURE``),
+    the cache's rows over every axis (``core.cache_shard``), and, unless
+    ``whole_batch`` (the batch as the mesh step takes it), the history
+    side (``speedyfeed_batch_specs``; the merged set whole), the
+    conventional instances and the encode set over every axis."""
     params = abstract_params(lambda g: core.init_speedyfeed(g, cfg),
                              dtype=BF16)
     K, S = cfg.plm.n_segments, cfg.plm.seg_len
+    cut = None           # dim 0 over every axis, where the batch is cut
+    if mesh is not None and not whole_batch:
+        cut = shx.Spec(tuple(mesh.axis_names))
     if shape == "encode_bulk":
-        return (params, meta((ENCODE_BULK_NEWS, K, S), I32),
-                meta((ENCODE_BULK_NEWS, K, S), I32))
+        t = meta((ENCODE_BULK_NEWS, K, S), I32)
+        if cut is not None:
+            t = shard_abstract(t, cut, mesh)
+        return (params, t, meta(t.shape, I32))
     if shape == "train_prod":
         M, B, L = cfg.merged_cap, cfg.batch_users, cfg.hist_len
         batch = {"news_tokens": meta((M, K, S), I32),
@@ -177,8 +244,15 @@ def _abstract_args(cfg: core.SpeedyFeedConfig, shape: str):
                  "cand_freq": meta((B, C, K, S), I32),
                  "label": meta((B,), I32),
                  "cand_mask": meta((B, C), torch.bool)}
-    return (params, abstract_opt(params),
-            core.init_cache(cfg.cache, device="meta"), 0,
+    cache = core.init_cache(cfg.cache, device="meta")
+    if mesh is not None:
+        rows = shx.Spec(tuple(mesh.axis_names))
+        cache = shard_abstract(cache, type(cache)(rows, rows), mesh)
+    if cut is not None:
+        specs = (shx.speedyfeed_batch_specs(mesh, batch)
+                 if shape == "train_prod" else {k: cut for k in batch})
+        batch = shard_abstract(batch, specs, mesh)
+    return (params, abstract_opt(params), cache, 0,
             torch.Generator().manual_seed(0), batch)
 
 
@@ -193,25 +267,36 @@ def _arch() -> Arch:
     n_conv = CONV_BATCH["users"] * (CONV_BATCH["hist"] + CONV_BATCH["cands"])
     enc = torch.no_grad()(
         lambda p, t, f: core.buslm_encode(p["plm"], cfg.plm, t, f))
+    def enc_on(mesh):
+        if mesh is None or mesh.world == 1:
+            return enc
+        return torch.no_grad()(lambda p, t, f: enc(
+            p, every_axis_block(t, mesh), every_axis_block(f, mesh)))
+
     cells = {
         "train_prod": Cell(
             arch="speedyfeed", shape="train_prod", kind="train",
-            make_fn=lambda device="cuda": make_sf_train_step(cfg),
+            make_fn=lambda device="cuda", mesh=None: make_sf_train_step(
+                cfg, mesh),
             meta={"model_flops": 3 * core.plm_flops(
                 cfg.plm, cfg.cache.encode_budget)},
-            abstract_args=lambda: _abstract_args(cfg, "train_prod")),
+            mesh_departure=ZERO1_DEPARTURE,
+            abstract_args=functools.partial(_abstract_args, cfg,
+                                            "train_prod")),
         "train_conventional": Cell(
             arch="speedyfeed", shape="train_conventional", kind="train",
-            make_fn=lambda device="cuda": _make_conventional_state_step(
-                cfg),
+            make_fn=lambda device="cuda", mesh=None:
+            _make_conventional_state_step(cfg, mesh),
             meta={"model_flops": 3 * core.plm_flops(cfg.plm, n_conv)},
-            abstract_args=lambda: _abstract_args(cfg, "train_conventional")),
+            abstract_args=functools.partial(_abstract_args, cfg,
+                                            "train_conventional")),
         "encode_bulk": Cell(
             arch="speedyfeed", shape="encode_bulk", kind="serve",
-            make_fn=lambda device="cuda": enc,
+            make_fn=lambda device="cuda", mesh=None: enc_on(mesh),
             meta={"model_flops": core.plm_flops(cfg.plm,
                                                 ENCODE_BULK_NEWS)},
-            abstract_args=lambda: _abstract_args(cfg, "encode_bulk")),
+            abstract_args=functools.partial(_abstract_args, cfg,
+                                            "encode_bulk")),
     }
     return Arch(name="speedyfeed", family="news", config=cfg, cells=cells,
                 smoke=_smoke, notes="the paper's own architecture")

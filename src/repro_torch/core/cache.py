@@ -173,7 +173,9 @@ def cache_refresh(state: CacheState, plan: CachePlan, news_ids, new_emb,
     steps = torch.where(write, torch.full_like(tgt, step, dtype=torch.int32),
                         state.written_step[tgt])
     if shard is not None:
-        j = torch.argmax(own.to(torch.int32))
+        # a one-element index, not a 0-d one (which reads its value on
+        # the host, and cannot on meta tensors)
+        j = torch.argmax(own.to(torch.int32)).reshape(1)
         tgt = torch.where(own, tgt, tgt[j])
         rows = torch.where(own[:, None], rows, rows[j])
         steps = torch.where(own, steps, steps[j])

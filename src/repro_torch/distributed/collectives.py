@@ -35,11 +35,40 @@ card; the computation never does.
 
 Every call is synchronous and collective: each rank of the group makes
 it, in the same order.
+
+On meta tensors (the dry-run's count of one rank's step,
+``launch/dryrun.py``) a collective calls no ``dist`` function and needs
+no process group: it returns a meta tensor of the shape the real call
+returns and records its kind, result bytes and group size in each active
+dispatch mode that counts collectives (``op_analysis.OpCounter``), as the
+kernels' meta routes record their work. Its wire bytes a rank follow the
+ring formulas of the JAX package's ``launch/hlo_analysis.py``. A
+sum-reduced block (``reduce_scatter``) counts as a reduce-scatter on
+every backend (gloo makes it an all-reduce and a slice), a broadcast as
+a point-to-point transfer of its tensor.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+
+def _counted(kind: str, result, mesh, axis=None):
+    """``result`` (a meta tensor), after recording a collective of
+    ``kind`` (the JAX package's names: "all-gather", "all-reduce",
+    "reduce-scatter", "collective-permute") over ``axis``'s group in each
+    active dispatch mode with ``add_collective``."""
+    n = result.numel() * result.element_size()
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "add_collective"):
+            mode.add_collective(kind, n, mesh.size(axis),
+                                mesh.in_one_node(axis))
+    return result
+
+
+def _meta(t) -> bool:
+    return t.device.type == "meta"
 
 
 def _gloo(group) -> bool:
@@ -57,6 +86,8 @@ def all_reduce(t, mesh, op: str = "sum", axis: str | None = None):
     rank of the group."""
     if mesh.size(axis) == 1:
         return t
+    if _meta(t):
+        return _counted("all-reduce", t, mesh, axis)
     group = mesh.group_of(axis)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if not _staged(mesh, t, group):
@@ -71,6 +102,10 @@ def all_reduce(t, mesh, op: str = "sum", axis: str | None = None):
 def broadcast(t, mesh, src: int = 0):
     """``t`` from rank ``src`` into every rank's ``t``, in place (a bool
     tensor goes as its bytes)."""
+    if mesh.world == 1:
+        return t
+    if _meta(t):
+        return _counted("collective-permute", t, mesh)
     if t.dtype == torch.bool:
         broadcast(t.view(torch.uint8), mesh, src)
         return t
@@ -90,6 +125,10 @@ def all_gather(t, mesh, axis: str | None = None, dim: int = 0):
     n = mesh.size(axis)
     if n == 1:
         return t
+    if _meta(t):
+        shape = list(t.shape)
+        shape[dim] *= n
+        return _counted("all-gather", t.new_empty(shape), mesh, axis)
     group = mesh.group_of(axis)
     if not _gloo(group):
         src = t.movedim(dim, 0).contiguous()
@@ -123,8 +162,12 @@ def reduce_scatter(t, mesh, axis: str | None = None, dim: int = 0):
     n = mesh.size(axis)
     if n == 1:
         return t
-    group = mesh.group_of(axis)
     i, size = mesh.index(axis), t.shape[dim] // n
+    if _meta(t):
+        shape = list(t.shape)
+        shape[dim] = size
+        return _counted("reduce-scatter", t.new_empty(shape), mesh, axis)
+    group = mesh.group_of(axis)
     if not _gloo(group):
         src = t.movedim(dim, 0).contiguous()
         out = torch.empty((size,) + tuple(src.shape[1:]), dtype=t.dtype,
@@ -139,6 +182,8 @@ def gather_to_rank0(t, mesh):
     """Every rank's ``t`` stacked along dim 0 in rank order, as a host
     tensor on rank 0 (``None`` on the others): what rank 0 writes to a
     checkpoint."""
+    if _meta(t):
+        return all_gather(t, mesh) if mesh.rank == 0 else None
     if t.device.type == "cuda" and not _staged(mesh, t):
         full = all_gather(t, mesh)           # NCCL: gather onto the card
         return full.cpu() if mesh.rank == 0 else None
@@ -156,14 +201,12 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, mesh):
-        ctx.mesh, ctx.n = mesh, t.shape[0]
+        ctx.mesh = mesh
         return all_gather(t, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        mesh, n = ctx.mesh, ctx.n
-        grad = all_reduce(grad.contiguous().clone(), mesh)
-        return grad[mesh.rank * n:(mesh.rank + 1) * n], None
+        return reduce_scatter(grad.contiguous(), ctx.mesh), None
 
 
 def all_gather_grad(t, mesh):
@@ -299,5 +342,5 @@ def gather_tree(blocks, specs, mesh):
 
 
 def barrier(mesh, axis: str | None = None):
-    if mesh.size(axis) > 1:
+    if mesh.size(axis) > 1 and mesh.group is not None:
         dist.barrier(group=mesh.group_of(axis))

@@ -15,10 +15,12 @@ that reads a sharded leaf calls the collectives itself
 (``distributed/collectives.py``). The port places SpeedyFeed's pure data
 parallelism (the row-sharded cache and the user side of a batch), the
 LM family by ``lm_rules`` and ``lm_batch_specs``
-(``models/lm_parallel.py``), and the recsys family by ``recsys_rules``
+(``models/lm_parallel.py``), the recsys family by ``recsys_rules``
 and ``recsys_batch_specs`` (``models/recsys/parallel.py``: the CTR
 tables and BERT4Rec's item table cut by rows over ``model``, the towers
-whole, the batch over the data axes); the GNN table is here as data.
+whole, the batch over the data axes), and DimeNet by ``gnn_rules`` and
+``gnn_batch_specs`` (``models/gnn/dimenet.py``: the parameters whole,
+the edges and triplets over every axis).
 
 A mesh is anything with ``axis_names``, a ``shape`` mapping each axis to
 its size and, for ``shard_block``, a ``rank`` (``launch/mesh.py:Mesh``).
@@ -294,6 +296,20 @@ def recsys_batch_specs(mesh, keys):
 def gnn_rules():
     # node/edge model params are small -> replicated
     return [(r".*", Spec())]
+
+
+def gnn_batch_specs(mesh, batch_like):
+    """The GNN family's batch specs: every edge (``edge_*``) and triplet
+    (``trip_*``) array cut over every mesh axis along dim 0 (the message
+    passing is an additive scatter), every node array whole."""
+    all_axes = tuple(mesh.axis_names)
+
+    def spec(path, leaf):
+        if str(path[0]).startswith(("edge_", "trip_")):
+            return Spec(all_axes)
+        return Spec()
+
+    return _map(spec, batch_like)
 
 
 def speedyfeed_rules(tp: bool = False):

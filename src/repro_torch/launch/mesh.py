@@ -44,6 +44,7 @@ import torch
 from repro_torch.device import check_device
 
 RANK_TIMEOUT_S = 600.0     # a collective that waits longer fails its rank
+RANKS_PER_NODE = 8         # cards a node (DGX H100, H100 SXM)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,15 +68,27 @@ class Mesh:
     def world(self) -> int:
         return int(np.prod([self.shape[a] for a in self.axis_names]))
 
-    def size(self, axis: str | None = None) -> int:
+    def size(self, axis=None) -> int:
         """The ranks along ``axis`` (the whole mesh for None; 1 for an
-        axis the mesh lacks)."""
-        return self.world if axis is None else int(self.shape.get(axis, 1))
+        axis the mesh lacks); a tuple of axes (``("pod", "data")``, the
+        data axes) counts the ranks of their product."""
+        if axis is None:
+            return self.world
+        if isinstance(axis, tuple):
+            return int(np.prod([self.size(a) for a in axis]))
+        return int(self.shape.get(axis, 1))
 
-    def index(self, axis: str | None = None) -> int:
-        """This rank's coordinate along ``axis`` (its rank for None)."""
+    def index(self, axis=None) -> int:
+        """This rank's coordinate along ``axis`` (its rank for None; for a
+        tuple of axes, row-major over them in the tuple's order, as
+        ``sharding.shard_block`` numbers the blocks of a dim they cut)."""
         if axis is None:
             return self.rank
+        if isinstance(axis, tuple):
+            i = 0
+            for a in axis:
+                i = i * self.size(a) + self.index(a)
+            return i
         r = self.rank
         for a in reversed(self.axis_names):
             if a == axis:
@@ -83,15 +96,48 @@ class Mesh:
             r //= self.shape[a]
         return 0
 
-    def group_of(self, axis: str | None = None):
+    def group_of(self, axis=None):
         """The process group along ``axis`` (the mesh's for None, or for
-        the only axis of size above 1)."""
+        the only axis of size above 1); for a tuple of axes, that of its
+        one axis of size above 1, or the mesh's where they span it (the
+        runtime meshes are (data, model): a tuple that spans neither
+        raises)."""
         if axis is None:
             return self.group
+        if isinstance(axis, tuple):
+            big = tuple(a for a in axis if self.size(a) > 1)
+            if len(big) <= 1:
+                return self.group_of(big[0]) if big else None
+            if self.size(big) == self.world:
+                return self.group
+            raise ValueError(f"no process group of this mesh spans the "
+                             f"axes {big}")
         g = self.groups.get(axis)
         if g is None and self.size(axis) == self.world:
             return self.group
         return g
+
+    def in_one_node(self, axis=None, per_node: int = RANKS_PER_NODE) -> bool:
+        """Whether the group of ``axis`` through this rank lies in one
+        node of ``per_node`` cards, the ranks numbered row-major over the
+        axes and the nodes holding consecutive ranks (DGX H100: 8 cards
+        a node, joined by NVLink; nodes by InfiniBand)."""
+        axes = tuple(self.axis_names) if axis is None else (
+            axis if isinstance(axis, tuple) else (axis,))
+        stride, lo, hi = 1, self.rank, self.rank
+        for a in reversed(self.axis_names):
+            n = int(self.shape[a])
+            if a in axes:
+                i = (self.rank // stride) % n
+                lo -= i * stride
+                hi += (n - 1 - i) * stride
+            stride *= n
+        return lo // per_node == hi // per_node
+
+    @property
+    def name(self) -> str:
+        """The shape by axis: ``"16x16"``, ``"2x16x16"``."""
+        return "x".join(str(self.shape[a]) for a in self.axis_names)
 
     @property
     def device(self) -> torch.device | None:

@@ -45,8 +45,20 @@ Counted:
   it runs, each from its first appearance until it is freed, by storage
   identity.
 * a breakdown by op class: ``matmul``, ``gather/scatter``,
-  ``elementwise`` (every other op that moves bytes), and each kernel as
-  ``kernel:<route>``.
+  ``elementwise`` (every other op that moves bytes), each kernel as
+  ``kernel:<route>`` and each collective as ``collective:<kind>``.
+* collectives, on a mesh: each collective of ``distributed/collectives.py``
+  on meta tensors records its kind, result bytes and group size g
+  (``add_collective``). Its wire bytes a rank are hlo_analysis's ring
+  formulas: an all-gather result·(g−1)/g, an all-reduce
+  2·result·(g−1)/g, a reduce-scatter result·(g−1), an all-to-all
+  result·(g−1)/g, a point-to-point transfer its result; its operand
+  bytes by the same
+  module's convention (result/g, result, result·g, result, result). Its
+  HBM bytes are twice its result, as hlo_analysis counts them. The wire
+  bytes of the groups that lie in one node are kept apart
+  (``coll_wire_in_node``): NVLink carries them, InfiniBand the rest
+  (``launch/roofline.py``).
 """
 from __future__ import annotations
 
@@ -75,6 +87,15 @@ FREE = {aten._unsafe_view, aten.empty, aten.empty_strided, aten.new_empty,
 WRITE_ONLY = {aten.copy_, aten.fill_, aten.zero_}
 # the shortest trailing dims of an attention-quadratic tensor
 QUAD_DIM = 1024
+# a collective's (wire, operand) bytes a rank from its result's r and its
+# group's size g: hlo_analysis's ring formulas and operand convention
+COLLECTIVE_BYTES = {
+    "all-gather": lambda r, g: (r * (g - 1) / g, r / g),
+    "all-reduce": lambda r, g: (2 * r * (g - 1) / g, r),
+    "reduce-scatter": lambda r, g: (r * (g - 1), r * g),
+    "all-to-all": lambda r, g: (r * (g - 1) / g, r),
+    "collective-permute": lambda r, g: (r, r),
+}
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -151,6 +172,10 @@ class OpCounter(TorchDispatchMode):
         self.quad_bytes = 0.0
         self.breakdown = collections.defaultdict(
             lambda: {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        self.coll_wire = collections.defaultdict(float)    # by kind
+        self.coll_count = collections.defaultdict(int)
+        self.coll_operand_total = 0.0
+        self.coll_wire_in_node = 0.0
         self._live = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -187,6 +212,19 @@ class OpCounter(TorchDispatchMode):
         name = route if isinstance(route, str) else "+".join(route)
         self._add(f"kernel:{name}", work["flops"], work["bytes"],
                   work["dtype"], work["op_class"] == "matmul")
+
+    def add_collective(self, kind: str, result_bytes: int, group: int,
+                       in_node: bool = False):
+        """Record a collective's meta call (``distributed/collectives.py``):
+        its kind, its result's bytes, its group's size and whether the
+        group lies in one node."""
+        wire, operand = COLLECTIVE_BYTES[kind](result_bytes, group)
+        self.coll_wire[kind] += wire
+        self.coll_count[kind] += 1
+        self.coll_operand_total += operand
+        if in_node:
+            self.coll_wire_in_node += wire
+        self._add(f"collective:{kind}", 0.0, 2 * result_bytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -226,10 +264,17 @@ class OpCounter(TorchDispatchMode):
 
     def result(self) -> dict:
         """The counts: ``flops`` (total) and ``flops_by_dtype``, ``bytes``,
-        ``quad_bytes``, ``peak_bytes`` (live), ``args_bytes`` and the
-        ``breakdown`` by op class."""
+        ``quad_bytes``, ``peak_bytes`` (live), ``args_bytes``, the
+        ``breakdown`` by op class, and the collectives' ``coll_wire`` and
+        ``coll_count`` by kind, ``coll_wire_total``,
+        ``coll_wire_in_node`` and ``coll_operand_total``."""
         return {"flops": sum(self.flops.values()),
                 "flops_by_dtype": dict(self.flops), "bytes": self.bytes,
                 "quad_bytes": self.quad_bytes, "peak_bytes": self.peak_bytes,
                 "args_bytes": self.args_bytes,
-                "breakdown": {k: dict(v) for k, v in self.breakdown.items()}}
+                "breakdown": {k: dict(v) for k, v in self.breakdown.items()},
+                "coll_wire": dict(self.coll_wire),
+                "coll_count": dict(self.coll_count),
+                "coll_wire_total": sum(self.coll_wire.values()),
+                "coll_wire_in_node": self.coll_wire_in_node,
+                "coll_operand_total": self.coll_operand_total}

@@ -1,12 +1,21 @@
-"""Roofline terms of a counted step on one NVIDIA H100: the port's
+"""Roofline terms of a counted step on NVIDIA H100s: the port's
 counterpart of the JAX package's ``launch/roofline.py``.
 
-Hardware model: one H100 SXM, NVIDIA's data sheet (dense rates, no
-sparsity, at the 700 W power limit; a card set below it runs slower):
+Hardware model: one H100 SXM a rank, NVIDIA's data sheets (dense rates,
+no sparsity, at the 700 W power limit; a card set below it runs slower):
 
   compute term    = sum over dtypes of FLOPs / that dtype's peak rate
   memory term     = bytes / HBM rate
-  collective term = 0: one card, no mesh
+  collective term = wire bytes in one node / NVLink rate
+                    + the other wire bytes / InfiniBand rate
+
+all a rank's (rank 0's, counted on meta). One card (``MESH``) has no
+collective term. On a mesh the ranks are numbered row-major over its
+axes and a node holds 8 consecutive ranks (DGX H100), so a group lies in
+one node only where its axes are the minor ones and hold at most 8
+ranks: at the JAX package's production meshes, 16 x 16 and 2 x 16 x 16,
+every axis's group (16 ranks or more) spans nodes and every collective
+takes the InfiniBand rate.
 
 The f32 rate is the CUDA cores' unless ``torch.backends.cuda.matmul
 .allow_tf32`` is on when the step is counted; then f32 matmuls may run
@@ -27,6 +36,12 @@ F32_FLOP_PER_S = 67e12           # f32 on the CUDA cores
 CARD_BYTES = 80e9                # HBM of one card
 FIT_SHARE = 0.9                  # what a step may hold of it: 72 GB
 MESH = "1xH100"
+# NVLink 4 between the 8 cards of a node: 900 GB/s a card, both
+# directions together (H100 SXM data sheet), so 450 GB/s a direction
+NVLINK_BYTES_PER_S = 450e9
+# between nodes: one 400 Gb/s InfiniBand NIC (ConnectX-7) a card (DGX
+# H100 data sheet), 50 GB/s a direction
+IB_BYTES_PER_S = 50e9
 
 
 def flop_rate(dtype: str, f32_rate: float) -> float:
@@ -59,6 +74,8 @@ class Roofline:
     quad_bytes_per_chip: float = 0.0
     flops_by_dtype: dict = dataclasses.field(default_factory=dict)
     f32_rate: float = F32_FLOP_PER_S
+    # the wire bytes of collectives whose group lies in one node
+    coll_bytes_in_node: float = 0.0
 
     @property
     def t_compute(self) -> float:
@@ -89,7 +106,11 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        return 0.0
+        """The wire bytes a rank at NVLink's rate in one node, at
+        InfiniBand's across nodes."""
+        across = self.coll_bytes_per_chip - self.coll_bytes_in_node
+        return self.coll_bytes_in_node / NVLINK_BYTES_PER_S \
+            + across / IB_BYTES_PER_S
 
     @property
     def bottleneck(self) -> str:
@@ -139,16 +160,34 @@ class Roofline:
         }
 
 
-def from_count(cell, count: dict, f32_rate: float | None = None) -> Roofline:
+def coll_detail(count: dict) -> dict:
+    """The JAX package's ``coll_detail`` from a count: the wire bytes by
+    kind, ``n_<kind>`` and ``operand_convention_total``."""
+    out = dict(count.get("coll_wire", {}))
+    out.update({f"n_{k}": v for k, v in count.get("coll_count", {}).items()})
+    out["operand_convention_total"] = count.get("coll_operand_total", 0.0)
+    return out
+
+
+def from_count(cell, count: dict, f32_rate: float | None = None,
+               mesh=None) -> Roofline:
     """The roofline of ``cell`` from ``op_analysis.OpCounter.result()``;
     ``f32_rate`` is the one the step was counted under (the current TF32
-    setting's by default). One card: no collective bytes."""
+    setting's by default). ``mesh`` (``launch/mesh.py``), where the count
+    is one rank's: its name (``"16x16"``), its world as ``chips`` and the
+    count's collective bytes; None is one card (``MESH``), no collective
+    term."""
     return Roofline(
-        arch=cell.arch, shape=cell.shape, mesh=MESH, chips=1,
+        arch=cell.arch, shape=cell.shape,
+        mesh=MESH if mesh is None else mesh.name,
+        chips=1 if mesh is None else mesh.world,
         flops_per_chip=float(count["flops"]),
-        bytes_per_chip=float(count["bytes"]), coll_bytes_per_chip=0.0,
-        coll_detail={}, peak_memory_per_chip=float(count["peak_bytes"]),
+        bytes_per_chip=float(count["bytes"]),
+        coll_bytes_per_chip=float(count.get("coll_wire_total", 0.0)),
+        coll_detail=coll_detail(count) if mesh is not None else {},
+        peak_memory_per_chip=float(count["peak_bytes"]),
         model_flops=float(cell.meta.get("model_flops", 0.0)),
         quad_bytes_per_chip=float(count["quad_bytes"]),
         flops_by_dtype=dict(count["flops_by_dtype"]),
-        f32_rate=current_f32_rate() if f32_rate is None else f32_rate)
+        f32_rate=current_f32_rate() if f32_rate is None else f32_rate,
+        coll_bytes_in_node=float(count.get("coll_wire_in_node", 0.0)))

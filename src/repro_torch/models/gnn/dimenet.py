@@ -24,6 +24,34 @@ Graph batch layout (host-built, statically padded; ``data/graph.py``):
 Basis note: the spherical Bessel zeros of the original are approximated with
 z_{l,n} ~ (n + l/2) * pi and the angular part uses Legendre P_l(cos a),
 as in the JAX package.
+
+On a mesh (``forward``/``loss`` with ``mesh=``; ``launch/mesh.py``) a
+rank holds the parameters whole and its contiguous block of the edges
+and of the triplets (``distributed.sharding.gnn_batch_specs``: every
+``edge_*`` and ``trip_*`` array over every axis), the triplets' edge ids
+global; the node arrays are whole. GSPMD inserts the collectives for the
+JAX package; here the same function places them itself:
+
+- geometry: the edges' endpoints are all-gathered once, so every rank
+  has each edge's vector (a triplet reads any edge's); ``pos`` is not
+  learned, so no gradient flows back;
+- each block's ``m_kj``: the rank's [E/R, d] messages all-gathered
+  (``all_gather_grad``: its backward sums the whole's gradient and keeps
+  the rank's block, a reduce-scatter) and read at the rank's triplets;
+- the triplet sum ``segment_sum(t, trip_ji, E)`` is partial over the
+  rank's triplets: it is reduce-scattered ([E, n_bilinear], 8 wide) back
+  to the rank's edge block (``reduce_scatter_grad``) before ``bilin_out``;
+- the node sums are partial over the rank's edges; ``out`` is linear in
+  them, so one sum over the mesh (``reduce_from``) after the last block
+  gives every rank the whole; what follows it is computed alike on
+  every rank.
+
+The gradients (``grad_axes``): the leaves read before the node sum is
+reduced hold this rank's part, summed over every axis by the train step
+(``optim.make_train_step(grad_axes=)``); ``out_mlp1`` and ``out_mlp2``
+read the reduced sum, so every rank already holds their whole gradient.
+With no mesh, or a mesh of one rank, the function is the one-process one
+op for op.
 """
 from __future__ import annotations
 
@@ -33,8 +61,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (all_gather,
+                                                 all_gather_grad,
+                                                 reduce_from,
+                                                 reduce_scatter_grad)
 from repro_torch.nn import dense, embed, init_dense, init_embedding, \
     normal_init
+from repro_torch.optim.adam import leaves
+
+# leaves read only after the node sum is reduced over the mesh: every rank
+# computes their whole gradient (``grad_axes``)
+WHOLE_GRAD = ("out_mlp1", "out_mlp2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,10 +212,19 @@ def bilinear(a, w, m_kj):
     return torch.bmm(a.unsqueeze(1), tmp).squeeze(1)
 
 
-def geometry(batch, cfg: DimeNetConfig):
-    """Distances per edge and cos(angle) per triplet from positions."""
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.world > 1
+
+
+def geometry(batch, cfg: DimeNetConfig, mesh=None):
+    """Distances per edge and cos(angle) per triplet from positions. On a
+    mesh: the distance of every edge of the mesh (the endpoints gathered)
+    and the cosines of this rank's triplets."""
     pos = batch["pos"]
-    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    if _sharded(mesh):
+        src, dst = all_gather(src, mesh), all_gather(dst, mesh)
+    src, dst = src.long(), dst.long()
     vec = pos.index_select(0, dst) - pos.index_select(0, src)  # x_i - x_j
     d = torch.sqrt(torch.clamp_min((vec ** 2).sum(-1), 1e-12))
     # triplet (kj, ji): angle at j between (j->k ... k->j edge) and (j->i)
@@ -190,18 +236,43 @@ def geometry(batch, cfg: DimeNetConfig):
     return d, torch.clamp(num / den, -1.0, 1.0)
 
 
-def forward(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1):
-    """-> [G, out_dim] (graph-level) or [N, out_dim] (node-level)."""
+def _every_edge(x, mesh):
+    """Every rank's block of edge rows joined (differentiable)."""
+    return all_gather_grad(x, mesh) if _sharded(mesh) else x
+
+
+def _own_edges(x, mesh):
+    """A sum over the rank's triplets into every edge, summed over the
+    mesh, this rank's edge block kept (differentiable)."""
+    return reduce_scatter_grad(x, mesh, None) if _sharded(mesh) else x
+
+
+def grad_axes(params, mesh) -> dict:
+    """{path: the mesh axes the leaf's gradient is partial over} of a
+    mesh's ``loss``: every axis for the leaves read before the node sum
+    is reduced, none for ``WHOLE_GRAD``'s (module docstring)."""
+    every = tuple(mesh.axis_names)
+    return {path: () if path.split("/")[0] in WHOLE_GRAD else every
+            for path, _ in leaves(params)}
+
+
+def forward(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1,
+            mesh=None):
+    """-> [G, out_dim] (graph-level) or [N, out_dim] (node-level). With
+    ``mesh``, ``batch``'s edge and triplet arrays are this rank's blocks
+    (module docstring); the output is whole on every rank."""
     dt = getattr(torch, cfg.dtype)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     kj, ji = batch["trip_kj"].long(), batch["trip_ji"].long()
-    E = src.shape[0]
+    E = src.shape[0] * (mesh.world if _sharded(mesh) else 1)
     N = batch["pos"].shape[0]
     emask = batch["edge_mask"].to(dt)[:, None]
     tmask = batch["trip_mask"].to(dt)[:, None]
 
-    d, cos_a = geometry(batch, cfg)
-    rbf = rbf_basis(d, cfg).to(dt)                       # [E, R]
+    d, cos_a = geometry(batch, cfg, mesh)                # [E], [T]
+    d_own = d.narrow(0, mesh.rank * src.shape[0], src.shape[0]) \
+        if _sharded(mesh) else d
+    rbf = rbf_basis(d_own, cfg).to(dt)                   # [E, R]
     sbf = sbf_basis(d.index_select(0, kj), cos_a, cfg).to(dt)  # [T, LR]
 
     if cfg.d_feat:
@@ -216,10 +287,11 @@ def forward(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1):
     out = torch.zeros((N, cfg.d_hidden), dtype=dt, device=m.device)
     for blk in params["blocks"]:
         # directional triplet interaction (bilinear, original DimeNet)
-        m_kj = _act(dense(blk["w_msg"], m)).index_select(0, kj)  # [T, d]
+        m_kj = _every_edge(_act(dense(blk["w_msg"], m)),
+                           mesh).index_select(0, kj)              # [T, d]
         a = dense(blk["sbf_proj"], sbf)                          # [T, LR]
         t = bilinear(a, blk["bilinear"].to(dt), m_kj) * tmask    # [T, nb]
-        agg = _segment_sum(t, ji, E)
+        agg = _own_edges(_segment_sum(t, ji, E), mesh)
         upd = dense(blk["bilin_out"], agg)                       # [E, d]
         m2 = _act(dense(blk["w_src"], m)) + upd
         m2 = _res(blk["res1"], m2)
@@ -228,6 +300,8 @@ def forward(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1):
         g = dense(params["out_rbf"], rbf) * m
         out = out + _segment_sum(g, dst, N)
 
+    if _sharded(mesh):
+        out = reduce_from(out, mesh, None)
     out = _act(dense(params["out_mlp1"], out))
     out = dense(params["out_mlp2"], out)
     if cfg.node_level:
@@ -235,10 +309,12 @@ def forward(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1):
     return _segment_sum(out, batch["graph_id"].long(), n_graphs)
 
 
-def loss(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1):
+def loss(params, cfg: DimeNetConfig, batch, *, n_graphs: int = 1,
+         mesh=None):
     """(loss, metrics): masked node cross-entropy and accuracy
-    (node-level), or the graphs' mean squared error."""
-    y = forward(params, cfg, batch, n_graphs=n_graphs)
+    (node-level), or the graphs' mean squared error; with ``mesh``, as
+    ``forward`` takes it, the same on every rank."""
+    y = forward(params, cfg, batch, n_graphs=n_graphs, mesh=mesh)
     if cfg.node_level:
         labels = batch["labels"].long()
         lmask = batch["label_mask"]

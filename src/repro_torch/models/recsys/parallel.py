@@ -56,7 +56,9 @@ from repro_torch.distributed import sharding as shx
 from repro_torch.distributed.collectives import (all_gather, all_reduce,
                                                  gather_tree, reduce_from)
 
-MODEL, DATA = "model", "data"
+# the batch's axes are the data axes, ``pod`` and ``data`` (those the mesh
+# has), as ``recsys_batch_specs`` cuts it: the collectives take the tuple
+MODEL, DATA = "model", shx.DATA_AXES
 
 
 def param_specs(tree, mesh):

@@ -18,10 +18,13 @@ generic factory), with gradient accumulation over microbatches.
 
 On a mesh (``launch/mesh.py``) ``make_train_step(..., mesh=, specs=)``
 takes each leaf's placement (``specs(params)``: {path: Spec}): it sums
-over ``data`` the gradients of the leaves the data axis does not cut
-(one all-reduce of their concatenation; the loss gives each rank its own
-part's gradient, and an FSDP leaf's arrives summed by its gather's
-reduce-scatter), clips by the global norm over every block of the mesh
+over the data axes (``pod`` and ``data``, those present) the gradients
+of the leaves those axes do not cut (one all-reduce of their
+concatenation; the loss gives each rank its own part's gradient, and an
+FSDP leaf's arrives summed by its gather's reduce-scatter), or over the
+axes ``grad_axes(params)`` names for each leaf where the model says
+where its gradients are partial (DimeNet's edges over every axis), clips
+by the global norm over every block of the mesh
 (each block counted on one rank only, ``replica_mask``: a norm taken on
 each rank alone would clip each rank by another factor, and the replicas
 of a leaf would part), and Adam updates each rank's blocks in place.
@@ -40,6 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed.sharding import DATA_AXES
 
 # elements per row chunk of the in-place update (2^26: 268 MB in f32)
 CHUNK = 1 << 26
@@ -136,21 +140,34 @@ def replica_mask(specs: list, mesh) -> list:
                 if a not in _axes_of(s)) for s in specs]
 
 
-def sync_grads(grads: list, params: list, specs: list, mesh) -> list:
-    """The gradients of the leaves whole over ``data`` summed over it, in
-    one all-reduce a dtype of their concatenation (a missing one counts as
-    zeros); the others as they are."""
-    if mesh.size("data") == 1:
-        return grads
+def data_grad_axes(spec, mesh) -> tuple:
+    """The axes a leaf's gradient is summed over by default: the data
+    axes present (``pod``, ``data``) that its ``spec`` does not cut."""
+    cut = _axes_of(spec)
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names
+                 and a not in cut)
+
+
+def sync_grads(grads: list, params: list, specs: list, mesh,
+               axes: list | None = None) -> list:
+    """Each leaf's gradient summed over its axes (``axes``, one tuple a
+    leaf; by default ``data_grad_axes`` of its spec), in one all-reduce
+    of the concatenation of the leaves that share their axes and dtype (a
+    missing gradient counts as zeros); a leaf with no axis of size above
+    1 as it is."""
+    if axes is None:
+        axes = [data_grad_axes(s, mesh) for s in specs]
     grads = list(grads)
-    todo = [i for i, s in enumerate(specs) if "data" not in _axes_of(s)]
+    todo = [i for i, a in enumerate(axes) if mesh.size(tuple(a)) > 1]
     for i in todo:
         if grads[i] is None:
             grads[i] = torch.zeros_like(params[i])
-    for dtype in sorted({grads[i].dtype for i in todo}, key=str):
-        idx = [i for i in todo if grads[i].dtype == dtype]
+    groups = {}
+    for i in todo:
+        groups.setdefault((tuple(axes[i]), grads[i].dtype), []).append(i)
+    for (ax, _), idx in sorted(groups.items(), key=str):
         flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                          mesh, axis="data")
+                          mesh, axis=ax)
         at = 0
         for i in idx:
             n = grads[i].numel()
@@ -306,7 +323,8 @@ def compressed_all_reduce(grads, mesh, residual):
 
 
 def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None, *,
-                    mesh=None, specs: Callable | None = None):
+                    mesh=None, specs: Callable | None = None,
+                    grad_axes: Callable | None = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss's gradients, then ``adam_update``; parameters and moments
     are updated in place. ``loss_fn(params, batch)`` returns a loss or
@@ -320,7 +338,9 @@ def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None, *,
 
     With ``mesh``, ``params`` are this rank's blocks, ``specs(params)``
     gives {path: Spec}, and the step is the mesh's (module docstring):
-    ``sync_grads``, then the global-norm clip and Adam on the blocks."""
+    ``sync_grads`` (over ``grad_axes(params)``' {path: axes} where given,
+    else the data axes), then the global-norm clip and Adam on the
+    blocks."""
     n = cfg.accum_steps
 
     def grads_of(params, flat, batch):
@@ -360,8 +380,13 @@ def make_train_step(loss_fn, cfg: AdamConfig, lr_schedule=None, *,
         spec_of = None
         if mesh is not None:
             spec_of = specs(params)
-            grads = sync_grads(grads, flat, [spec_of[path] for path, _ in
-                                             leaves(params)], mesh)
+            paths = [path for path, _ in leaves(params)]
+            axes = None
+            if grad_axes is not None:
+                axes_of = grad_axes(params)
+                axes = [axes_of[path] for path in paths]
+            grads = sync_grads(grads, flat, [spec_of[p] for p in paths],
+                               mesh, axes)
         params, opt_state, om = adam_update(
             params, unflatten(params, grads), opt_state, cfg, lr_schedule,
             mesh=mesh, specs=spec_of)
