@@ -111,18 +111,14 @@ def shard_abstract(tree, specs, mesh):
     """One rank's blocks of a meta tree by ``specs`` (a tree of Specs of
     its layout): each leaf a meta tensor of its block's shape (the JAX
     package's ``shard_abstract``, whose arrays carry their sharding; a
-    rank of the port holds its block). ``mesh`` None: the tree as it
-    is."""
+    rank of the port holds its block; a ``Blocks`` entry gives this
+    rank's own block, whose length may differ between ranks). ``mesh``
+    None: the tree as it is."""
     if mesh is None:
         return tree
-    from repro_torch.distributed.sharding import _axes_size, tree_map
-
-    def block(spec, leaf):
-        return meta(tuple(n // (_axes_size(mesh, spec[d]) if d < len(spec)
-                                and spec[d] is not None else 1)
-                          for d, n in enumerate(leaf.shape)), leaf.dtype)
-
-    return tree_map(block, specs, tree)
+    from repro_torch.distributed.sharding import block_shape, tree_map
+    return tree_map(lambda spec, leaf: meta(
+        block_shape(tuple(leaf.shape), spec, mesh), leaf.dtype), specs, tree)
 
 
 def abstract_opt(params):

@@ -16,10 +16,11 @@ weights), so each serves on the card at a cut depth
 (``ONE_CARD_SERVE``), at full width. Training them needs a mesh (an
 Adam step keeps 12 bytes a parameter: 39 GB for one DBRX layer, 106 GB
 for one Scout super-block): ``make_fn(cfg, kind, mesh)`` is the
-counterpart of a JAX ``Cell.make_fn(mesh)`` on a (data, model) mesh of
-ranks (``launch/mesh.py``), the parameters placed by
-``lm_rules(fsdp=True)`` (``place_params``, ``place_opt``, or drawn
-placed by ``init_placed``) and ``moe_impl="ep"`` meaning ``nn.moe_ep``;
+counterpart of a JAX ``Cell.make_fn(mesh)`` on a (pod, data, model) mesh
+of ranks (``launch/mesh.py``), the parameters placed by
+``lm_rules(fsdp=True)`` and the head plan (``place_params``,
+``place_opt``, or drawn placed by ``init_placed``) and ``moe_impl="ep"``
+meaning ``nn.moe_ep``;
 ``models/lm_parallel.py`` says how the steps run there.
 """
 from __future__ import annotations
@@ -191,8 +192,9 @@ def _abstract_args(cfg: lm.LMConfig, shape: str, mesh=None,
     and attends over the whole cache, masked, at any).
 
     With ``mesh``: one rank's blocks (``shard_abstract``): the parameters
-    and moments by ``lm_rules`` with FSDP, as the mesh ``make_fn`` places
-    them (``place_params``), the tokens and labels over ``data`` unless
+    and moments by ``lm_rules`` with FSDP and the head plan, as the mesh
+    ``make_fn`` places them (``place_params``; rank 0 holds the most
+    query heads), the tokens and labels over the data axes unless
     ``whole_batch`` (the batch as the mesh step takes it), the decode
     cache the rank's block (``lm.init_cache(mesh=)``). Raises where
     ``check_tp`` does."""
@@ -223,17 +225,24 @@ def _abstract_args(cfg: lm.LMConfig, shape: str, mesh=None,
 
 def mesh_skip(cfg: lm.LMConfig, mesh) -> str | None:
     """Why ``cfg``'s cells cannot run on ``mesh``: ``check_tp``'s reason
-    (the model axis must divide the heads, KV heads, vocabulary, FFN
-    width and experts), else a ``pod`` axis (the LM's mesh path runs
-    (data, model) meshes); None where they can."""
+    (the head plan cannot place the heads, or the model axis does not
+    divide the vocabulary, FFN width or experts); None where they can,
+    a ``pod`` axis included."""
     try:
         tp.check_tp(cfg, mesh)
     except ValueError as e:
         return str(e)
-    if mesh.size("pod") > 1:
-        return (f"{cfg.name}: the LM family's mesh path runs (data, model) "
-                f"meshes; a pod axis is not ported")
     return None
+
+
+# how a decode cell's mesh step departs from the JAX cell's layout (the
+# dry-run's mesh records carry it)
+DECODE_DEPARTURE = (
+    "the decode cache's KV heads are cut over model (lm_batch_specs; "
+    "at model > n_kv each KV head is replicated over the model / n_kv "
+    "ranks that share it, which cut its query heads), where the JAX "
+    "cell puts the cache's sequence over model (_cache_spec; long_500k "
+    "over every axis): the port's per-head attention reads whole heads")
 
 
 def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
@@ -261,7 +270,8 @@ def lm_arch(cfg: lm.LMConfig, *, sub_quadratic: bool = False,
             meta={"model_flops": float(mf), "params": cfg.param_count(),
                   "active_params": act},
             abstract_args=functools.partial(_abstract_args, cfg, shape),
-            mesh_skip=functools.partial(mesh_skip, cfg))
+            mesh_skip=functools.partial(mesh_skip, cfg),
+            mesh_departure=DECODE_DEPARTURE if kind == "decode" else None)
     return Arch(name=cfg.name, family="lm", config=cfg, cells=cells,
                 smoke=functools.partial(_smoke, cfg), notes=notes)
 

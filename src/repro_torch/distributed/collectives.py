@@ -24,7 +24,13 @@ A table cut by rows over ``model`` (the LM's vocabulary, the recsys
 families' embedding tables) is read through ``owned_rows``: the rows of
 the ids this rank's block holds, 0 for the others, whose sum over the
 axis (``reduce_from``) is the whole lookup. ``gather_tree`` joins every
-rank's blocks of a placed tree back into the whole tree.
+rank's blocks of a placed tree back into the whole tree, blocks of
+unequal length too (``gather_blocks``).
+
+``axis`` is an axis name, a tuple of them (the data axes, ``("pod",
+"data")``), or a ``sharding.SubAxis``: the group of consecutive model
+ranks that share a replicated KV head, over which ``copy_to`` sums the
+head's gradient parts.
 
 NCCL runs them on the card's tensors. gloo runs them on host tensors: its
 CUDA paths copy to the host anyway and not every collective has one (no
@@ -322,16 +328,43 @@ def owned_rows(table, ids, mesh, axis: str = "model", dtype=None):
     return torch.where(own[..., None], rows, rows.new_zeros(()))
 
 
+def gather_blocks(t, mesh, entry, dim: int):
+    """The whole dim ``dim`` of a leaf cut by ``entry`` (a
+    ``sharding.Blocks``: blocks of their own lengths, replicas shared)
+    from every rank's block ``t``: each block padded to the longest, one
+    all-gather over the entry's axis, then each rank's block put at its
+    bounds (a replica's copies alike)."""
+    n = mesh.size(entry.axis)
+    longest = max(hi - lo for lo, hi in entry.bounds)
+    pad = list(t.shape)
+    pad[dim] = longest - t.shape[dim]
+    padded = torch.cat([t, t.new_zeros(pad)], dim) if pad[dim] else t
+    every = all_gather(padded.contiguous(), mesh, entry.axis, dim=dim)
+    shape = list(t.shape)
+    shape[dim] = entry.size
+    out = t.new_empty(shape)
+    if _meta(t):
+        return out
+    for i in range(n):
+        lo, hi = entry.block(i)
+        out.narrow(dim, lo, hi - lo).copy_(
+            every.narrow(dim, i * longest, hi - lo))
+    return out
+
+
 def gather_tree(blocks, specs, mesh):
     """The whole tree from every rank's ``blocks`` (``specs`` a tree of
     Specs of the same layout): each leaf all-gathered over each axis its
-    spec names, on every rank. A check's and a checkpoint's read, not a
-    step's."""
-    from .sharding import tree_map
+    spec names (a ``Blocks`` entry by ``gather_blocks``), on every rank.
+    A check's and a checkpoint's read, not a step's."""
+    from .sharding import Blocks, tree_map
 
     def whole(spec, leaf):
         for d, entry in enumerate(spec):
             if entry is None:
+                continue
+            if isinstance(entry, Blocks):
+                leaf = gather_blocks(leaf, mesh, entry, d)
                 continue
             axes = (entry,) if isinstance(entry, str) else tuple(entry)
             for a in reversed(axes):         # the minor axis first

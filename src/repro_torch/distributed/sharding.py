@@ -22,11 +22,23 @@ whole, the batch over the data axes), and DimeNet by ``gnn_rules`` and
 ``gnn_batch_specs`` (``models/gnn/dimenet.py``: the parameters whole,
 the edges and triplets over every axis).
 
+A spec entry may also be ``Blocks``: a dim cut over one axis into blocks
+of the entry's own bounds, which may differ in length and which ranks
+may share (the LM family's head plan, ``models/lm_parallel.py``, where
+an even cut over ``model`` would split a head: query heads cut unevenly
+by KV group, a KV head replicated over the ranks that share it).
+``shard_block``, ``block_shape``, ``global_shape`` and
+``collectives.gather_tree`` read it; every other family's specs hold
+axis names only, and their even path is unchanged.
+
 A mesh is anything with ``axis_names``, a ``shape`` mapping each axis to
 its size and, for ``shard_block``, a ``rank`` (``launch/mesh.py:Mesh``).
+A ``SubAxis`` names the groups of consecutive ranks along one axis
+(``Mesh.group_of`` takes it as it takes an axis name).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import NamedTuple
 
@@ -41,6 +53,32 @@ class Spec(tuple):
 
     def __repr__(self):
         return f"Spec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """A spec entry: one dim of ``size`` cut over ``axis``, the rank at
+    index i along the axis holding [bounds[i][0], bounds[i][1]). Blocks
+    may differ in length; ranks whose bounds are equal hold the same
+    block (a replica), and the first of them is its ``owner``."""
+    axis: str
+    bounds: tuple
+    size: int
+
+    def block(self, i: int) -> tuple:
+        return self.bounds[i]
+
+    def owner(self, i: int) -> bool:
+        return self.bounds.index(self.bounds[i]) == i
+
+
+@dataclasses.dataclass(frozen=True)
+class SubAxis:
+    """The groups of ``size`` consecutive ranks along ``axis`` (rank i of
+    the axis in group i // size, at index i % size in it): the ranks that
+    share a replicated block of a ``Blocks`` cut."""
+    axis: str
+    size: int
 
 
 class Sharding(NamedTuple):
@@ -145,14 +183,15 @@ def _axes_size(mesh, axes) -> int:
 
 def guard_divisible(specs, tree, mesh):
     """Per-leaf spec sanitizer: a dim whose size the product of its mesh
-    axes does not divide falls back to replicated. ``tree`` supplies the
-    shapes and matches ``specs`` structurally."""
+    axes does not divide falls back to replicated (a ``Blocks`` entry is
+    kept). ``tree`` supplies the shapes and matches ``specs``
+    structurally."""
     def fix(spec, leaf):
         shape = _shape(leaf)
         dims = list(spec) + [None] * (len(shape) - len(spec))
-        return Spec(*(axes if axes is not None
-                      and shape[i] % _axes_size(mesh, axes) == 0 else None
-                      for i, axes in enumerate(dims[:len(shape)])))
+        return Spec(*(axes if isinstance(axes, Blocks) or (
+            axes is not None and shape[i] % _axes_size(mesh, axes) == 0)
+            else None for i, axes in enumerate(dims[:len(shape)])))
 
     return tree_map(fix, specs, tree)
 
@@ -172,9 +211,50 @@ def named(mesh, specs):
 
 def global_shape(shape, spec, mesh) -> tuple:
     """The whole leaf's shape from the shape of one rank's block."""
-    return tuple(n * (_axes_size(mesh, spec[d]) if d < len(spec)
-                      and spec[d] is not None else 1)
-                 for d, n in enumerate(shape))
+    def whole(d, n):
+        entry = spec[d] if d < len(spec) else None
+        if isinstance(entry, Blocks):
+            return entry.size
+        return n * (_axes_size(mesh, entry) if entry is not None else 1)
+
+    return tuple(whole(d, n) for d, n in enumerate(shape))
+
+
+def dim_range(entry, size: int, mesh) -> tuple:
+    """[start, stop) of this rank's block of a dim of ``size`` under the
+    spec ``entry`` (an axis name, a tuple of them, a ``Blocks``, or None
+    for the whole dim); raises where an even cut does not divide."""
+    if entry is None:
+        return 0, size
+    coords = _coords(mesh)
+    if isinstance(entry, Blocks):
+        if size != entry.size:
+            raise ValueError(f"a dim of {size} under blocks of a dim of "
+                             f"{entry.size}")
+        return entry.block(coords[entry.axis])
+    names = _axes(entry)
+    blocks, index = 1, 0
+    for a in names:
+        blocks *= mesh.shape[a]
+        index = index * mesh.shape[a] + coords[a]
+    if size % blocks:
+        raise ValueError(f"dim of {size} does not divide into {blocks} "
+                         f"blocks over {names}")
+    n = size // blocks
+    return index * n, (index + 1) * n
+
+
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    def length(d, n):
+        entry = spec[d] if d < len(spec) else None
+        if isinstance(entry, Blocks):
+            lo, hi = dim_range(entry, n, mesh)
+            return hi - lo
+        return n // _axes_size(mesh, entry) if entry is not None else n
+
+    return tuple(length(d, n) for d, n in enumerate(shape))
 
 
 def _coords(mesh) -> dict:
@@ -209,21 +289,14 @@ def shard_block(x, spec, mesh):
     narrow of each sharded dim) of a tensor or array; ``x`` itself when
     the spec shards nothing. The port's counterpart of ``device_put``
     with a ``NamedSharding``."""
-    coords = _coords(mesh)
     for d, axes in enumerate(spec):
         if axes is None:
             continue
-        names = _axes(axes)
-        blocks, index = 1, 0
-        for a in names:
-            blocks *= mesh.shape[a]
-            index = index * mesh.shape[a] + coords[a]
-        size = _shape(x)[d]
-        if size % blocks:
-            raise ValueError(f"dim {d} of {size} does not divide into "
-                             f"{blocks} blocks over {names}")
-        n = size // blocks
-        x = x[(slice(None),) * d + (slice(index * n, (index + 1) * n),)]
+        try:
+            lo, hi = dim_range(axes, _shape(x)[d], mesh)
+        except ValueError as e:
+            raise ValueError(f"dim {d}: {e}") from None
+        x = x[(slice(None),) * d + (slice(lo, hi),)]
     return x
 
 
@@ -263,7 +336,9 @@ def lm_batch_specs(mesh, kind: str):
     a decode step's cache [L, B, S, Hkv, hd] with B over the data axes and
     the KV heads over ``model`` (the JAX package's table, whose cells'
     ``_cache_spec`` puts S over ``model`` in the dry-run instead; the
-    port's per-head attention needs whole heads on a rank)."""
+    port's per-head attention needs whole heads on a rank). Where model >
+    n_kv a rank's cache holds the KV head it shares with other ranks (the
+    head plan, ``models/lm_parallel.py``; ``lm.init_cache(mesh=)``)."""
     present = tuple(a for a in DATA_AXES if a in mesh.axis_names)
     if kind == "train":
         return {"tokens": data_spec(mesh), "labels": data_spec(mesh)}

@@ -24,6 +24,11 @@ cannot run on the mesh (``Cell.mesh_skip``: the LM family's
 ``check_tp``) is recorded as a skip with the reason. With no ``--mesh``
 the dry-run counts one card. A mesh record is never measured.
 
+Rank 0 stands for every rank. Where the LM family's head plan cuts the
+query heads unevenly (Qwen3-14B and Scout at model=16: 3, 2, 3, 2, ...
+heads), lower model ranks take the larger share, so rank 0 holds the
+most heads and its step is the slowest: the count is the mesh's step.
+
 Usage (the counting needs no GPU):
 
     python -m repro_torch.launch.dryrun --all --out build/dryrun.jsonl

@@ -20,9 +20,15 @@ lays out its devices: rank ``r`` sits at data ``r // M``, model ``r % M``.
 Each rank gets a process group per axis (``Mesh.groups``): its ``data``
 group (the ranks that share its model coordinate) and its ``model`` group
 (the ranks that share its data coordinate), which the collectives of
-``distributed/collectives.py`` take by name. ``submesh`` cuts a mesh's
-ranks into smaller meshes of another shape (the tests run a (1, 2) and a
-(2, 2) mesh in one group of 4 ranks).
+``distributed/collectives.py`` take by name; and, for every divisor R of
+M between 1 and M, its group of R consecutive model ranks
+(``SubAxis("model", R)``: the ranks that share a replicated KV head of
+the LM family's head plan). ``submesh`` cuts a mesh's ranks into smaller
+meshes of another shape, a (pod, data, model) one too, whose ranks also
+get a ``pod`` group and, where pod and data both exceed 1, one over the
+two data axes together, ``("pod", "data")`` (the tests run a (1, 2) and
+a (2, 2) mesh in one group of 4 ranks, and a (1, 4) and a (2, 1, 2)
+one).
 
 ``make_mesh_for`` and ``make_production_mesh`` give meshes of shapes
 only (rank 0, no process group), which the sharding rules read.
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import check_device
+from repro_torch.distributed.sharding import SubAxis
 
 RANK_TIMEOUT_S = 600.0     # a collective that waits longer fails its rank
 RANKS_PER_NODE = 8         # cards a node (DGX H100, H100 SXM)
@@ -71,9 +78,12 @@ class Mesh:
     def size(self, axis=None) -> int:
         """The ranks along ``axis`` (the whole mesh for None; 1 for an
         axis the mesh lacks); a tuple of axes (``("pod", "data")``, the
-        data axes) counts the ranks of their product."""
+        data axes) counts the ranks of their product; a ``SubAxis`` its
+        group's."""
         if axis is None:
             return self.world
+        if isinstance(axis, SubAxis):
+            return min(axis.size, self.size(axis.axis))
         if isinstance(axis, tuple):
             return int(np.prod([self.size(a) for a in axis]))
         return int(self.shape.get(axis, 1))
@@ -84,6 +94,8 @@ class Mesh:
         ``sharding.shard_block`` numbers the blocks of a dim they cut)."""
         if axis is None:
             return self.rank
+        if isinstance(axis, SubAxis):
+            return self.index(axis.axis) % self.size(axis)
         if isinstance(axis, tuple):
             i = 0
             for a in axis:
@@ -99,17 +111,23 @@ class Mesh:
     def group_of(self, axis=None):
         """The process group along ``axis`` (the mesh's for None, or for
         the only axis of size above 1); for a tuple of axes, that of its
-        one axis of size above 1, or the mesh's where they span it (the
-        runtime meshes are (data, model): a tuple that spans neither
-        raises)."""
+        one axis of size above 1, the mesh's where they span it, or the
+        group a (pod, data, model) mesh makes over ``("pod", "data")``
+        (any other tuple raises); for a ``SubAxis``, this rank's group of
+        it (the axis's where the group is the whole axis)."""
         if axis is None:
             return self.group
+        if isinstance(axis, SubAxis) and self.size(axis) == self.size(
+                axis.axis):
+            return self.group_of(axis.axis)
         if isinstance(axis, tuple):
             big = tuple(a for a in axis if self.size(a) > 1)
             if len(big) <= 1:
                 return self.group_of(big[0]) if big else None
             if self.size(big) == self.world:
                 return self.group
+            if big in self.groups:
+                return self.groups[big]
             raise ValueError(f"no process group of this mesh spans the "
                              f"axes {big}")
         g = self.groups.get(axis)
@@ -122,6 +140,12 @@ class Mesh:
         node of ``per_node`` cards, the ranks numbered row-major over the
         axes and the nodes holding consecutive ranks (DGX H100: 8 cards
         a node, joined by NVLink; nodes by InfiniBand)."""
+        if isinstance(axis, SubAxis):
+            stride = int(np.prod([self.shape[a] for a in self.axis_names[
+                self.axis_names.index(axis.axis) + 1:]]))
+            lo = self.rank - self.index(axis) * stride
+            hi = lo + (self.size(axis) - 1) * stride
+            return lo // per_node == hi // per_node
         axes = tuple(self.axis_names) if axis is None else (
             axis if isinstance(axis, tuple) else (axis,))
         stride, lo, hi = 1, self.rank, self.rank
@@ -226,16 +250,41 @@ def _to_host(obj):
     return obj
 
 
+AXES_BY_RANK = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
 def _axis_groups(shape: tuple, base: int = 0) -> list:
-    """For a (data, model) mesh of ``shape`` over ranks ``base`` ..
-    ``base + data * model - 1`` (row-major), every group of each axis as
-    (axis, ranks): the model groups (one a data row), then the data
-    groups (one a model column)."""
-    D, M = shape
-    return ([("model", [base + d * M + m for m in range(M)])
-             for d in range(D)]
-            + [("data", [base + d * M + m for d in range(D)])
-               for m in range(M)])
+    """For a (data, model) or (pod, data, model) mesh of ``shape`` over
+    ranks ``base`` .. ``base + prod(shape) - 1`` (row-major), every group
+    of each axis as (axis, ranks), the minor axis first: the model groups
+    (one a data row), then the data groups (one a model column), then the
+    pod groups; then, with pod and data both above 1, the groups over
+    both, keyed ``("pod", "data")``; then for every divisor R of M
+    between 1 and M, the groups of R consecutive model ranks, keyed
+    ``SubAxis("model", R)``."""
+    names = AXES_BY_RANK[len(shape)]
+    strides = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+
+    def groups_along(axes):
+        along = [names.index(a) for a in axes]
+        others = [i for i in range(len(shape)) if i not in along]
+        out = []
+        for fixed in np.ndindex(*[shape[i] for i in others]):
+            start = base + sum(c * strides[i] for c, i in zip(fixed, others))
+            out.append([start + sum(c * strides[i] for c, i in zip(c_, along))
+                        for c_ in np.ndindex(*[shape[i] for i in along])])
+        return out
+
+    out = [(a, g) for a in reversed(names) for g in groups_along((a,))]
+    if len(shape) == 3 and shape[0] > 1 and shape[1] > 1:
+        out += [(("pod", "data"), g) for g in groups_along(("pod", "data"))]
+    M = shape[-1]
+    for R in range(2, M):
+        if M % R == 0:
+            out += [(SubAxis("model", R), g[i:i + R])
+                    for g in groups_along(("model",))
+                    for i in range(0, M, R)]
+    return out
 
 
 def _new_groups(rank: int, specs: list) -> dict:
@@ -251,23 +300,23 @@ def _new_groups(rank: int, specs: list) -> dict:
     return mine
 
 
-def submesh(mesh: Mesh, *, data: int, model: int) -> Mesh:
-    """This rank's (data, model) mesh when ``mesh``'s ranks are cut into
-    ``mesh.world // (data * model)`` meshes of that shape, each of
-    consecutive ranks. Collective: every rank of ``mesh`` calls it with
-    the same shape, in the same order (it makes process groups)."""
-    n = data * model
+def submesh(mesh: Mesh, *, data: int, model: int, pod: int = 1) -> Mesh:
+    """This rank's (data, model) mesh, or (pod, data, model) one where
+    ``pod`` > 1, when ``mesh``'s ranks are cut into meshes of that shape,
+    each of consecutive ranks. Collective: every rank of ``mesh`` calls it
+    with the same shape, in the same order (it makes process groups)."""
+    shape = (pod, data, model) if pod > 1 else (data, model)
+    n = int(np.prod(shape))
     if mesh.world % n:
-        raise ValueError(f"{mesh.world} ranks do not cut into "
-                         f"(data={data}, model={model}) meshes")
+        raise ValueError(f"{mesh.world} ranks do not cut into meshes of "
+                         f"{dict(zip(AXES_BY_RANK[len(shape)], shape))}")
     specs = []
     for b in range(0, mesh.world, n):
-        specs += [("world", list(range(b, b + n)))] + \
-            _axis_groups((data, model), b)
+        specs += [("world", list(range(b, b + n)))] + _axis_groups(shape, b)
     groups = _new_groups(mesh.rank, specs)
     base = mesh.rank - mesh.rank % n
-    return Mesh(("data", "model"), {"data": data, "model": model},
-                rank=mesh.rank - base,
+    names = AXES_BY_RANK[len(shape)]
+    return Mesh(names, dict(zip(names, shape)), rank=mesh.rank - base,
                 devices=tuple(mesh.devices[base:base + n]),
                 group=groups.pop("world"), groups=groups)
 

@@ -24,9 +24,10 @@ With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` when
 gradients are on: only its input is kept, and the backward runs it again
 (the JAX package remats a super-block at a time: the same values).
 
-Each entry point takes ``mesh=``: on a (data, model) mesh of ranks
-(``launch/mesh.py``) the parameters are this rank's blocks
-(``lm_parallel.place_params``, by ``lm_rules``), the layers run tensor
+Each entry point takes ``mesh=``: on a (pod, data, model) mesh of ranks
+(``launch/mesh.py``; ``pod`` optional) the parameters are this rank's
+blocks (``lm_parallel.place_params``, by ``lm_rules`` and the head
+plan), the batch is cut over ``pod`` and ``data``, the layers run tensor
 parallel over ``model`` with FSDP over ``data``, the MoE expert parallel
 (``moe_impl="ep"`` -> ``nn.moe_ep_partial``, as the JAX package's
 ``_ffn_or_moe`` sends it to ``moe_ep`` given a mesh), and the cross
@@ -45,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import check_device
 from repro_torch.distributed.collectives import (all_gather, all_reduce,
                                                  copy_to, reduce_from)
+from repro_torch.distributed.sharding import DATA_AXES
 from repro_torch.nn import (AttnConfig, MoEConfig, attention,
                             decode_attention, dense, embed, init_attention,
                             init_dense, init_embedding, init_kv_cache,
@@ -236,11 +238,13 @@ def _block_mesh(layer, specs, x, cfg: LMConfig, impl: str, local: bool,
                 mesh):
     """``_block`` on a model rank: the layer's FSDP blocks gathered first
     (under the caller's checkpoint, so again in the backward), the
-    rank's heads and FFN columns, one sum over ``model`` each."""
+    rank's heads by the head plan (``tp.rank_attention``) and its FFN
+    columns, one sum over ``model`` each; the partial outputs of
+    unequal head counts sum as even ones do."""
     layer = tp.gather_fsdp(layer, specs, mesh)
-    acfg = tp.local_attn_cfg(cfg.attn_cfg(local=local), mesh)
-    x = x + attention(tp.attn_in_region(layer["attn"], mesh),
-                      copy_to(rmsnorm(layer["ln1"], x), mesh), acfg,
+    attn, acfg = tp.rank_attention(layer["attn"], cfg.attn_cfg(local=local),
+                                   mesh)
+    x = x + attention(attn, copy_to(rmsnorm(layer["ln1"], x), mesh), acfg,
                       impl=impl, reduce=lambda y: reduce_from(y, mesh))
     y, aux = _ffn_or_moe_mesh(layer, copy_to(rmsnorm(layer["ln2"], x),
                                              mesh), cfg, mesh)
@@ -291,11 +295,12 @@ def _lm_loss_mesh(params, cfg: LMConfig, batch, impl: str, mesh):
         def nll(w, x, labels):
             return tp.nll_vp(x @ w, labels, mesh)
     nll_sum, count = _chunked_nll(nll, w, x, labels, cfg.loss_chunk)
-    # the global sum over data (each rank's gradient its own part's); a
-    # batch D does not divide is whole on every data rank: 1/D of each
-    rep = 1 if split else mesh.size("data")
-    nll_sum = reduce_from(nll_sum, mesh, "data") / rep
-    count = all_reduce(count.clone(), mesh, axis="data") // rep
+    # the global sum over the data axes (each rank's gradient its own
+    # part's); a batch they do not divide is whole on every data rank:
+    # 1/D of each
+    rep = 1 if split else mesh.size(DATA_AXES)
+    nll_sum = reduce_from(nll_sum, mesh, DATA_AXES) / rep
+    count = all_reduce(count.clone(), mesh, axis=DATA_AXES) // rep
     loss = nll_sum / count.clamp_min(1)
     return loss + AUX_WEIGHT * aux, {"lm_loss": loss, "moe_aux": aux}
 
@@ -421,14 +426,16 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     allocated at full size, never broadcast views, because decode writes
     them in place. ``device`` defaults to the card and raises without
     one; pass ``device="cpu"`` for the CPU. With ``mesh``: this rank's
-    block by ``lm_batch_specs``, [L, B/D, S_max, Hkv/M, hd] (the whole
-    batch where D does not divide it)."""
+    block by ``lm_batch_specs``, [L, B/D, S_max, Hkv_rank, hd], D the
+    product of the data axes (``pod``, ``data``; the whole batch where D
+    does not divide it) and Hkv_rank the rank's KV heads by the head plan
+    (1 where a KV head is replicated over the ranks that share it)."""
     device = check_device(device)
     acfg = cfg.attn_cfg()
     if mesh is not None:
         tp.check_tp(cfg, mesh)
         acfg = tp.local_attn_cfg(acfg, mesh)
-        D = mesh.size("data")
+        D = mesh.size(DATA_AXES)
         batch = batch // D if batch % D == 0 else batch
     # one layer's layout from nn.attention (meta tensors: shapes and dtypes
     # only), allocated for every layer
@@ -450,9 +457,10 @@ def _decode_step_mesh(params, cfg: LMConfig, token, cache, cache_index,
     for i, (layer, ls) in enumerate(zip(params["layers"], specs["layers"])):
         layer = tp.gather_fsdp(layer, ls, mesh)
         cache_l = {name: t[i] for name, t in cache.items()}
-        acfg = tp.local_attn_cfg(cfg.attn_cfg(local=cfg.is_local(i)), mesh)
-        h, _ = decode_attention(tp.attn_in_region(layer["attn"], mesh),
-                                copy_to(rmsnorm(layer["ln1"], x), mesh),
+        attn, acfg = tp.rank_attention(
+            layer["attn"], cfg.attn_cfg(local=cfg.is_local(i)), mesh)
+        h, _ = decode_attention(attn, copy_to(rmsnorm(layer["ln1"], x),
+                                              mesh),
                                 cache_l, cache_index, acfg,
                                 reduce=lambda y: reduce_from(y, mesh))
         x = x + h

@@ -1,4 +1,4 @@
-"""The LM family on a (data, model) mesh: tensor parallelism and FSDP by
+"""The LM family on a (pod, data, model) mesh: tensor parallelism and FSDP by
 ``lm_rules``, the port's counterpart of what GSPMD does for the JAX
 package's ``models/lm.py`` when its entry points take ``mesh=``.
 
@@ -13,12 +13,29 @@ of the table is d_model, so FSDP is on exactly where ``fsdp`` and D |
 d_model (the JAX package's ``guard_divisible`` replicates a dim that
 does not divide); a reader finds it from q's first dim (``fsdp_on``).
 
-The model axis is held to whole heads: M must divide ``n_heads`` and
-``n_kv`` (ChatGLM3-6B's ``n_kv=2`` allows M <= 2), the vocabulary, the
-FFN width and the expert count, and ``check_tp`` raises otherwise, with
-the reason. JAX's ``guard_divisible`` would shard k and v's columns at M
-= 16 > n_kv = 8, where GSPMD splits a head; a rank of the port holds
-whole heads, and replicating KV heads is not ported.
+The model axis cuts attention by a head plan (``head_plan``), never
+inside a head. With G = n_heads / n_kv query heads a KV head and M model
+ranks:
+
+- M <= n_kv: M must divide n_kv, and rank m holds KV heads [m K/M,
+  (m+1) K/M) and their G K/M query heads (the even cut);
+- M > n_kv: M must be a multiple of n_kv. Each KV head is replicated over
+  the R = M / n_kv consecutive model ranks that share it, and its G query
+  heads are cut over those R ranks as evenly as whole heads allow, lower
+  ranks first: Qwen3-14B and Scout at M = 16 hold 3, 2, 3, 2, ... query
+  heads over one KV head; ChatGLM3-6B 2 (each KV head on 8 ranks);
+  Qwen2-72B 4; DBRX 3.
+
+Every rank's query heads are then a multiple of its KV heads (the flash
+kernels' GQA). Where KV heads are replicated, ``param_specs`` writes
+a ``sharding.Blocks`` entry for the leaves it touches: q's columns and
+bias and o's rows by the rank's query heads, k's and v's columns and
+biases by its KV head. The rest of the model axis keeps the even rule:
+M must divide the vocabulary, the FFN width and the expert count
+(``check_tp`` raises otherwise, with the reason, as it does for a model
+axis the plan cannot place: M = 3 over n_kv = 2). The JAX package's
+``guard_divisible`` keeps the cut on q, k, v and o wherever the column
+count divides, and GSPMD splits heads mid-head: the same function.
 
 The forward (``models/lm.py`` with ``mesh=``) follows Megatron:
 
@@ -42,19 +59,29 @@ The forward (``models/lm.py`` with ``mesh=``) follows Megatron:
   the last position's logits and gather them over ``model``, so every
   rank returns its batch block's [B / D, V];
 - an MoE layer runs ``nn.moe_ep_partial`` on the rank's experts, and the
-  shared expert's partial output joins the same sum over ``model``.
+  shared expert's partial output joins the same sum over ``model``;
+- a replicated KV head's k and v weights and biases are read through
+  ``copy_to`` over the ranks that share it (``kv_in_region``, over
+  ``SubAxis("model", R)``): each rank's gradient of them is the part of
+  its own query heads, and the sum over the R ranks is the head's.
 
 Batches: the entry points take the whole batch and each rank reads its
-block over ``data`` (``data_block``; the whole batch where D does not
-divide it, as JAX's guard replicates it). The decode cache is the rank's
-block by ``lm_batch_specs``: [L, B / D, S, Hkv / M, hd].
+block over the data axes, ``pod`` and ``data`` (``data_block``, the JAX
+package's ``data_spec``; the whole batch where they do not divide it, as
+JAX's guard replicates it). The decode cache is the rank's block by
+``lm_batch_specs``: [L, B / (pod data), S, Hkv_rank, hd], Hkv_rank the
+rank's KV heads (1 under replication). FSDP cuts over ``data`` alone:
+the parameters are replicated over ``pod``.
 
 The gradient convention: each rank differentiates the global loss
 through ``reduce_from``s whose backward is the identity, so its gradients
-are its own part's; a leaf whole over ``data`` is then summed over
-``data`` (``optim.adam``'s mesh step), an FSDP leaf arrives summed by
-its gather's reduce-scatter, and a leaf whole over ``model`` needs no
-sum (its gradient is computed alike on every model rank).
+are its own part's; a leaf whole over the data axes is then summed over
+them (``optim.adam``'s mesh step; an FSDP leaf over ``pod``), an FSDP
+leaf arrives summed over ``data`` by its gather's reduce-scatter, a
+replicated KV head's by its ``copy_to``, and a leaf whole over ``model``
+needs no sum (its gradient is computed alike on every model rank). The
+clip counts a replicated block on its first rank only
+(``optim.adam.replica_mask``).
 
 ``constrain`` stays the identity: the JAX cells' ``"residual"`` spec
 (Megatron sequence parallelism) changes memory per rank, not the
@@ -63,6 +90,8 @@ function.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import re
 
 import torch
 
@@ -76,12 +105,69 @@ from repro_torch.distributed.collectives import (all_gather, all_reduce,
 MODEL, DATA = "model", "data"
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """Each model rank's query and KV heads: ``q[m]`` and ``kv[m]`` are
+    [start, stop) in heads for model index m; ``R`` ranks share a KV head
+    (1 where M <= n_kv)."""
+    q: tuple
+    kv: tuple
+    R: int
+
+
+@functools.lru_cache(maxsize=None)
+def head_plan(n_heads: int, n_kv: int, M: int) -> HeadPlan:
+    """The head plan of ``n_heads`` query and ``n_kv`` KV heads over M
+    model ranks (the module docstring's rule); raises where it cannot
+    place them, with the reason."""
+    if n_heads % n_kv:
+        raise ValueError(f"{n_heads} query heads are no whole KV groups "
+                         f"of {n_kv}")
+    G = n_heads // n_kv
+    if M <= n_kv:
+        if n_kv % M:
+            raise ValueError(f"model={M} must divide n_kv={n_kv} (M <= "
+                             f"n_kv cuts whole KV heads evenly)")
+        k = n_kv // M
+        return HeadPlan(q=tuple((m * k * G, (m + 1) * k * G)
+                                for m in range(M)),
+                        kv=tuple((m * k, (m + 1) * k) for m in range(M)),
+                        R=1)
+    if M % n_kv:
+        raise ValueError(f"model={M} must be a multiple of n_kv={n_kv} "
+                         f"(M > n_kv replicates each KV head over M / n_kv "
+                         f"ranks)")
+    R = M // n_kv
+    if G < R:
+        raise ValueError(f"model={M} leaves ranks with no query head: "
+                         f"{G} query heads a KV head over {R} ranks")
+    base, extra = divmod(G, R)
+    q, kv = [], []
+    for m in range(M):
+        g, j = divmod(m, R)
+        lo = g * G + j * base + min(j, extra)
+        q.append((lo, lo + base + (j < extra)))
+        kv.append((g, g + 1))
+    return HeadPlan(q=tuple(q), kv=tuple(kv), R=R)
+
+
+def plan_of(cfg, mesh) -> HeadPlan:
+    """``head_plan`` of ``cfg``'s heads on ``mesh``'s model axis."""
+    return head_plan(cfg.n_heads, cfg.n_kv, mesh.size(MODEL))
+
+
 def check_tp(cfg, mesh):
-    """Raise unless the model axis divides every width it cuts."""
+    """Raise unless the model axis can place ``cfg``: the head plan
+    (``head_plan``), and M dividing every other width it cuts."""
     M = mesh.size(MODEL)
     if M == 1:
         return
-    widths = {"n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "vocab": cfg.vocab}
+    try:
+        plan_of(cfg, mesh)
+    except ValueError as e:
+        raise ValueError(f"{cfg.name}: tensor parallelism over model={M}: "
+                         f"{e}") from None
+    widths = {"vocab": cfg.vocab}
     if cfg.is_moe:
         widths["n_experts"] = cfg.n_experts
         if cfg.n_shared_experts:
@@ -90,12 +176,8 @@ def check_tp(cfg, mesh):
         widths["d_ff"] = cfg.d_ff
     for name, n in widths.items():
         if n % M:
-            why = (" (a rank holds whole KV heads; the JAX package's "
-                   "guard_divisible would cut k and v's columns and split "
-                   "a head, which the port does not)" if name == "n_kv"
-                   else "")
             raise ValueError(f"{cfg.name}: tensor parallelism over "
-                             f"model={M} needs M to divide {name}={n}{why}")
+                             f"model={M} needs M to divide {name}={n}")
 
 
 def fsdp_on(params, cfg, mesh) -> bool:
@@ -106,13 +188,42 @@ def fsdp_on(params, cfg, mesh) -> bool:
             != cfg.d_model)
 
 
+# the leaves the head plan cuts: (path regex, which heads, which dim of
+# the leaf counted from its last)
+_HEAD_LEAVES = ((re.compile(r"attn/q/[wb]$"), "q", -1),
+                (re.compile(r"attn/[kv]/[wb]$"), "kv", -1),
+                (re.compile(r"attn/o/w$"), "q", -2))
+
+
+def _head_blocks(spec, path, cfg, plan):
+    """``spec`` with its ``model`` entry made the plan's ``Blocks`` where
+    ``path`` is a leaf the head plan cuts."""
+    key = "/".join(str(p) for p in path)
+    for rx, which, dim in _HEAD_LEAVES:
+        if rx.search(key):
+            heads = plan.q if which == "q" else plan.kv
+            n = cfg.n_heads if which == "q" else cfg.n_kv
+            entries = list(spec)
+            entries[dim] = shx.Blocks(
+                MODEL, tuple((lo * cfg.hd, hi * cfg.hd) for lo, hi in heads),
+                n * cfg.hd)
+            return shx.Spec(*entries)
+    return spec
+
+
 def param_specs(tree, cfg, mesh, fsdp: bool = True, prefix=()):
     """The Spec of every leaf of an LM parameter tree (or of its subtree at
     ``prefix``, e.g. ``("layers", 3)``) by ``lm_rules``: FSDP where
-    ``fsdp`` and D divides d_model."""
+    ``fsdp`` and D divides d_model; where the head plan replicates KV
+    heads (M > n_kv), q, k, v (and biases) and o cut by its ``Blocks``."""
     check_tp(cfg, mesh)
     on = fsdp and cfg.d_model % mesh.size(DATA) == 0
-    return shx.spec_tree(tree, shx.lm_rules(on), prefix=prefix)
+    specs = shx.spec_tree(tree, shx.lm_rules(on), prefix=prefix)
+    plan = plan_of(cfg, mesh)
+    if plan.R == 1:                 # the even cut of lm_rules
+        return specs
+    return shx._map(lambda path, spec: _head_blocks(spec, path, cfg, plan),
+                    specs, path=tuple(prefix))
 
 
 def specs_by_path(params, cfg, mesh) -> dict:
@@ -152,35 +263,59 @@ def gather_fsdp(tree, specs, mesh):
         if DATA in spec else leaf, specs, tree)
 
 
-def attn_in_region(attn: dict, mesh) -> dict:
-    """A layer's attention weights as a model rank reads them: qk-norm's
-    scales are whole but act on the rank's heads only, so each rank's
-    gradient of them is a part; they are read through ``copy_to``, which
-    sums those parts over ``model``."""
-    if "q_norm" not in attn or mesh.size(MODEL) == 1:
+def kv_in_region(attn: dict, mesh, R: int) -> dict:
+    """A layer's k and v weights and biases as a model rank reads a KV
+    head it shares with R - 1 other ranks: through ``copy_to`` over them
+    (``SubAxis("model", R)``), which sums the parts of the gradient that
+    each rank's query heads give."""
+    if R == 1:
         return attn
-    return dict(attn, **{k: {"scale": copy_to(attn[k]["scale"], mesh,
-                                                MODEL)}
-                         for k in ("q_norm", "k_norm")})
+    sub = shx.SubAxis(MODEL, R)
+    return dict(attn, **{k: {n: copy_to(t, mesh, sub)
+                             for n, t in attn[k].items()}
+                         for k in ("k", "v")})
+
+
+def rank_attention(attn: dict, acfg, mesh):
+    """(a layer's attention weights as this model rank reads them, the
+    ``AttnConfig`` of its heads by the head plan). qk-norm's scales are
+    whole but act on the rank's heads only, so each rank's gradient of
+    them is a part; they are read through ``copy_to``, which sums those
+    parts over ``model``. A replicated KV head's weights go through
+    ``kv_in_region``."""
+    M = mesh.size(MODEL)
+    if M == 1:
+        return attn, acfg
+    if "q_norm" in attn:
+        attn = dict(attn, **{k: {"scale": copy_to(attn[k]["scale"], mesh,
+                                                    MODEL)}
+                             for k in ("q_norm", "k_norm")})
+    R = head_plan(acfg.n_heads, acfg.n_kv, M).R
+    return kv_in_region(attn, mesh, R), local_attn_cfg(acfg, mesh)
 
 
 def local_attn_cfg(acfg, mesh):
-    """The attention config of a model rank's heads."""
+    """The attention config of this model rank's heads (``head_plan``)."""
     M = mesh.size(MODEL)
-    return dataclasses.replace(acfg, n_heads=acfg.n_heads // M,
-                               n_kv=acfg.n_kv // M)
+    if M == 1:
+        return acfg
+    plan = head_plan(acfg.n_heads, acfg.n_kv, M)
+    i = mesh.index(MODEL)
+    return dataclasses.replace(acfg, n_heads=plan.q[i][1] - plan.q[i][0],
+                               n_kv=plan.kv[i][1] - plan.kv[i][0])
 
 
 def data_block(t, mesh):
-    """(this rank's block of ``t`` along dim 0 over ``data``, split): the
-    whole ``t``, split False, where D does not divide its batch (the JAX
+    """(this rank's block of ``t`` along dim 0 over the data axes, ``pod``
+    and ``data`` (the JAX package's ``data_spec``), split): the whole
+    ``t``, split False, where they do not divide its batch (the JAX
     package's ``guard_divisible`` replicates it; every data rank then
     computes the whole batch)."""
-    D = mesh.size(DATA)
+    D = mesh.size(shx.DATA_AXES)
     if D == 1 or t.shape[0] % D:
         return t, D == 1
     n = t.shape[0] // D
-    i = mesh.index(DATA)
+    i = mesh.index(shx.DATA_AXES)
     return t[i * n:(i + 1) * n], True
 
 

@@ -10,7 +10,7 @@ Three implementations of one routing:
                       the experts over the ``model`` axis, each model rank
                       running ``moe_gather`` on its E/M experts over its
                       data shard's tokens, the outputs summed over
-                      ``model``, the balance loss averaged over ``data``.
+                      ``model``, the balance loss averaged over the data axes.
 
 The routing (router logits in the activation dtype, softmax in f32, top-k
 with ties to the lower expert index, renormalised gates, the switch
@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.distributed.collectives import copy_to, reduce_from
+from repro_torch.distributed.sharding import DATA_AXES
 
 from .core import normal_init
 
@@ -198,7 +199,8 @@ def moe_ep_partial(p, x, cfg: MoEConfig, mesh):
     the caller, with any other partial output of the layer: Scout's
     shared expert joins the same all-reduce).
 
-    ``x`` [..., d] holds this rank's tokens, whole over ``model`` and
+    ``x`` [..., d] holds this rank's tokens (its block over the data
+    axes, ``pod`` and ``data``), whole over ``model`` and
     already through ``copy_to`` (whose backward sums the model ranks'
     gradients of x); ``p["router"]`` is whole, ``p["w*"]`` this rank's
     E/M experts (``expert_start = index("model") * E/M``), whole over
@@ -210,9 +212,10 @@ def moe_ep_partial(p, x, cfg: MoEConfig, mesh):
     ``model``: the gates' parts added, as the one-process gradient has
     them) and the balance loss's gradient is scaled by 1/M on each model
     rank (counted once in that sum, and once in x's). ``aux`` is the mean
-    of the data shards' balance losses (``reduce_from`` over ``data``,
-    over D: each rank's gradient is its own shard's share), the JAX
-    package's ``pmean``; the same value on every rank.
+    of the data shards' balance losses (``reduce_from`` over the data
+    axes, over D: each rank's gradient is its own shard's share), the JAX
+    package's ``pmean`` over its ``data_axes=("pod", "data")``; the same
+    value on every rank.
     """
     M = mesh.size("model")
     if cfg.n_experts % M:
@@ -229,17 +232,18 @@ def moe_ep_partial(p, x, cfg: MoEConfig, mesh):
                         capacity=capacity_for(T, cfg))
     if M > 1:
         aux = _ScaleGrad.apply(aux, 1.0 / M)
-    D = mesh.size("data")
-    return y, reduce_from(aux, mesh, "data") / D if D > 1 else aux
+    D = mesh.size(DATA_AXES)
+    return y, reduce_from(aux, mesh, DATA_AXES) / D if D > 1 else aux
 
 
 def moe_ep(p, x, cfg: MoEConfig, mesh):
     """Expert-parallel MoE, the JAX package's ``moe_ep`` on a mesh of
-    ranks: x [..., d] is this rank's block of the batch over ``data`` (the
-    whole batch where the data axes cannot divide it: routing is then
-    recomputed on each data rank, as JAX drops those axes), whole over
-    ``model``; ``p`` the router and this rank's E/M experts (see
-    ``moe_ep_partial``). Returns (y, aux): y this rank's block, summed
-    over ``model``; aux the mean of the data shards' balance losses."""
+    ranks: x [..., d] is this rank's block of the batch over the data
+    axes, ``pod`` and ``data`` (the whole batch where they cannot divide
+    it: routing is then recomputed on each data rank, as JAX drops those
+    axes), whole over ``model``; ``p`` the router and this rank's E/M
+    experts (see ``moe_ep_partial``). Returns (y, aux): y this rank's
+    block, summed over ``model``; aux the mean of the data shards'
+    balance losses."""
     y, aux = moe_ep_partial(p, copy_to(x, mesh, "model"), cfg, mesh)
     return reduce_from(y, mesh, "model"), aux

@@ -43,7 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed.collectives import all_reduce
-from repro_torch.distributed.sharding import DATA_AXES
+from repro_torch.distributed.sharding import DATA_AXES, Blocks
 
 # elements per row chunk of the in-place update (2^26: 268 MB in f32)
 CHUNK = 1 << 26
@@ -127,7 +127,9 @@ def _row_chunks(t: torch.Tensor):
 def _axes_of(spec) -> set:
     out = set()
     for entry in spec:
-        if entry is not None:
+        if isinstance(entry, Blocks):
+            out.add(entry.axis)
+        elif entry is not None:
             out.update((entry,) if isinstance(entry, str) else entry)
     return out
 
@@ -135,9 +137,13 @@ def _axes_of(spec) -> set:
 def replica_mask(specs: list, mesh) -> list:
     """Per leaf, whether this rank counts its block in a global norm: the
     first rank along every mesh axis the leaf's spec does not cut (where
-    the block is repeated), so each block counts once."""
+    the block is repeated), and the owner of a block that ranks of a
+    ``Blocks`` cut share (an LM KV head replicated over the model ranks
+    of its group), so each block counts once."""
     return [all(mesh.index(a) == 0 for a in mesh.axis_names
-                if a not in _axes_of(s)) for s in specs]
+                if a not in _axes_of(s))
+            and all(e.owner(mesh.index(e.axis)) for e in s
+                    if isinstance(e, Blocks)) for s in specs]
 
 
 def data_grad_axes(spec, mesh) -> tuple:

@@ -1,5 +1,8 @@
-"""The JAX package's LM family on a (data, model) mesh of 4 host devices:
-the reference ``tests/test_torch_lm_mesh.py`` holds the port's ranks to.
+"""The JAX package's LM family on a mesh of 4 host devices: the
+reference ``tests/test_torch_lm_mesh.py`` (the (data, model) meshes
+``MESHES``) and ``tests/test_torch_lm_mesh_heads.py`` (``HEADS_MESHES``:
+(data 1, model 4) and (pod 2, data 1, model 2), the configs
+``HEADS`` at ``heads_config``'s head counts) hold the port's ranks to.
 
     python tests/_jax_lm_mesh_ref.py INPUTS.npz OUTPUTS.npz [MESH ...]
 
@@ -18,7 +21,10 @@ parameters and both moments after them); and
 JAX LM runs attention through XLA (no Pallas call is on the path, so
 nothing refuses to partition). Every result is written whole (gathered)
 to OUTPUTS under ``<mesh>/<name>/...``; MESH names the meshes to run
-(all by default), so two processes can share the work.
+(those of ``MESHES`` by default), so two processes can share the work.
+The decode cache is placed by ``lm_batch_specs`` after
+``guard_divisible`` (at model=4 over 2 KV heads the heads dim is
+replicated).
 """
 import os
 import sys
@@ -45,6 +51,12 @@ from repro.nn.moe import MoEConfig, moe_ep  # noqa: E402
 MESHES = {"1x2": (2, 2), "2x2": (4, 2)}     # name -> make_mesh_for(n, model)
 CONFIGS = {c.name: c for c in (lm_family.QWEN3_14B, lm_family.CHATGLM3_6B,
                                lm_family.DBRX_132B, lm_family.LLAMA4_SCOUT)}
+# name -> (shape, axes) over the first 4 host devices
+HEADS_MESHES = {"1x4": ((1, 4), ("data", "model")),
+                "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+# name -> (n_heads, n_kv) of heads_config
+HEADS = {"qwen3-14b": (6, 2), "chatglm3-6b": (4, 2),
+         "llama4-scout-17b-a16e": (6, 2)}
 
 
 def mesh_config(cfg):
@@ -57,6 +69,22 @@ def mesh_config(cfg):
     if cfg.name == "qwen3-14b":
         r = dataclasses.replace(r, remat=True, loss_chunk=8)
     return r
+
+
+def heads_config(cfg):
+    """``mesh_config`` at ``HEADS``' head counts (of 16): Qwen3-14B and
+    Scout 6 over 2 KV heads (G = 3: at model=4 each KV head on 2 ranks
+    that hold 2 and 1 query heads), ChatGLM3-6B 4 over 2 (1 a rank at
+    model=4)."""
+    n_heads, n_kv = HEADS[cfg.name]
+    return dataclasses.replace(mesh_config(cfg), n_heads=n_heads, n_kv=n_kv)
+
+
+def heads_mesh(name):
+    shape, axes = HEADS_MESHES[name]
+    n = int(np.prod(shape))
+    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape),
+                             axes)
 
 
 MOE_CFG = MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2,
@@ -98,9 +126,10 @@ def run_config(name, cfg, inp, mesh, out, tag):
                             NamedSharding(mesh, dspec))
     pre = jax.jit(lambda p, t: lm.prefill(p, cfg, t, mesh=mesh))
     out[f"{tag}/prefill"] = np.asarray(pre(params, tokens))
-    bs = shx.lm_batch_specs(mesh, "decode")
-    cache = {k: jax.device_put(jnp.asarray(inp[f"{name}/cache/{k}"]),
-                               NamedSharding(mesh, bs["cache"][k]))
+    whole = {k: jnp.asarray(inp[f"{name}/cache/{k}"]) for k in ("k", "v")}
+    cspec = shx.guard_divisible(shx.lm_batch_specs(mesh, "decode")["cache"],
+                                whole, mesh)
+    cache = {k: jax.device_put(whole[k], NamedSharding(mesh, cspec[k]))
              for k in ("k", "v")}
     dec = jax.jit(lambda p, t, c, i: lm.decode_step(p, cfg, t, c, i,
                                                     mesh=mesh))
@@ -164,6 +193,12 @@ def main(src, dst, meshes=tuple(MESHES)):
     inp = dict(np.load(src))
     out = {}
     for mname in meshes:
+        if mname in HEADS_MESHES:
+            mesh = heads_mesh(mname)
+            for name in HEADS:
+                run_config(name, heads_config(CONFIGS[name]), inp, mesh,
+                           out, f"{mname}/{name}")
+            continue
         n, model = MESHES[mname]
         mesh = make_mesh_for(n, model=model)
         for name, cfg in CONFIGS.items():

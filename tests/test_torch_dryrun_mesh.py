@@ -24,8 +24,13 @@ Held here:
   after the last block, so the port's reduce-scatter and all-reduce wire
   together is held below GSPMD's all-reduce wire;
 * every registry cell at 16 x 16 and 2 x 16 x 16 ``ok``, or a ``skip``
-  with its reason (the cell's own, or ``check_tp``'s at model=16), with a
-  collective term above 0 for every ``ok`` cell whose step communicates;
+  with its own reason, with a collective term above 0 for every ``ok``
+  cell whose step communicates: every LM cell counts on both meshes
+  (the head plan, rank 0 holding the most query heads; a decode cell's
+  departure names the KV replication);
+* every rank of a (1, 4) mesh counted: the matmul FLOPs summed are one
+  process's plus exactly the k/v projections' that the KV replication
+  repeats;
   the CLI's ``--mesh both`` in a subprocess under 4 GB resident; the
   no-mesh records as the parent commit counted them;
 * the conventional step on 4 gloo ranks (pure data parallelism over
@@ -57,6 +62,7 @@ from repro_torch.launch import dryrun, op_analysis  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch.mesh import (make_mesh_for,  # noqa: E402
                                     make_production_mesh, run_on_mesh)
+from repro_torch.models import lm_parallel  # noqa: E402
 from repro_torch.optim.adam import (data_grad_axes, leaves,  # noqa: E402
                                     sync_grads)
 from repro_torch.distributed.sharding import Spec  # noqa: E402
@@ -355,13 +361,78 @@ def test_every_cell_counts_or_skips_with_its_reason_on_both_meshes():
             assert r["coll_detail"]["operand_convention_total"] > 0
         else:
             assert r["t_collective"] == 0
-    lm = [r for r in recs if r["arch"] == "qwen3-14b" and
-          r["mesh"] == "16x16" and r["shape"] != "long_500k"]
-    assert lm and all("model=16 needs M to divide n_heads=40" in r["reason"]
-                      for r in lm)
+    # every LM cell counts on both meshes (long_500k skips on the four
+    # full-attention configs only, by its own reason): 16 a mesh
+    lm = [r for r in recs if configs.get_arch(r["arch"]).family == "lm"]
+    counted = [r for r in lm if r["status"] == "ok"]
+    assert len(counted) == 32 and {r["mesh"] for r in counted} == {
+        "16x16", "2x16x16"}
+    assert all("sub-quadratic" in r["reason"] for r in lm
+               if r["status"] == "skip")
+    for r in counted:
+        assert r["t_collective"] > 0 and r["peak_memory_per_chip"] > 0
+        if r["kind"] == "decode":
+            assert "replicated" in r["departure"], r
+        else:
+            assert "departure" not in r
+    # rank 0, the counted rank, holds the most query heads of any rank
+    for name in ("qwen3-14b", "llama4-scout-17b-a16e", "dbrx-132b"):
+        cfg = configs.get_arch(name).config
+        plan = lm_parallel.head_plan(cfg.n_heads, cfg.n_kv, 16)
+        counts = [hi - lo for lo, hi in plan.q]
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            assert lm_parallel.local_attn_cfg(cfg.attn_cfg(), mesh) \
+                .n_heads == max(counts) == counts[0]
     sf = [r for r in recs if (r["arch"], r["shape"]) ==
           ("speedyfeed", "train_prod")]
     assert all("ZeRO-1" in r["departure"] for r in sf)
+
+
+def test_every_rank_counted_repeats_only_the_replicated_kv_work():
+    """The reduced Qwen3-14B at 6 query heads over 2 KV heads (remat, loss
+    chunk 8), its train step at B=4, S=32 on a (data=1, model=4) mesh,
+    counted on meta at every rank: each KV head is replicated over R = 2
+    ranks, which hold 2 and 1 of its 3 query heads. The ranks' aten
+    matmul FLOPs summed are one process's plus exactly (R - 1) times the
+    k and v projections' (forward, its remat, and the two backward
+    products: 4 a layer), the work replication repeats; the flash
+    kernels' FLOPs summed are one process's (the query heads are cut,
+    not repeated), rank 0's twice rank 1's."""
+    import _torch_lm_mesh_heads_ranks as heads
+    from repro_torch.configs import lm_family
+    from repro_torch.configs.base import (abstract_opt, abstract_params,
+                                          meta, shard_abstract)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    cfg = heads.heads_config("qwen3-14b")
+    B, S, M = 4, 32, 4
+
+    def count(mesh):
+        params = abstract_params(lambda g: lm.init(g, cfg))
+        opt = abstract_opt(params)
+        if mesh is not None:
+            specs = lm_parallel.param_specs(params, cfg, mesh)
+            opt = dict(opt, m=shard_abstract(opt["m"], specs, mesh),
+                       v=shard_abstract(opt["v"], specs, mesh))
+            params = shard_abstract(params, specs, mesh)
+        batch = {k: meta((B, S), torch.int32) for k in ("tokens", "labels")}
+        args = (params, opt, batch)
+        with op_analysis.OpCounter(args) as counter:
+            lm_family.make_fn(cfg, "train", mesh)(*args)
+        br = counter.result()["breakdown"]
+        return br["matmul"]["flops"], sum(
+            v["flops"] for k, v in br.items() if k.startswith("kernel:flash"))
+
+    one = count(None)
+    every = [count(Mesh(("data", "model"), {"data": 1, "model": M}, rank=r))
+             for r in range(M)]
+    R = lm_parallel.head_plan(cfg.n_heads, cfg.n_kv, M).R
+    kv = cfg.n_layers * 4 * 2 * (2 * B * S * cfg.d_model * cfg.n_kv * cfg.hd)
+    assert R == 2
+    assert sum(mm for mm, _ in every) == one[0] + (R - 1) * kv
+    assert sum(fl for _, fl in every) == one[1]
+    assert every[0][1] == 2 * every[1][1]
 
 
 @pytest.mark.parametrize("arch,shape", list(NO_MESH))
@@ -384,7 +455,7 @@ def test_cli_mesh_both_counts_large_cells_in_little_memory(tmp_path):
         check=True).stdout
     m = re.search(r"dry-run summary: (\d+) ok, (\d+) fail, (\d+) skip; "
                   r"[\d.]+ s; ru_maxrss ([\d.]+) GB", out)
-    assert m and m.groups()[:3] == ("8", "0", "8"), out[-2000:]
+    assert m and m.groups()[:3] == ("14", "0", "2"), out[-2000:]
     assert float(m.group(4)) < 4.0
     recs = [json.loads(line) for line in open(out_path)]
     ogb = [r for r in recs if r["shape"] == "ogb_products"]

@@ -427,12 +427,45 @@ def test_moe_ep_overflow_matches_jax(mesh_run, mname):
 
 # ---------------------------------------------------------- without ranks
 
+# each registry config's query heads a model rank at model=16 (rank 0
+# first), and the ranks that share a KV head
+HEADS_AT_16 = {"qwen3-14b": ([3, 2] * 8, 2), "chatglm3-6b": ([2] * 16, 8),
+               "qwen2-72b": ([4] * 16, 2), "dbrx-132b": ([3] * 16, 2),
+               "llama4-scout-17b-a16e": ([3, 2] * 8, 2)}
+
+
 def test_tensor_parallelism_needs_whole_kv_heads():
-    """M must divide n_kv: ChatGLM3-6B (n_kv=2) refuses model=4 with the
-    reason; model=2 places."""
-    with pytest.raises(ValueError, match="n_kv=2.*whole KV heads"):
-        lm_parallel.check_tp(lm_family.CHATGLM3_6B, make_mesh_for(4, model=4))
-    lm_parallel.check_tp(lm_family.CHATGLM3_6B, make_mesh_for(4, model=2))
+    """The head plan: ChatGLM3-6B (32 heads over n_kv=2) places model=4
+    and 16 with each KV head replicated over 2 and 8 ranks; every registry
+    config at model=16 cuts its query heads by KV group, lower ranks
+    first, on the (16, 16) and (2, 16, 16) meshes; a model axis the plan
+    cannot place still raises with the reason (model=3 over n_kv=2)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    glm = lm_family.CHATGLM3_6B
+    for M, R in ((4, 2), (16, 8)):
+        lm_parallel.check_tp(glm, make_mesh_for(M, model=M))
+        plan = lm_parallel.head_plan(glm.n_heads, glm.n_kv, M)
+        assert plan.R == R and plan.kv == tuple((m // R, m // R + 1)
+                                                for m in range(M))
+        assert [hi - lo for lo, hi in plan.q] == [32 // M] * M
+    for cfg in lm_family.CONFIGS.values():
+        q, R = HEADS_AT_16[cfg.name]
+        plan = lm_parallel.head_plan(cfg.n_heads, cfg.n_kv, 16)
+        assert [hi - lo for lo, hi in plan.q] == q and plan.R == R
+        # the query heads of KV head g are its own: [g G, (g + 1) G)
+        G = cfg.n_heads // cfg.n_kv
+        for (lo, hi), (g, _) in zip(plan.q, plan.kv):
+            assert g * G <= lo < hi <= (g + 1) * G
+        assert plan.q[0][0] == 0 and plan.q[-1][1] == cfg.n_heads
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            lm_parallel.check_tp(cfg, mesh)
+            assert lm_family.mesh_skip(cfg, mesh) is None
+            assert lm_parallel.local_attn_cfg(cfg.attn_cfg(), mesh) \
+                .n_heads == q[0]
+    with pytest.raises(ValueError, match="model=3 must be a multiple of "
+                                         "n_kv=2"):
+        lm_parallel.check_tp(glm, make_mesh_for(3, model=3))
 
 
 @pytest.mark.parametrize("name", [a for a in configs.list_archs()
